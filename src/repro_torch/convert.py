@@ -1,0 +1,66 @@
+"""Carry the reference's state into the port.
+
+The reference hands its state over as plain Python and numpy (the
+port never imports it): an `ArchSpec` as the dict of its dataclass
+fields (`dataclasses.asdict`), a search population as numpy arrays,
+a `PopulationBest` as its three arrays.  These functions rebuild the
+port's objects from that, on a named device.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.archspec import (ArchSpec, BandwidthModel, EpaModel, HWConfig,
+                            MemLevel)
+from .core.model import PopulationBest
+from .device import DEFAULT_DEVICE, resolve_device
+
+
+def _tuple_or_none(x):
+    return None if x is None else tuple(x)
+
+
+def arch_spec_from_dict(d: dict) -> ArchSpec:
+    """An `ArchSpec` from the reference spec's dataclass fields."""
+    levels = tuple(
+        MemLevel(name=lv["name"], tensors=tuple(lv["tensors"]),
+                 word_bytes=lv["word_bytes"], epa=EpaModel(**lv["epa"]),
+                 bandwidth=BandwidthModel(**lv["bandwidth"]),
+                 size_words=lv["size_words"], searched=lv["searched"],
+                 rand_log2_kb=_tuple_or_none(lv["rand_log2_kb"]))
+        for lv in d["levels"])
+    hw = d.get("default_hw")
+    return ArchSpec(
+        name=d["name"], levels=levels,
+        spatial_sites=tuple(tuple(s) for s in d["spatial_sites"]),
+        level0_temporal_dims=tuple(d["level0_temporal_dims"]),
+        epa_mac=d["epa_mac"], max_pe_dim=d["max_pe_dim"],
+        fixed_pe_dim=d["fixed_pe_dim"],
+        dram_block_words=d["dram_block_words"],
+        sram_round_bytes=d["sram_round_bytes"],
+        rand_pe_log2=tuple(d["rand_pe_log2"]),
+        cosa_schedule=(None if d["cosa_schedule"] is None else
+                       tuple(tuple(s) for s in d["cosa_schedule"])),
+        default_hw=(None if hw is None else
+                    HWConfig(pe_dim=hw["pe_dim"],
+                             cap_kb=tuple(hw["cap_kb"]))))
+
+
+def population_from_numpy(theta, orders, device=DEFAULT_DEVICE):
+    """(theta float32 (P, L, 2, n_levels, 7), orders int64 (P, L,
+    n_levels)) tensors on `device` from numpy arrays."""
+    dev = resolve_device(device)
+    theta = torch.from_numpy(np.array(theta, dtype=np.float32)).to(dev)
+    orders = torch.from_numpy(np.array(orders, dtype=np.int64)).to(dev)
+    return theta, orders
+
+
+def population_best_from_numpy(edp, f, orders,
+                               device=DEFAULT_DEVICE) -> PopulationBest:
+    """A `PopulationBest` on `device` from its three numpy arrays."""
+    dev = resolve_device(device)
+    return PopulationBest(
+        edp=torch.from_numpy(np.array(edp, dtype=np.float32)).to(dev),
+        f=torch.from_numpy(np.array(f, dtype=np.float32)).to(dev),
+        orders=torch.from_numpy(np.array(orders, dtype=np.int64)).to(dev))
