@@ -4,12 +4,24 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Run from the root of a checkout.  It builds the port's CUDA kernels from
+Run from the root of a checkout.  It builds the port's CUDA kernels
+(the matmul and the flash attention, one nvcc each, in parallel) from
 the sources in the checkout, holds each against its plain PyTorch
-version on the card, drives the port's two paths through the entry
-points a user calls — the DOSA-tuned matmul at Qwen3-0.6B's FFN
-up-projection width and the DOSA co-search at the paper's protocol on
-ResNet-50 — then checks the card against the CPU on a small search.
+version on the card, and drives the port's three paths through the
+entry points a user calls, each with the launch counts set to 0 just
+before it and read just after:
+
+- the DOSA-tuned matmul at Qwen3-0.6B's FFN up-projection width, then
+  the DOSA co-search at the paper's protocol on ResNet-50;
+- `LM.prefill` of Qwen3-0.6B at full width (4 prompts x 4096 tokens),
+  whose attention runs in the flash kernel, 28 launches a call;
+- the serve loop (`launch.serve`) at full width: 4 requests, prompt
+  128, 32 generated tokens, greedy.
+
+Then it profiles decode steps and GD steps, checks the card against the
+CPU (a small search; the reduced LM) and teacher-forced decode against
+prefill at full width, and times both kernels beside their bounds,
+plain versions and library calls.
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The second-to-last lines are the kernel summary and the card's name and
 power limit (from nvidia-smi); the last line is
@@ -40,6 +52,27 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 # Qwen3-0.6B FFN up-projection (d_model=1024, d_ff=3072) at 4096 tokens.
 FFN_M, FFN_K, FFN_N = 4096, 1024, 3072
+
+# Flash attention against its plain version: (b, hq, hkv, sq, sk, d,
+# causal, q_offset).  tests/test_kernels.py's sweep (bh 3, d 64), then
+# Qwen3-0.6B's heads (16 over 8, d 128), a ragged S=1000, 100 queries
+# after a 900-token prefix, and the reduced config's d 32.
+FLASH_CASES = [
+    (1, 3, 3, 128, 128, 64, True, 0), (1, 3, 3, 128, 128, 64, False, 0),
+    (1, 3, 3, 256, 128, 64, False, 0), (1, 3, 3, 128, 256, 64, False, 0),
+    (2, 16, 8, 512, 512, 128, True, 0),
+    (1, 16, 8, 1000, 1000, 128, True, 0),
+    (1, 16, 8, 1000, 1000, 128, False, 0),
+    (2, 16, 8, 100, 1000, 128, True, 900),
+    (2, 4, 2, 77, 333, 32, True, 256),
+]
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+# Qwen3-0.6B prefill: 4 prompts x 4096 tokens.
+PREFILL_B, PREFILL_S = 4, 4096
+# Teacher-forced decode against prefill at full width, float32 compute:
+# logits and K/V stacks within this (rtol and atol).
+DECODE_TOL_F32 = 1e-3
 
 
 def emit(obj) -> None:
@@ -301,19 +334,284 @@ def phase_matmul_timing(torch, matmul, matmul_ref, x, y, launches):
     return row
 
 
+def plain_attention(attention_ref, q, k, v, causal, q_offset):
+    """The plain version at the kernel's (B, H, S, D) GQA interface:
+    KV heads repeated, heads flattened, `attention_ref`."""
+    b, hq, sq, d = q.shape
+    group = hq // k.shape[1]
+    kk = k.repeat_interleave(group, 1).reshape(b * hq, -1, d)
+    vv = v.repeat_interleave(group, 1).reshape(b * hq, -1, d)
+    return attention_ref(q.reshape(b * hq, sq, d), kk, vv, causal=causal,
+                         q_offset=q_offset).reshape(q.shape)
+
+
+def phase_flash_vs_plain(torch, attend, attention_ref):
+    """Every FLASH_CASES shape, f32 and bf16, on the card against the
+    plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = {}
+    for (b, hq, hkv, sq, sk, d, causal, off) in FLASH_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn((b, hq, sq, d), generator=gen,
+                            device="cuda").to(dt)
+            k = torch.randn((b, hkv, sk, d), generator=gen,
+                            device="cuda").to(dt)
+            v = torch.randn((b, hkv, sk, d), generator=gen,
+                            device="cuda").to(dt)
+            out = attend(q, k, v, causal=causal, q_offset=off)
+            ref = plain_attention(attention_ref, q, k, v, causal, off)
+            torch.cuda.synchronize()
+            key = str(dt).split(".")[-1]
+            tol = FLASH_TOL[key]
+            torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
+                                       atol=tol)
+            err = (out.float() - ref.float()).abs().max().item()
+            worst[key] = max(worst.get(key, 0.0), err)
+    emit({"phase": "flash_vs_plain",
+          "cases_b_hq_hkv_sq_sk_d_causal_qoffset": FLASH_CASES,
+          "max_abs_err": worst, "tolerance": FLASH_TOL})
+
+
+def phase_lm_prefill(torch, lm_mod, configs, flash):
+    """The LM main path: Qwen3-0.6B at full width, initialised on the
+    card from seed 0, `prefill` of 4 prompts x 4096 tokens — a cold
+    call, then a warm one, the flash launches counted in each."""
+    cfg = configs.get_config("qwen3_0_6b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = lm_mod.build_model(cfg, device="cuda", generator=gen)
+    tokens = torch.randint(1, cfg.vocab_size, (PREFILL_B, PREFILL_S),
+                           generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs, launches = [], []
+    for _ in range(2):
+        flash.launches = 0
+        t0 = now()
+        logits, cache = model.prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        secs.append(now() - t0)
+        launches.append(flash.launches)
+    check(launches == [cfg.n_layers] * 2,
+          f"flash launches per prefill call {launches}, expected "
+          f"{cfg.n_layers}")
+    finite = bool(torch.isfinite(logits).all())
+    check(finite, "prefill logits finite")
+    check(tuple(logits.shape) == (PREFILL_B, 1, cfg.vocab_size),
+          f"prefill logits shape {tuple(logits.shape)}")
+    k_stack = cache["kv"][0][0]
+    check(tuple(k_stack.shape) == (cfg.n_layers, PREFILL_B, cfg.n_kv_heads,
+                                   PREFILL_S, cfg.head_dim),
+          f"KV stack shape {tuple(k_stack.shape)}")
+    tokens_n = PREFILL_B * PREFILL_S
+    emit({"phase": "lm_prefill_qwen3_0_6b", "batch": PREFILL_B,
+          "prompt_len": PREFILL_S, "compute_dtype": cfg.compute_dtype,
+          "seconds_cold": secs[0], "seconds_warm": secs[1],
+          "tokens_per_s_warm": tokens_n / secs[1],
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "flash_launches_per_call": launches, "logits_finite": finite})
+    return model, launches[0]
+
+
+def phase_lm_serve(torch, serve, configs, flash):
+    """The serve path at full width: the CLI's `run` with 4 requests,
+    prompt 128, 32 generated tokens, greedy."""
+    argv = ["--arch", "qwen3_0_6b", "--batch", "4", "--prompt-len", "128",
+            "--gen", "32", "--device", "cuda", "--seed", "0"]
+    args = serve.parse_args(argv)
+    flash.launches = 0
+    seq, secs = serve.run(args, clock=now)
+    vocab = configs.get_config("qwen3_0_6b").vocab_size
+    check(tuple(seq.shape) == (4, 160), f"served tokens {tuple(seq.shape)}")
+    check(bool(((seq >= 0) & (seq < vocab)).all()), "tokens in range")
+    emit({"phase": "lm_serve_qwen3_0_6b", "argv": argv,
+          "seconds": secs, "tok_per_s": seq.numel() / secs,
+          "flash_launches": flash.launches,
+          "sample": seq[0, 120:140].tolist()})
+
+
+def phase_profile_decode(torch, model, n_steps: int = 5):
+    """Where a full-width decode step's time goes: `n_steps` steps of
+    4 sequences at positions 128.. timed on the host clock, then the
+    same under torch.profiler — device operations, device busy time and
+    busy share per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tok = torch.randint(1, model.cfg.vocab_size, (4, 1), generator=gen,
+                        device="cuda")
+    cache = model.init_cache(4, 160)
+    model.decode_step(cache, tok, 127)                      # warm
+    torch.cuda.synchronize()
+    t0 = now()
+    for i in range(n_steps):
+        model.decode_step(cache, tok, 128 + i)
+    torch.cuda.synchronize()
+    step_ms = (now() - t0) * 1e3 / n_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n_steps):
+            model.decode_step(cache, tok, 128 + i)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / n_steps
+    emit({"phase": "profile_decode_steps", "steps": n_steps, "batch": 4,
+          "wall_ms_per_step": step_ms,
+          "device_ops_per_step": len(dev) / n_steps,
+          "device_busy_ms_per_step": busy_ms if dev else "not measured",
+          "device_busy_share": busy_ms / step_ms if dev
+          else "not measured"})
+
+
+def phase_lm_prefill_vs_decode(torch, lm_mod, model):
+    """Teacher-forced `decode_step` over a 128-token prompt against
+    `prefill` of it, at full width: the last logits and the K/V stacks.
+    Float32 compute (f32 cache) is held to DECODE_TOL_F32; the bf16
+    compute's error (bf16 cache) is printed beside it."""
+    import dataclasses
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(1, model.cfg.vocab_size, (2, 128),
+                           generator=gen, device="cuda")
+    out = {}
+    for cdt in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(model.cfg, compute_dtype=cdt)
+        m = lm_mod.build_model(cfg, device="cuda", params=model.params)
+        logits_p, cache_p = m.prefill({"tokens": tokens})
+        dtype = getattr(torch, cdt)
+        cache = m.init_cache(2, 128, dtype=dtype)
+        for pos in range(128):
+            logits_d, cache = m.decode_step(cache, tokens[:, pos:pos + 1],
+                                            pos)
+        torch.cuda.synchronize()
+        pairs = [("logits", logits_d, logits_p),
+                 ("k", cache["slot0"]["k"], cache_p["kv"][0][0]),
+                 ("v", cache["slot0"]["v"], cache_p["kv"][0][1])]
+        errs = {}
+        for name, a, b in pairs:
+            errs[name] = (a.float() - b.float()).abs().max().item()
+            if cdt == "float32":
+                torch.testing.assert_close(a.float(), b.float(),
+                                           rtol=DECODE_TOL_F32,
+                                           atol=DECODE_TOL_F32)
+        out[cdt] = errs
+    emit({"phase": "lm_prefill_vs_decode", "prompt_len": 128, "batch": 2,
+          "tolerance_f32": DECODE_TOL_F32,
+          "max_abs_err_f32": out["float32"],
+          "max_abs_err_bf16_printed_only": out["bfloat16"]})
+
+
+def phase_lm_card_vs_cpu(torch, lm_mod, configs, serve_step):
+    """The reduced config in float32: parameters drawn on the CPU, the
+    same tree on the card; prefill logits within 1e-4, greedy tokens
+    equal."""
+    import dataclasses
+
+    cfg = dataclasses.replace(configs.get_config("qwen3_0_6b", reduced=True),
+                              compute_dtype="float32")
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    cpu = lm_mod.build_model(cfg, device="cpu", generator=gen)
+    card = lm_mod.build_model(
+        cfg, device="cuda",
+        params=lm_mod._tree_map(lambda t: t.to("cuda"), cpu.params))
+    tokens = torch.randint(1, cfg.vocab_size, (2, 40), generator=gen)
+    lc, _ = cpu.prefill({"tokens": tokens})
+    lg, _ = card.prefill({"tokens": tokens.cuda()})
+    err = (lg.cpu() - lc).abs().max().item()
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    tc = serve_step.greedy_decode(cpu, tokens[:, :8], 12, device="cpu")
+    tg = serve_step.greedy_decode(card, tokens[:, :8], 12, device="cuda")
+    check(torch.equal(tc, tg.cpu()), "greedy tokens card != cpu")
+    emit({"phase": "lm_card_vs_cpu", "config": "qwen3_0_6b reduced f32",
+          "prefill_logits_max_abs_err": err, "tolerance": 1e-4,
+          "greedy_tokens_equal": True})
+
+
+def phase_flash_timing(torch, attend, attention_ref, launches):
+    """Kernel, plain version and SDPA at the prefill shape, bf16
+    causal."""
+    import torch.nn.functional as F
+
+    b, hq, hkv, s, d = PREFILL_B, 16, 8, PREFILL_S, 128
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q = torch.randn((b, hq, s, d), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    k = torch.randn((b, hkv, s, d), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    v = torch.randn((b, hkv, s, d), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    kern = attend(q, k, v, causal=True)
+    ref = plain_attention(attention_ref, q, k, v, True, 0)
+    err = (kern.float() - ref.float()).abs().max().item()
+    torch.testing.assert_close(kern.float(), ref.float(),
+                               rtol=FLASH_TOL["bfloat16"],
+                               atol=FLASH_TOL["bfloat16"])
+    del ref
+    group = hq // hkv
+    qf = q.reshape(b * hq, s, d)
+    kf = k.repeat_interleave(group, 1).reshape(b * hq, s, d)
+    vf = v.repeat_interleave(group, 1).reshape(b * hq, s, d)
+    ms = cuda_ms(lambda: attend(q, k, v, causal=True))
+    plain_ms = cuda_ms(lambda: attention_ref(qf, kf, vf, causal=True),
+                       warmup=1, iters=5)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    pairs = b * hq * s * (s + 1) // 2           # visible (q, k) pairs
+    flops = 4.0 * d * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "replaces":
+               "src/repro/kernels/flash_attention/flash_attention.py:26",
+           "launches": launches, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": library_ms, "held_against_plain": True}
+    emit({"phase": "flash_timing", "shape_b_hq_hkv_s_d": [b, hq, hkv, s, d],
+          "dtype": "bfloat16", "causal": True, "flops": flops,
+          "bytes": nbytes, "tflops": flops / (ms * 1e-3) / 1e12,
+          "f32_fma_share": flops / (ms * 1e-3) / PEAK_F32_FLOPS,
+          "library": "scaled_dot_product_attention(enable_gqa=True)",
+          **row})
+    return row
+
+
+def build_all(build, names):
+    """Build every kernel library at once, one nvcc each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = now()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        paths = list(pool.map(build.build, names))
+    emit({"phase": "build", "seconds": now() - t0,
+          "libraries": [p.name for p in paths],
+          "ptxas": {n: p.with_suffix(".log").read_text()
+                    for n, p in zip(names, paths)}})
+
+
 def main() -> int:
     import torch
 
+    t_start = now()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
     from repro_torch.core import oracle, problem, search
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        attend, flash_attention)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.matmul.matmul import matmul
     from repro_torch.kernels.matmul.ops import tuned_blocks, tuned_matmul
     from repro_torch.kernels.matmul.ref import matmul_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.serve import serve_step
     from repro_torch.workloads import dnn_zoo
 
     smi = smi_line()
@@ -324,28 +622,45 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = now()
-    lib_path = build.build("matmul")
-    emit({"phase": "build", "library": lib_path.name,
-          "seconds": now() - t0,
-          "ptxas": lib_path.with_suffix(".log").read_text()})
-
+    build_all(build, ["matmul", "flash_attention"])
     phase_kernel_vs_plain(torch, matmul, matmul_ref)
+    phase_flash_vs_plain(torch, attend, attention_ref)
 
-    # ---- the main path: counts from 0, both paths, counts read after.
+    # ---- main path 1: tuned matmul + co-search, counts from 0.
     matmul.launches = 0
+    flash_attention.launches = 0
     x, y = phase_tuned_matmul(torch, tuned_matmul, tuned_blocks, matmul_ref)
     wl, cfg, res = phase_cosearch(torch, search, oracle, dnn_zoo)
-    launches = matmul.launches
-    check(launches > 0, "the tuned path never launched the matmul kernel")
-    emit({"phase": "main_path_launches", "matmul": launches})
+    mm_launches = matmul.launches
+    check(mm_launches > 0, "the tuned path never launched the matmul kernel")
+    emit({"phase": "main_path_launches", "path": "tuned_matmul+cosearch",
+          "matmul": mm_launches, "flash_attention": flash_attention.launches})
 
+    # ---- main path 2: LM prefill at full width, counts from 0 per call.
+    matmul.launches = 0
+    model, fa_launches = phase_lm_prefill(torch, lm_mod, configs,
+                                          flash_attention)
+    check(fa_launches > 0, "prefill never launched the flash kernel")
+    emit({"phase": "main_path_launches", "path": "lm_prefill",
+          "matmul": matmul.launches, "flash_attention": fa_launches})
+
+    # ---- main path 3: the serve loop at full width.
+    phase_lm_serve(torch, serve, configs, flash_attention)
+
+    phase_profile_decode(torch, model)
+    phase_lm_prefill_vs_decode(torch, lm_mod, model)
+    del model
+    torch.cuda.empty_cache()
+    phase_lm_card_vs_cpu(torch, lm_mod, configs, serve_step)
     phase_chunk_sync_free(torch, search, oracle, wl, cfg, res)
     phase_profile_gd(torch, search, wl, cfg)
     phase_card_vs_cpu(search, problem)
-    row = phase_matmul_timing(torch, matmul, matmul_ref, x, y, launches)
+    mm_row = phase_matmul_timing(torch, matmul, matmul_ref, x, y,
+                                 mm_launches)
+    fa_row = phase_flash_timing(torch, attend, attention_ref, fa_launches)
 
-    emit({"kernels": [row]})
+    emit({"phase": "total", "seconds": now() - t_start})
+    emit({"kernels": [mm_row, fa_row]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,28 @@
+"""phi3.5-moe-42b-a6.6b — 32L d_model=4096 32H (GQA kv=8) d_ff=6400
+vocab=32064, MoE 16 experts top-2.  [hf:microsoft/Phi-3.5-MoE-instruct]"""
+import dataclasses
+
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="phi3.5-moe-42b-a6.6b",
+    family="moe",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=6400,
+    vocab_size=32064,
+    n_experts=16,
+    experts_per_token=2,
+    activation="swiglu",
+    source="hf:microsoft/Phi-3.5-MoE-instruct",
+)
+
+
+def reduced() -> ArchConfig:
+    return dataclasses.replace(
+        CONFIG, n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+        head_dim=32, d_ff=192, vocab_size=512, n_experts=4,
+        experts_per_token=2)

@@ -64,3 +64,40 @@ def population_best_from_numpy(edp, f, orders,
         edp=torch.from_numpy(np.array(edp, dtype=np.float32)).to(dev),
         f=torch.from_numpy(np.array(f, dtype=np.float32)).to(dev),
         orders=torch.from_numpy(np.array(orders, dtype=np.int64)).to(dev))
+
+
+def _tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
+    """A CPU tensor holding a copy of `arr`; bfloat16 arrays (numpy's
+    ml_dtypes type, which torch does not read) go over bit for bit."""
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def lm_params_from_numpy(cfg, params: dict, device=DEFAULT_DEVICE):
+    """The port's `LM` of config `cfg` holding the reference's
+    parameters: `params` is the tree `repro.models.lm.LM.init` returns
+    (`embed/{tok,unembed}`, `final_norm/scale`, `blocks/slot<i>/...`
+    stacked over n_periods), with numpy arrays as leaves.  Every leaf
+    must match the port's init in name, shape and type."""
+    from .models.lm import LM, abstract_params
+
+    dev = resolve_device(device)
+    expected = abstract_params(cfg)
+
+    def carry(ref, exp, path):
+        if isinstance(exp, dict):
+            if not isinstance(ref, dict) or set(ref) != set(exp):
+                got = sorted(ref) if isinstance(ref, dict) else type(ref)
+                raise ValueError(f"{path or 'params'}: keys {got}, "
+                                 f"expected {sorted(exp)}")
+            return {k: carry(ref[k], exp[k], f"{path}/{k}".lstrip("/"))
+                    for k in exp}
+        t = _tensor_from_numpy(np.asarray(ref))
+        if tuple(t.shape) != tuple(exp.shape) or t.dtype != exp.dtype:
+            raise ValueError(f"{path}: {t.dtype} {tuple(t.shape)}, "
+                             f"expected {exp.dtype} {tuple(exp.shape)}")
+        return t.to(dev)
+
+    return LM(cfg, device=dev, params=carry(params, expected, ""))

@@ -1,13 +1,14 @@
 """DOSA one-loop gradient search over matmul block shapes, on torch.
 
-The PyTorch port of the matmul half of `repro.core.autotune`: the
+The PyTorch port of `repro.core.autotune`: the
 paper's loop on the TPU v5e block-cost model (`tpu_model`) —
 log-domain block sizes -> Adam -> divisor rounding (Sec. 5.3.2) ->
 pick the best rounded candidate by the analytical model.  Hardware is
 fixed silicon, so mapping-first hardware inference becomes the VMEM
 feasibility penalty.  It runs on the device the caller names (the card
-by default).  The flash-attention tuner waits for the attention
-kernel's slice (ROADMAP queue 2).
+by default).  It tunes the matmul's blocks only: the reference's
+docstring also names a `tune_flash_blocks`, which it never defines, and
+the port has no flash-attention tuner either.
 """
 from __future__ import annotations
 
