@@ -6,10 +6,14 @@ NVIDIA GPU.
 
 Run from the root of a checkout.  It builds the port's CUDA kernels
 (the matmul and the flash attention, one nvcc each, in parallel) from
-the sources in the checkout, holds each against its plain PyTorch
-version on the card, and drives the port's three paths through the
-entry points a user calls, each with the launch counts set to 0 just
-before it and read just after:
+the sources in the checkout and prints the compiler's register, spill
+and shared-memory report.  Each kernel has two variants: "wgmma"
+(tensor cores and TMA, for bfloat16) and "simt" (IEEE float32 FMA, for
+float32 and for bfloat16 matmul shapes TMA cannot take).  It holds each
+against its plain PyTorch version on the card, checking from the
+per-variant launch counts which variant each case ran, and drives the
+port's three paths through the entry points a user calls, each with
+the launch counts set to 0 just before it and read just after:
 
 - the DOSA-tuned matmul at Qwen3-0.6B's FFN up-projection width, then
   the DOSA co-search at the paper's protocol on ResNet-50;
@@ -18,10 +22,12 @@ before it and read just after:
 - the serve loop (`launch.serve`) at full width: 4 requests, prompt
   128, 32 generated tokens, greedy.
 
-Then it profiles decode steps and GD steps, checks the card against the
-CPU (a small search; the reduced LM) and teacher-forced decode against
-prefill at full width, and times both kernels beside their bounds,
-plain versions and library calls.
+Then it profiles a prefill call, decode steps and GD steps, checks the
+card against the CPU (a small search; the reduced LM) and
+teacher-forced decode against prefill at full width, and times both
+kernels (the wgmma variants of the main path, and the float32 flash on
+its simt kernel) beside their bounds, plain versions and library
+calls.
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The second-to-last lines are the kernel summary and the card's name and
 power limit (from nvidia-smi); the last line is
@@ -46,8 +52,12 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
+# (m, k, n): the kernel tests' shapes, one ragged in M, K and N that
+# TMA can take (16-byte rows), one it cannot.
 MM_SHAPES = [(128, 128, 128), (256, 512, 384), (64, 1024, 256),
-             (512, 64, 128), (1000, 777, 333)]       # (m, k, n); last ragged
+             (512, 64, 128), (1000, 776, 336), (1000, 777, 333)]
+# The bfloat16 shape whose K and N are not multiples of 8 (no TMA): simt.
+MM_SIMT_BF16 = (1000, 777, 333)
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 # Qwen3-0.6B FFN up-projection (d_model=1024, d_ff=3072) at 4096 tokens.
@@ -56,7 +66,9 @@ FFN_M, FFN_K, FFN_N = 4096, 1024, 3072
 # Flash attention against its plain version: (b, hq, hkv, sq, sk, d,
 # causal, q_offset).  tests/test_kernels.py's sweep (bh 3, d 64), then
 # Qwen3-0.6B's heads (16 over 8, d 128), a ragged S=1000, 100 queries
-# after a 900-token prefix, and the reduced config's d 32.
+# after a 900-token prefix, the reduced config's d 32, GQA at d 64 with
+# a ragged causal S=300, and 130 queries after a 4003-token prefix
+# (Sk = 4133 not a multiple of the 128-key tile).
 FLASH_CASES = [
     (1, 3, 3, 128, 128, 64, True, 0), (1, 3, 3, 128, 128, 64, False, 0),
     (1, 3, 3, 256, 128, 64, False, 0), (1, 3, 3, 128, 256, 64, False, 0),
@@ -65,6 +77,8 @@ FLASH_CASES = [
     (1, 16, 8, 1000, 1000, 128, False, 0),
     (2, 16, 8, 100, 1000, 128, True, 900),
     (2, 4, 2, 77, 333, 32, True, 256),
+    (1, 4, 2, 300, 300, 64, True, 0),
+    (1, 16, 8, 130, 4133, 128, True, 4003),
 ]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -88,9 +102,11 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
-    """Median milliseconds of `fn()` over warm runs, each timed with a
-    pair of CUDA events."""
+def cuda_ms(fn, warmup: int = 3, iters: int = 20, reps: int = 1) -> float:
+    """Median milliseconds of one `fn()` over warm runs: each run is
+    `reps` back-to-back calls between a pair of CUDA events, so that
+    for short kernels the host's launch time overlaps the device's
+    work instead of adding to it."""
     import torch
 
     for _ in range(warmup):
@@ -100,11 +116,20 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
+
+
+def ran_on(counts: dict, before: dict, expected: str, what: str) -> None:
+    """One launch since `before`, on the `expected` variant."""
+    diff = {v: counts[v] - before[v] for v in counts}
+    check(diff == {v: int(v == expected) for v in counts},
+          f"{what}: launches by variant {diff}, expected one on "
+          f"{expected}")
 
 
 def smi_line() -> str:
@@ -116,14 +141,22 @@ def smi_line() -> str:
 
 def phase_kernel_vs_plain(torch, matmul, matmul_ref):
     """Every shape of the kernel tests plus a ragged one, f32 and bf16,
-    on the card against the plain version."""
+    on the card against the plain version; bf16 runs on wgmma except
+    MM_SIMT_BF16, f32 always on simt."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {}
+    variants = {}
     for (m, k, n) in MM_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
             x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
             y = torch.randn((k, n), generator=gen, device="cuda").to(dt)
+            expected = ("wgmma" if dt == torch.bfloat16
+                        and (m, k, n) != MM_SIMT_BF16 else "simt")
+            before = dict(matmul.launches_by_variant)
             out = matmul(x, y, bm=m, bk=k, bn=n)
+            ran_on(matmul.launches_by_variant, before, expected,
+                   f"matmul {(m, k, n)} {dt}")
+            variants[f"{m}x{k}x{n} {str(dt).split('.')[-1]}"] = expected
             ref = matmul_ref(x, y)
             torch.cuda.synchronize()
             tol = TOL[str(dt).split(".")[-1]]
@@ -133,11 +166,13 @@ def phase_kernel_vs_plain(torch, matmul, matmul_ref):
             err = (out.float() - ref.float()).abs().max().item()
             worst[key] = max(worst.get(key, 0.0), err)
     emit({"phase": "kernel_vs_plain", "shapes": MM_SHAPES,
-          "max_abs_err": worst, "tolerance": TOL})
+          "variants": variants, "max_abs_err": worst, "tolerance": TOL})
 
 
-def phase_tuned_matmul(torch, tuned_matmul, tuned_blocks, matmul_ref):
-    """The tuned path at full width: tune on the card, then the kernel."""
+def phase_tuned_matmul(torch, tuned_matmul, tuned_blocks, matmul_ref,
+                       matmul):
+    """The tuned path at full width: tune on the card, then the kernel
+    (the wgmma variant at this bf16 shape)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn((FFN_M, FFN_K), generator=gen,
                     device="cuda").to(torch.bfloat16)
@@ -154,9 +189,11 @@ def phase_tuned_matmul(torch, tuned_matmul, tuned_blocks, matmul_ref):
                                atol=2e-2)
     check(out.shape == (FFN_M, FFN_N) and out.dtype == torch.bfloat16,
           "tuned_matmul output shape/dtype")
+    check(matmul.launches_by_variant["wgmma"] >= 1,
+          "tuned_matmul at the FFN shape did not run on wgmma")
     emit({"phase": "tuned_matmul", "shape": [FFN_M, FFN_K, FFN_N],
           "dtype": "bfloat16", "blocks_bm_bk_bn": list(blocks),
-          "seconds_incl_tuning": secs})
+          "variant": "wgmma", "seconds_incl_tuning": secs})
     return x, y
 
 
@@ -306,21 +343,24 @@ def phase_card_vs_cpu(search, problem):
 
 
 def phase_matmul_timing(torch, matmul, matmul_ref, x, y, launches):
-    """Kernel, plain version and torch.matmul at the main shape."""
+    """Kernel (the wgmma variant), plain version and torch.matmul at the
+    main shape; 10 back-to-back calls per timed run."""
     m, k = x.shape
     n = y.shape[1]
     blocks = dict(bm=m, bk=k, bn=n)
+    before = dict(matmul.launches_by_variant)
     kern = matmul(x, y, **blocks)
+    ran_on(matmul.launches_by_variant, before, "wgmma", "matmul timing")
     ref = matmul_ref(x, y)
     err = (kern.float() - ref.float()).abs().max().item()
-    ms = cuda_ms(lambda: matmul(x, y, **blocks))
-    plain_ms = cuda_ms(lambda: matmul_ref(x, y))
-    library_ms = cuda_ms(lambda: torch.matmul(x, y))
+    ms = cuda_ms(lambda: matmul(x, y, **blocks), reps=10)
+    plain_ms = cuda_ms(lambda: matmul_ref(x, y), reps=10)
+    library_ms = cuda_ms(lambda: torch.matmul(x, y), reps=10)
     flops = 2.0 * m * n * k
     nbytes = (m * k + k * n + m * n) * x.element_size()
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    row = {"name": "matmul", "route": "cuda",
+    row = {"name": "matmul", "variant": "wgmma", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/matmul.cu",
            "replaces": "src/repro/kernels/matmul/matmul.py:24",
            "launches": launches, "max_abs_err": err, "ms": ms,
@@ -330,7 +370,7 @@ def phase_matmul_timing(torch, matmul, matmul_ref, x, y, launches):
     emit({"phase": "matmul_timing", "shape": [m, k, n], "dtype": str(x.dtype),
           "flops": flops, "bytes": nbytes,
           "tflops": flops / (ms * 1e-3) / 1e12,
-          "f32_fma_share": flops / (ms * 1e-3) / PEAK_F32_FLOPS, **row})
+          "tc_share": flops / (ms * 1e-3) / PEAK_BF16_FLOPS, **row})
     return row
 
 
@@ -345,9 +385,9 @@ def plain_attention(attention_ref, q, k, v, causal, q_offset):
                          q_offset=q_offset).reshape(q.shape)
 
 
-def phase_flash_vs_plain(torch, attend, attention_ref):
+def phase_flash_vs_plain(torch, attend, attention_ref, flash):
     """Every FLASH_CASES shape, f32 and bf16, on the card against the
-    plain version."""
+    plain version; bf16 always on wgmma, f32 always on simt."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = {}
     for (b, hq, hkv, sq, sk, d, causal, off) in FLASH_CASES:
@@ -358,7 +398,11 @@ def phase_flash_vs_plain(torch, attend, attention_ref):
                             device="cuda").to(dt)
             v = torch.randn((b, hkv, sk, d), generator=gen,
                             device="cuda").to(dt)
+            before = dict(flash.launches_by_variant)
             out = attend(q, k, v, causal=causal, q_offset=off)
+            ran_on(flash.launches_by_variant, before,
+                   "wgmma" if dt == torch.bfloat16 else "simt",
+                   f"flash {(b, hq, hkv, sq, sk, d, causal, off)} {dt}")
             ref = plain_attention(attention_ref, q, k, v, causal, off)
             torch.cuda.synchronize()
             key = str(dt).split(".")[-1]
@@ -369,6 +413,7 @@ def phase_flash_vs_plain(torch, attend, attention_ref):
             worst[key] = max(worst.get(key, 0.0), err)
     emit({"phase": "flash_vs_plain",
           "cases_b_hq_hkv_sq_sk_d_causal_qoffset": FLASH_CASES,
+          "variants": {"float32": "simt", "bfloat16": "wgmma"},
           "max_abs_err": worst, "tolerance": FLASH_TOL})
 
 
@@ -383,17 +428,19 @@ def phase_lm_prefill(torch, lm_mod, configs, flash):
                            generator=gen, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    secs, launches = [], []
+    secs, launches, on_wgmma = [], [], []
     for _ in range(2):
         flash.launches = 0
+        flash.launches_by_variant.update(wgmma=0, simt=0)
         t0 = now()
         logits, cache = model.prefill({"tokens": tokens})
         torch.cuda.synchronize()
         secs.append(now() - t0)
         launches.append(flash.launches)
-    check(launches == [cfg.n_layers] * 2,
-          f"flash launches per prefill call {launches}, expected "
-          f"{cfg.n_layers}")
+        on_wgmma.append(flash.launches_by_variant["wgmma"])
+    check(launches == [cfg.n_layers] * 2 and on_wgmma == launches,
+          f"flash launches per prefill call {launches}, {on_wgmma} on "
+          f"wgmma; expected {cfg.n_layers}, all on wgmma")
     finite = bool(torch.isfinite(logits).all())
     check(finite, "prefill logits finite")
     check(tuple(logits.shape) == (PREFILL_B, 1, cfg.vocab_size),
@@ -408,7 +455,9 @@ def phase_lm_prefill(torch, lm_mod, configs, flash):
           "seconds_cold": secs[0], "seconds_warm": secs[1],
           "tokens_per_s_warm": tokens_n / secs[1],
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-          "flash_launches_per_call": launches, "logits_finite": finite})
+          "flash_launches_per_call": launches,
+          "flash_wgmma_launches_per_call": on_wgmma,
+          "logits_finite": finite})
     return model, launches[0]
 
 
@@ -427,6 +476,45 @@ def phase_lm_serve(torch, serve, configs, flash):
           "seconds": secs, "tok_per_s": seq.numel() / secs,
           "flash_launches": flash.launches,
           "sample": seq[0, 120:140].tolist()})
+
+
+def phase_profile_prefill(torch, model, top: int = 12):
+    """Where a warm full-width prefill's device time goes: one call of
+    4 x 4096 tokens under torch.profiler; device time in total, in the
+    flash kernel, in cuBLAS matrix products and in the rest, and the
+    `top` kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(1, model.cfg.vocab_size, (PREFILL_B, PREFILL_S),
+                           generator=gen, device="cuda")
+    model.prefill({"tokens": tokens})                       # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = now()
+        model.prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        wall_ms = (now() - t0) * 1e3
+    by_name: dict = {}
+    n_ops = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n_ops += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    flash = sum(t for n, t in by_name.items() if "flash_fwd_wgmma" in n)
+    gemm = sum(t for n, t in by_name.items()
+               if any(w in n for w in ("gemm", "nvjet", "xmma", "cutlass")))
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    emit({"phase": "profile_prefill", "batch": PREFILL_B,
+          "prompt_len": PREFILL_S, "wall_ms_profiled": wall_ms,
+          "device_ops": n_ops,
+          "device_busy_ms": busy if n_ops else "not measured",
+          "flash_ms": flash, "cublas_gemm_ms": gemm,
+          "other_ms": busy - flash - gemm,
+          "top_kernels_ms": {n[:100]: t for n, t in ranked}})
 
 
 def phase_profile_decode(torch, model, n_steps: int = 5):
@@ -527,9 +615,10 @@ def phase_lm_card_vs_cpu(torch, lm_mod, configs, serve_step):
           "greedy_tokens_equal": True})
 
 
-def phase_flash_timing(torch, attend, attention_ref, launches):
-    """Kernel, plain version and SDPA at the prefill shape, bf16
-    causal."""
+def phase_flash_timing(torch, attend, attention_ref, flash, launches):
+    """Kernel (the wgmma variant), plain version and SDPA at the prefill
+    shape, bf16 causal (10 back-to-back kernel and SDPA calls per timed
+    run); then the float32 simt kernel once at the same shape."""
     import torch.nn.functional as F
 
     b, hq, hkv, s, d = PREFILL_B, 16, 8, PREFILL_S, 128
@@ -540,7 +629,9 @@ def phase_flash_timing(torch, attend, attention_ref, launches):
                     device="cuda").to(torch.bfloat16)
     v = torch.randn((b, hkv, s, d), generator=gen,
                     device="cuda").to(torch.bfloat16)
+    before = dict(flash.launches_by_variant)
     kern = attend(q, k, v, causal=True)
+    ran_on(flash.launches_by_variant, before, "wgmma", "flash timing")
     ref = plain_attention(attention_ref, q, k, v, True, 0)
     err = (kern.float() - ref.float()).abs().max().item()
     torch.testing.assert_close(kern.float(), ref.float(),
@@ -551,17 +642,25 @@ def phase_flash_timing(torch, attend, attention_ref, launches):
     qf = q.reshape(b * hq, s, d)
     kf = k.repeat_interleave(group, 1).reshape(b * hq, s, d)
     vf = v.repeat_interleave(group, 1).reshape(b * hq, s, d)
-    ms = cuda_ms(lambda: attend(q, k, v, causal=True))
+    ms = cuda_ms(lambda: attend(q, k, v, causal=True), reps=10)
     plain_ms = cuda_ms(lambda: attention_ref(qf, kf, vf, causal=True),
                        warmup=1, iters=5)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
+        q, k, v, is_causal=True, enable_gqa=True), reps=10)
+    del qf, kf, vf
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    before = dict(flash.launches_by_variant)
+    attend(q32, k32, v32, causal=True)
+    ran_on(flash.launches_by_variant, before, "simt", "f32 flash timing")
+    simt_f32_ms = cuda_ms(lambda: attend(q32, k32, v32, causal=True),
+                          warmup=1, iters=5)
+    del q32, k32, v32
     pairs = b * hq * s * (s + 1) // 2           # visible (q, k) pairs
     flops = 4.0 * d * pairs
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    row = {"name": "flash_attention", "route": "cuda",
+    row = {"name": "flash_attention", "variant": "wgmma", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
            "replaces":
                "src/repro/kernels/flash_attention/flash_attention.py:26",
@@ -572,23 +671,56 @@ def phase_flash_timing(torch, attend, attention_ref, launches):
     emit({"phase": "flash_timing", "shape_b_hq_hkv_s_d": [b, hq, hkv, s, d],
           "dtype": "bfloat16", "causal": True, "flops": flops,
           "bytes": nbytes, "tflops": flops / (ms * 1e-3) / 1e12,
-          "f32_fma_share": flops / (ms * 1e-3) / PEAK_F32_FLOPS,
+          "tc_share": flops / (ms * 1e-3) / PEAK_BF16_FLOPS,
           "library": "scaled_dot_product_attention(enable_gqa=True)",
-          **row})
+          "simt_f32_ms": simt_f32_ms,
+          "simt_f32_tflops": flops / (simt_f32_ms * 1e-3) / 1e12, **row})
     return row
 
 
+def ptxas_summary(log: str) -> dict:
+    """Registers, spill bytes and static shared memory of each kernel
+    in an `nvcc -Xptxas=-v` report, by mangled name."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        hit = re.search(r"Compiling entry function '(\S+)'", line)
+        if hit:
+            name = hit.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        hit = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        line)
+        if hit:
+            out[name]["spill_stores"] = int(hit.group(1))
+            out[name]["spill_loads"] = int(hit.group(2))
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit:
+            out[name]["registers"] = int(hit.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem"] = int(smem.group(1)) if smem else 0
+    return out
+
+
 def build_all(build, names):
-    """Build every kernel library at once, one nvcc each."""
+    """Build every kernel library at once, one nvcc each; print each
+    kernel's registers, spills and static shared memory (the wgmma
+    kernels' shared memory is dynamic: 197,696 B for the matmul,
+    164,904 B for flash at D 128) and the full compiler report."""
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = now()
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         paths = list(pool.map(build.build, names))
+    logs = {n: p.with_suffix(".log").read_text()
+            for n, p in zip(names, paths)}
     emit({"phase": "build", "seconds": now() - t0,
           "libraries": [p.name for p in paths],
-          "ptxas": {n: p.with_suffix(".log").read_text()
-                    for n, p in zip(names, paths)}})
+          "ptxas_summary": {n: ptxas_summary(log) for n, log in logs.items()},
+          "ptxas": logs})
 
 
 def main() -> int:
@@ -624,29 +756,38 @@ def main() -> int:
 
     build_all(build, ["matmul", "flash_attention"])
     phase_kernel_vs_plain(torch, matmul, matmul_ref)
-    phase_flash_vs_plain(torch, attend, attention_ref)
+    phase_flash_vs_plain(torch, attend, attention_ref, flash_attention)
 
     # ---- main path 1: tuned matmul + co-search, counts from 0.
     matmul.launches = 0
+    matmul.launches_by_variant.update(wgmma=0, simt=0)
     flash_attention.launches = 0
-    x, y = phase_tuned_matmul(torch, tuned_matmul, tuned_blocks, matmul_ref)
+    x, y = phase_tuned_matmul(torch, tuned_matmul, tuned_blocks, matmul_ref,
+                              matmul)
     wl, cfg, res = phase_cosearch(torch, search, oracle, dnn_zoo)
-    mm_launches = matmul.launches
-    check(mm_launches > 0, "the tuned path never launched the matmul kernel")
+    mm_launches = matmul.launches_by_variant["wgmma"]
+    check(mm_launches > 0,
+          "the tuned path never launched the wgmma matmul kernel")
     emit({"phase": "main_path_launches", "path": "tuned_matmul+cosearch",
-          "matmul": mm_launches, "flash_attention": flash_attention.launches})
+          "matmul": mm_launches,
+          "matmul_by_variant": dict(matmul.launches_by_variant),
+          "flash_attention": flash_attention.launches})
 
     # ---- main path 2: LM prefill at full width, counts from 0 per call.
     matmul.launches = 0
+    matmul.launches_by_variant.update(wgmma=0, simt=0)
     model, fa_launches = phase_lm_prefill(torch, lm_mod, configs,
                                           flash_attention)
     check(fa_launches > 0, "prefill never launched the flash kernel")
     emit({"phase": "main_path_launches", "path": "lm_prefill",
-          "matmul": matmul.launches, "flash_attention": fa_launches})
+          "matmul": matmul.launches, "flash_attention": fa_launches,
+          "flash_attention_by_variant":
+              dict(flash_attention.launches_by_variant)})
 
     # ---- main path 3: the serve loop at full width.
     phase_lm_serve(torch, serve, configs, flash_attention)
 
+    phase_profile_prefill(torch, model)
     phase_profile_decode(torch, model)
     phase_lm_prefill_vs_decode(torch, lm_mod, model)
     del model
@@ -657,7 +798,8 @@ def main() -> int:
     phase_card_vs_cpu(search, problem)
     mm_row = phase_matmul_timing(torch, matmul, matmul_ref, x, y,
                                  mm_launches)
-    fa_row = phase_flash_timing(torch, attend, attention_ref, fa_launches)
+    fa_row = phase_flash_timing(torch, attend, attention_ref,
+                                flash_attention, fa_launches)
 
     emit({"phase": "total", "seconds": now() - t_start})
     emit({"kernels": [mm_row, fa_row]})

@@ -4,10 +4,10 @@ Each source under ``kernels/csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface and loaded
 with `ctypes` — no PyTorch headers, so a build takes seconds.  Builds
 happen at first use, into ``build/repro_torch_kernels/`` at the root of
-the checkout (a directory git ignores), named by a hash of the source
-and the flags so a changed source rebuilds; the compiler's report
-(ptxas registers, shared memory, spills) is kept beside it as
-``<library>.log``.  Nothing here runs at import time.
+the checkout (a directory git ignores), named by a hash of the source,
+the shared headers and the flags so a changed source rebuilds; the
+compiler's report (ptxas registers, shared memory, spills) is kept
+beside it as ``<library>.log``.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -43,9 +43,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` goes."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    """Where the library built from ``csrc/<name>.cu`` goes: named by a
+    hash of that source, every shared header ``csrc/*.cuh`` it may
+    include, and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -5,9 +5,14 @@ The port of `repro.kernels.flash_attention.flash_attention` (the Pallas
 TPU kernel `_flash_kernel`).  `flash_attention(q, k, v, causal=, bq=,
 bkv=)` keeps the reference's (BH, S, D) layout and its checks — blocks
 are clipped to the problem with `min` and must divide it — but the CUDA
-kernel tiles with its own Hopper tile (64 query rows per block, keys in
-tiles of 64): the TPU's (bq, bkv) are VMEM tiles, and they do not steer
-the CUDA tiling.
+kernels tile with their own Hopper tiles: the TPU's (bq, bkv) are VMEM
+tiles, and they do not steer the CUDA tiling.
+
+Two kernels, chosen by `variant(dtype)` from the type alone: every
+bfloat16 call runs on "wgmma" (tensor cores and TMA, 128 query rows per
+block, keys in tiles of 128, P rounded to bfloat16 before P @ V), every
+float32 call on "simt" (IEEE float32 FMA, 64 query rows per block, keys
+in tiles of 64).
 
 `attend` is the kernel's full interface, which the GQA wrapper and the
 LM's attention call: q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D) with
@@ -16,8 +21,9 @@ and any Sq, Sk (ragged tails are masked inside the kernel).  The kernel
 supports head dims 32, 64 and 128.
 
 A CPU tensor goes through the plain version (`ref.attention_ref`); a
-CUDA tensor always launches the kernel or raises.
-`flash_attention.launches` counts the kernel launches.
+CUDA tensor always launches its variant's kernel or raises.
+`flash_attention.launches` counts the kernel launches, and
+`flash_attention.launches_by_variant` counts them per variant.
 """
 from __future__ import annotations
 
@@ -30,8 +36,15 @@ import torch
 from .ref import attention_ref
 
 HEAD_DIMS = (32, 64, 128)
-_ENTRY = {torch.float32: "repro_flash_attention_f32",
-          torch.bfloat16: "repro_flash_attention_bf16"}
+_ENTRY = {"simt": "repro_flash_attention_f32",
+          "wgmma": "repro_flash_attention_bf16_wgmma"}
+_VARIANT = {torch.float32: "simt", torch.bfloat16: "wgmma"}
+
+
+def variant(dtype: torch.dtype) -> str:
+    """The kernel a call in `dtype` runs on: "wgmma" for bfloat16,
+    "simt" for float32."""
+    return _VARIANT[dtype]
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,7 +79,8 @@ def _check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "differ in batch or head dim")
     if min(q.shape[-2], k.shape[-2]) < 1:
         raise ValueError("empty query or key sequence")
-    if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _VARIANT or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
         raise TypeError(f"flash attention takes float32 or bfloat16 "
                         f"operands of one type, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
@@ -95,19 +109,24 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the flash kernel takes contiguous q, k, v")
+    var = variant(q.dtype)
+    if var == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the wgmma flash kernel takes 16-byte aligned "
+                         "q, k, v")
     lib = _library()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = getattr(lib, _ENTRY[q.dtype])(
+        rc = getattr(lib, _ENTRY[var])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, hq, hkv, sq, sk, d, int(causal), q_offset,
             1.0 / math.sqrt(d), stream)
     if rc != 0:
         msg = lib.repro_flash_error_string(rc).decode()
-        raise RuntimeError(f"flash attention kernel launch failed: {msg} "
-                           f"({rc})")
+        raise RuntimeError(f"flash attention {var} kernel launch failed: "
+                           f"{msg} ({rc})")
     flash_attention.launches += 1
+    flash_attention.launches_by_variant[var] += 1
     return out
 
 
@@ -135,3 +154,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_variant = dict.fromkeys(_ENTRY, 0)

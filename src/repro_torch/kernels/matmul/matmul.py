@@ -4,14 +4,21 @@ behind the reference's signature.
 The port of `repro.kernels.matmul.matmul` (the Pallas TPU kernel
 `_matmul_kernel`).  `matmul(x, y, bm=, bk=, bn=)` keeps the reference's
 checks — blocks are clipped to the problem with `min` and must divide
-it — but the CUDA kernel tiles with its own fixed Hopper tile (64 x 64
-outputs per block, K in slices of 16): the TPU-tuned blocks are VMEM
-tiles far larger than a block's 227 KB of shared memory, and they do
-not steer the CUDA tiling until a Hopper block-cost model exists.
+it — but the CUDA kernels tile with their own fixed Hopper tiles: the
+TPU-tuned blocks are VMEM tiles far larger than a block's 227 KB of
+shared memory, and they do not steer the CUDA tiling until a Hopper
+block-cost model exists.
+
+Two kernels, chosen by `variant(m, k, n, dtype)` from shape and type
+alone: "wgmma" (tensor cores, TMA; 128 x 256 outputs per block) for
+bfloat16 with K and N multiples of 8 — TMA needs 16-byte row strides —
+and "simt" (IEEE float32 FMA; 64 x 64 outputs per block) for float32
+and for the other bfloat16 shapes.
 
 A CPU tensor goes through the plain version (`ref.matmul_ref`); a CUDA
-tensor always launches the kernel or raises.  `matmul.launches` counts
-the kernel launches.
+tensor always launches its variant's kernel or raises.
+`matmul.launches` counts the kernel launches, and
+`matmul.launches_by_variant` counts them per variant.
 """
 from __future__ import annotations
 
@@ -22,8 +29,19 @@ import torch
 
 from .ref import matmul_ref
 
-_ENTRY = {torch.float32: "repro_matmul_f32",
-          torch.bfloat16: "repro_matmul_bf16"}
+_ENTRY = {("simt", torch.float32): "repro_matmul_f32",
+          ("simt", torch.bfloat16): "repro_matmul_bf16",
+          ("wgmma", torch.bfloat16): "repro_matmul_bf16_wgmma"}
+
+
+def variant(m: int, k: int, n: int, dtype: torch.dtype) -> str:
+    """The kernel an (m, k) @ (k, n) product of `dtype` runs on:
+    "wgmma" for bfloat16 with K % 8 == 0 and N % 8 == 0 (16-byte row
+    strides for TMA), else "simt"."""
+    del m  # TMA zero-fills any ragged M
+    if dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0:
+        return "wgmma"
+    return "simt"
 
 
 @functools.lru_cache(maxsize=None)
@@ -56,7 +74,8 @@ def _check(x: torch.Tensor, y: torch.Tensor, bm: int, bk: int, bn: int):
     if min(m, k, n) < 1:
         raise ValueError(f"empty operand: {tuple(x.shape)} @ "
                          f"{tuple(y.shape)}")
-    if x.dtype not in _ENTRY or y.dtype != x.dtype:
+    if x.dtype not in (torch.float32, torch.bfloat16) \
+            or y.dtype != x.dtype:
         raise TypeError(f"matmul takes float32 or bfloat16 operands of one "
                         f"type, got {x.dtype} and {y.dtype}")
     if x.device != y.device:
@@ -80,19 +99,25 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int = 256,
         return matmul_ref(x, y)
     if x.device.type != "cuda":
         raise ValueError(f"matmul runs on cpu or cuda, not {x.device}")
-    lib = _library()
     m, k = x.shape
     n = y.shape[1]
+    var = variant(m, k, n, x.dtype)
+    if var == "wgmma" and (x.data_ptr() % 16 or y.data_ptr() % 16):
+        raise ValueError("the wgmma matmul takes 16-byte aligned operands")
+    lib = _library()
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(lib, _ENTRY[x.dtype])(
+        rc = getattr(lib, _ENTRY[var, x.dtype])(
             x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k, stream)
     if rc != 0:
         msg = lib.repro_cuda_error_string(rc).decode()
-        raise RuntimeError(f"matmul kernel launch failed: {msg} ({rc})")
+        raise RuntimeError(f"matmul {var} kernel launch failed: {msg} "
+                           f"({rc})")
     matmul.launches += 1
+    matmul.launches_by_variant[var] += 1
     return out
 
 
 matmul.launches = 0
+matmul.launches_by_variant = dict.fromkeys(("wgmma", "simt"), 0)

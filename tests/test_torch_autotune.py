@@ -77,9 +77,11 @@ def test_matmul_cpu_path_matches_reference(shape, dtype):
     ref = np.asarray(R_matmul_ref(jnp.asarray(x, jdt), jnp.asarray(y, jdt)),
                      dtype=np.float32)
     before = T_matmul_mod.matmul.launches
+    by_variant = dict(T_matmul_mod.matmul.launches_by_variant)
     got = tuned_matmul(torch.tensor(x).to(tdt), torch.tensor(y).to(tdt))
     assert got.dtype == tdt and tuple(got.shape) == (m, n)
     assert T_matmul_mod.matmul.launches == before   # no kernel on the CPU
+    assert T_matmul_mod.matmul.launches_by_variant == by_variant
     tol = 1e-4 if dtype == "float32" else 2e-2
     np.testing.assert_allclose(got.float().numpy(), ref, rtol=tol, atol=tol)
 

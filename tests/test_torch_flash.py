@@ -133,7 +133,10 @@ def test_wrappers_check_like_the_reference():
 
 def test_cpu_path_launches_no_kernel():
     before = T_mod.flash_attention.launches
+    by_variant = dict(T_mod.flash_attention.launches_by_variant)
     x = torch.zeros((1, 64, 32))
     T_mod.flash_attention(x, x, x)
+    T_mod.flash_attention(x.bfloat16(), x.bfloat16(), x.bfloat16())
     T_layers.flash_attention(x[None], x[None], x[None], causal=True)
     assert T_mod.flash_attention.launches == before
+    assert T_mod.flash_attention.launches_by_variant == by_variant

@@ -1,5 +1,6 @@
-"""Import hygiene of the PyTorch port: `src/repro_torch/` and
-`chip_smoke.py` import neither jax nor the JAX package `repro`, and
+"""Import hygiene of the PyTorch port: `src/repro_torch/`,
+`chip_smoke.py` and `chip_kernel_ab.py` import neither jax nor the JAX
+package `repro`, and
 every module of the port imports with both blocked."""
 import ast
 import os
@@ -15,7 +16,8 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "chip_kernel_ab.py"]
 
 
 def _port_modules():
