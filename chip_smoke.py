@@ -24,10 +24,27 @@ the launch counts set to 0 just before it and read just after:
 
 Then it profiles a prefill call, decode steps and GD steps, checks the
 card against the CPU (a small search; the reduced LM) and
-teacher-forced decode against prefill at full width, and times both
-kernels (the wgmma variants of the main path, and the float32 flash on
-its simt kernel) beside their bounds, plain versions and library
-calls.
+teacher-forced decode against prefill at full width.  The paper's
+Sec. 6 experiments come next, with the counts again set to 0:
+
+- `calibration_train`: the Fig. 10 training set (AlexNet, ResNeXt-50,
+  VGG-16, DeepBench; 31 random mappings a layer) labelled by the RTL
+  stand-in, the residual and direct latency models trained on the card
+  (600 epochs each), their held-out Spearman beside the analytical
+  model's, and 20 epochs on the card against the CPU;
+- `calibrated_search_unet`: the Fig. 12 protocol on UNet (16x16 array
+  frozen) with the analytical, DNN-only and combined latency models,
+  judged by the RTL stand-in against the default Gemmini; the combined
+  search's fused and host-batched engines held equal on a short config;
+- `surrogate_chunk_sync_free` and `profile_gd_surrogate`: one chunk of
+  that short combined search free of host syncs, and its GD steps
+  profiled beside ResNet-50's analytical ones;
+- `baselines_resnet50`: random search (host numpy) with about the
+  ResNet-50 co-search's sample count.
+
+Last, it times both kernels (the wgmma variants of the main path, and
+the float32 flash on its simt kernel) beside their bounds, plain
+versions and library calls.
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The second-to-last lines are the kernel summary and the card's name and
 power limit (from nvidia-smi); the last line is
@@ -88,9 +105,28 @@ PREFILL_B, PREFILL_S = 4, 4096
 # logits and K/V stacks within this (rtol and atol).
 DECODE_TOL_F32 = 1e-3
 
+# Fig. 10's training set (benchmarks/fig10_11_pred_accuracy.py): the
+# training networks' 50 layers at published dims, 1567 // 50 = 31
+# random mappings a layer, seed 0, every 5th sample held out; 600
+# epochs a model.  Training on the card against the CPU: 20 epochs from
+# the same initial weights, predictions within TRAIN_CARD_CPU_RTOL.
+TRAIN_NETS = ("alexnet", "resnext50", "vgg16", "deepbench")
+TRAIN_SAMPLES = 1567
+TRAIN_EPOCHS = 600
+TRAIN_CARD_CPU_RTOL = 1e-4
+# Fig. 12's protocol (benchmarks/fig12_rtl_opt.py) on UNet, fused with
+# population 3; its short form holds the fused engine to the
+# host-batched one.
+FIG12 = dict(steps=1490, round_every=500, n_start_points=3, seed=17)
+FIG12_SHORT = dict(steps=160, round_every=80, n_start_points=3, seed=17)
+# Cuts from the paper's scale above (none).
+CUTS: list = []
+
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    # default=float: the DNN-only model's predicted EDP is a numpy
+    # float32, as in the reference.
+    print(json.dumps(obj, default=float), flush=True)
 
 
 def now() -> float:
@@ -234,12 +270,13 @@ def chunk_inputs(search, wl, cfg):
     return engine, theta, orders, population_best_init(theta, orders)
 
 
-def phase_chunk_sync_free(torch, search, oracle, wl, cfg, res):
+def phase_chunk_sync_free(torch, search, wl, cfg, res,
+                          phase: str = "chunk_sync_free"):
     """One fused chunk again, segment by segment, under
     set_sync_debug_mode("error") (any host sync raises), with each
     segment timed by CUDA events.  Its rounded candidates, replayed
-    through the oracle, must give the main run's best EDP: the search
-    is deterministic for a seed."""
+    through the search's oracle, must give the main run's best EDP:
+    the search is deterministic for a seed."""
     from repro_torch.core.mapping import unstack_mappings
 
     engine, theta, orders, best = chunk_inputs(search, wl, cfg)
@@ -267,18 +304,19 @@ def phase_chunk_sync_free(torch, search, oracle, wl, cfg, res):
         f_np = f_round.cpu().numpy().astype(float)
         o_np = o_round.cpu().numpy()
         for p in range(f_np.shape[0]):
-            edp, _ = oracle.evaluate_workload(
-                unstack_mappings(f_np[p], o_np[p]), wl.layers)
+            edp = search._oracle_edp(unstack_mappings(f_np[p], o_np[p]),
+                                     wl, cfg, engine.cspec)
             replay = min(replay, edp)
     check(replay == res.best_edp, f"rerun of the chunk gives best EDP "
           f"{replay}, the main run {res.best_edp}: not deterministic")
-    emit({"phase": "chunk_sync_free", "sync_debug_mode": "error",
+    emit({"phase": phase, "sync_debug_mode": "error",
           "segment_steps": seg_lens, "segment_ms": seg_ms,
           "ms_per_gd_step": [t / s for t, s in zip(seg_ms, seg_lens)],
           "rerun_best_edp": replay, "deterministic": True})
 
 
-def phase_profile_gd(torch, search, wl, cfg, n_steps: int = 10):
+def phase_profile_gd(torch, search, wl, cfg, n_steps: int = 10,
+                     phase: str = "profile_gd_steps") -> dict:
     """Where a GD step's time goes: `n_steps` Adam steps of the fused
     engine timed on the host clock, then the same under torch.profiler
     — device operations per step, device busy time per step, and the
@@ -301,13 +339,155 @@ def phase_profile_gd(torch, search, wl, cfg, n_steps: int = 10):
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / n_steps
-    emit({"phase": "profile_gd_steps", "steps": n_steps,
-          "wall_ms_per_step": step_ms,
-          "wall_ms_per_step_profiled": prof_ms,
-          "device_ops_per_step": len(dev) / n_steps,
-          "device_busy_ms_per_step": busy_ms if dev else "not measured",
-          "device_busy_share": busy_ms / step_ms if dev
-          else "not measured"})
+    rec = {"phase": phase, "workload": wl.name, "steps": n_steps,
+           "wall_ms_per_step": step_ms,
+           "wall_ms_per_step_profiled": prof_ms,
+           "device_ops_per_step": len(dev) / n_steps,
+           "device_busy_ms_per_step": busy_ms if dev else "not measured",
+           "device_busy_share": busy_ms / step_ms if dev
+           else "not measured"}
+    emit(rec)
+    return rec
+
+
+def phase_calibration_train(torch, np, surrogate, rtl_sim, dnn_zoo,
+                            GEMMINI_DEFAULT):
+    """Fig. 10 on the card: the training set labelled by the RTL
+    stand-in (host), the residual and direct models trained on the
+    card, the held-out Spearman of each beside the analytical model's;
+    then 20 epochs from the same initial weights on the card and on the
+    CPU, predictions within TRAIN_CARD_CPU_RTOL."""
+    layers = [lay for name in TRAIN_NETS
+              for lay in dnn_zoo.get_workload(name).layers]
+    n_per = max(TRAIN_SAMPLES // len(layers), 4)
+    t0 = now()
+    feats, ana, rtl, _ = rtl_sim.build_dataset(layers, GEMMINI_DEFAULT,
+                                               n_per_layer=n_per, seed=0)
+    dataset_s = now() - t0
+    te = np.arange(len(feats)) % 5 == 0
+    tr = ~te
+    n_fit = int(tr.sum()) - max(int(tr.sum() * 0.15), 1)
+    adam_steps = TRAIN_EPOCHS * max(n_fit // 128, 1)
+    models, runs = {}, {}
+    for kind in ("residual", "direct"):
+        torch.cuda.synchronize()
+        t0 = now()
+        if kind == "residual":
+            m = surrogate.train_residual_model(
+                feats[tr], ana[tr], rtl[tr], epochs=TRAIN_EPOCHS,
+                device="cuda")
+        else:
+            m = surrogate.train_direct_model(
+                feats[tr], rtl[tr], epochs=TRAIN_EPOCHS, device="cuda")
+        torch.cuda.synchronize()
+        secs = now() - t0
+        check(m.device.type == "cuda" and np.isfinite(m.val_mse),
+              f"{kind} model trained on the card")
+        models[kind] = m
+        runs[kind] = {"seconds": secs, "adam_steps": adam_steps,
+                      "ms_per_adam_step": secs * 1e3 / adam_steps,
+                      "val_mse": m.val_mse}
+    sp = {"analytical": surrogate.spearman(ana[te], rtl[te])}
+    for kind, m in models.items():
+        sp[kind] = surrogate.spearman(m.predict_latency(feats[te], ana[te]),
+                                      rtl[te])
+    init = [{k: v.numpy() for k, v in p.items()}
+            for p in surrogate.init_mlp(torch.Generator().manual_seed(0),
+                                        n_in=feats.shape[1], device="cpu")]
+    preds = {dev: surrogate.train_residual_model(
+        feats[tr], ana[tr], rtl[tr], epochs=20, init_params=init,
+        device=dev).predict_latency(feats[te], ana[te])
+        for dev in ("cuda", "cpu")}
+    np.testing.assert_allclose(preds["cuda"], preds["cpu"],
+                               rtol=TRAIN_CARD_CPU_RTOL)
+    emit({"phase": "calibration_train", "nets": TRAIN_NETS,
+          "layers": len(layers), "per_layer": n_per,
+          "samples": int(len(feats)), "held_out": int(te.sum()),
+          "dataset_host_seconds": dataset_s, "epochs": TRAIN_EPOCHS,
+          "train": runs, "spearman_held_out": sp,
+          "card_vs_cpu_20_epochs_max_rel_err":
+              float(np.max(np.abs(preds["cuda"] / preds["cpu"] - 1))),
+          "card_vs_cpu_rtol": TRAIN_CARD_CPU_RTOL, "cuts": CUTS})
+    return models
+
+
+def phase_calibrated_search_unet(torch, search, calibration, rtl_sim,
+                                 cosa, dnn_zoo, GEMMINI_DEFAULT, models):
+    """Fig. 12 and Table 7 on UNet: the 16x16 array frozen, buffers and
+    mappings searched with the analytical, DNN-only (direct) and
+    combined (residual) latency models, fused on the card, each judged
+    by the RTL stand-in's EDP against the default Gemmini (CoSA
+    mappings, 32 KB accumulator, 128 KB scratchpad).  Gates: each
+    result's oracle (the predicted EDP through its model, or the
+    analytical oracle) re-evaluated on its best mappings equals its
+    `best_edp`; the combined search's short form gives equal results
+    on the fused and host-batched engines."""
+    wl = dnn_zoo.unet()
+    default_maps = cosa.cosa_map_workload(list(wl.layers), GEMMINI_DEFAULT)
+    edp_default = rtl_sim.rtl_workload_edp(default_maps, wl.layers,
+                                           GEMMINI_DEFAULT)
+    frozen = dict(fixed_hw=GEMMINI_DEFAULT, fix_pe_only=True)
+
+    def learned(kind):
+        m = models[kind]
+        return dict(surrogate=m, latency_model=calibration.predicted_edp_fn(
+            m, pe_dim=GEMMINI_DEFAULT.pe_dim))
+
+    variants = {"analytical": {}, "dnn": learned("direct"),
+                "combined": learned("residual")}
+    out = {}
+    for name, extra in variants.items():
+        cfg = search.SearchConfig(**FIG12, **frozen, **extra)
+        torch.cuda.synchronize()
+        t0 = now()
+        res = search.dosa_search(wl, cfg, population=3, device="cuda")
+        secs = now() - t0
+        replay = search._oracle_edp(res.best_mappings, wl, cfg,
+                                    search._cspec(cfg))
+        check(replay == res.best_edp, f"{name}: oracle re-evaluation "
+              f"{replay} != best_edp {res.best_edp}")
+        edp_rtl = rtl_sim.rtl_workload_edp(res.best_mappings, wl.layers,
+                                           res.best_hw)
+        out[name] = {"search_seconds": secs, "n_evals": res.n_evals,
+                     "best_edp": res.best_edp, "rtl_edp": edp_rtl,
+                     "vs_default": edp_default / edp_rtl,
+                     "acc_kb": res.best_hw.acc_kb,
+                     "sp_kb": res.best_hw.sp_kb}
+    short = search.SearchConfig(**FIG12_SHORT, **frozen,
+                                **variants["combined"])
+    r = {fused: search.dosa_search(wl, short, population=3, fused=fused,
+                                   device="cuda")
+         for fused in (True, False)}
+    check(r[True].best_edp == r[False].best_edp
+          and r[True].n_evals == r[False].n_evals
+          and r[True].history == r[False].history,
+          f"combined short search: fused {r[True].best_edp} / "
+          f"{r[True].n_evals} != host-batched {r[False].best_edp} / "
+          f"{r[False].n_evals}")
+    emit({"phase": "calibrated_search_unet", "layers": len(wl.layers),
+          "protocol": FIG12, "population": 3, "fixed_pe_dim":
+              GEMMINI_DEFAULT.pe_dim,
+          "default_rtl_edp": edp_default, "variants": out,
+          "short_protocol": FIG12_SHORT,
+          "short_combined_fused_equals_host_batched": True,
+          "short_combined_best_edp": r[True].best_edp,
+          "short_combined_n_evals": r[True].n_evals, "cuts": CUTS})
+    return wl, short, r[True]
+
+
+def phase_baselines_resnet50(random_search, wl, res):
+    """Random search (Fig. 7's baseline, host numpy) on ResNet-50 with
+    10 hardware designs and about the co-search's sample count."""
+    n_hw = 10
+    n_map = max(round(res.n_evals / (n_hw * len(wl.layers))), 1)
+    t0 = now()
+    best, history = random_search(wl, n_hw=n_hw, n_map=n_map, seed=0)
+    secs = now() - t0
+    emit({"phase": "baselines_resnet50", "method": "random_search",
+          "n_hw": n_hw, "n_map": n_map, "samples": history[-1][0],
+          "dosa_n_evals": res.n_evals, "host_seconds": secs,
+          "best_edp": best, "dosa_best_edp": res.best_edp,
+          "ratio_to_dosa": best / res.best_edp})
 
 
 def phase_card_vs_cpu(search, problem):
@@ -732,8 +912,13 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+
     from repro_torch import configs
-    from repro_torch.core import oracle, problem, search
+    from repro_torch.core import (calibration, cosa, oracle, problem,
+                                  rtl_sim, search, surrogate)
+    from repro_torch.core.arch import GEMMINI_DEFAULT
+    from repro_torch.core.baselines import random_search
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention.flash_attention import (
         attend, flash_attention)
@@ -793,9 +978,32 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     phase_lm_card_vs_cpu(torch, lm_mod, configs, serve_step)
-    phase_chunk_sync_free(torch, search, oracle, wl, cfg, res)
-    phase_profile_gd(torch, search, wl, cfg)
+    phase_chunk_sync_free(torch, search, wl, cfg, res)
+    gd_resnet50 = phase_profile_gd(torch, search, wl, cfg)
     phase_card_vs_cpu(search, problem)
+
+    # ---- the paper's Sec. 6 experiments, counts from 0 (no kernel of
+    # this repo is on these paths).
+    matmul.launches = 0
+    matmul.launches_by_variant.update(wgmma=0, simt=0)
+    flash_attention.launches = 0
+    models = phase_calibration_train(torch, np, surrogate, rtl_sim, dnn_zoo,
+                                     GEMMINI_DEFAULT)
+    unet, short_cfg, short_res = phase_calibrated_search_unet(
+        torch, search, calibration, rtl_sim, cosa, dnn_zoo, GEMMINI_DEFAULT,
+        models)
+    phase_chunk_sync_free(torch, search, unet, short_cfg, short_res,
+                          phase="surrogate_chunk_sync_free")
+    gd_unet = phase_profile_gd(torch, search, unet, short_cfg,
+                               phase="profile_gd_steps_surrogate")
+    emit({"phase": "profile_gd_surrogate",
+          "unet_combined_surrogate": gd_unet,
+          "resnet50_analytical": gd_resnet50})
+    phase_baselines_resnet50(random_search, wl, res)
+    emit({"phase": "main_path_launches",
+          "path": "calibration+calibrated_search+baselines",
+          "matmul": matmul.launches,
+          "flash_attention": flash_attention.launches})
     mm_row = phase_matmul_timing(torch, matmul, matmul_ref, x, y,
                                  mm_launches)
     fa_row = phase_flash_timing(torch, attend, attention_ref,

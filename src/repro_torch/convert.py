@@ -3,7 +3,8 @@
 The reference hands its state over as plain Python and numpy (the
 port never imports it): an `ArchSpec` as the dict of its dataclass
 fields (`dataclasses.asdict`), a search population as numpy arrays,
-a `PopulationBest` as its three arrays.  These functions rebuild the
+a `PopulationBest` as its three arrays, an MLP's parameter list or an
+LM's parameter tree with numpy leaves.  These functions rebuild the
 port's objects from that, on a named device.
 """
 from __future__ import annotations
@@ -73,6 +74,30 @@ def _tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr.view(np.uint16).copy()).view(
             torch.bfloat16)
     return torch.from_numpy(arr.copy())
+
+
+def surrogate_params_from_numpy(params, device=DEFAULT_DEVICE) -> list:
+    """The latency MLP's parameter list (`core.surrogate`) on `device`
+    from the reference's: ``[{"w": (in, out), "b": (out,)}, ...]`` with
+    numpy leaves (its `init_mlp` output or a trained model's
+    `params`), as float32 tensors.  Each layer's input width must be
+    the previous layer's output width, and the last layer has one
+    output."""
+    dev = resolve_device(device)
+    out, width = [], None
+    for i, p in enumerate(params):
+        w = np.asarray(p["w"], dtype=np.float32)
+        b = np.asarray(p["b"], dtype=np.float32)
+        if w.ndim != 2 or b.shape != (w.shape[1],) or \
+                (width is not None and w.shape[0] != width):
+            raise ValueError(f"layer {i}: w {w.shape}, b {b.shape} do "
+                             f"not chain from width {width}")
+        width = w.shape[1]
+        out.append({"w": torch.from_numpy(w.copy()).to(dev),
+                    "b": torch.from_numpy(b.copy()).to(dev)})
+    if width != 1:
+        raise ValueError(f"the last layer has {width} outputs, not 1")
+    return out
 
 
 def lm_params_from_numpy(cfg, params: dict, device=DEFAULT_DEVICE):

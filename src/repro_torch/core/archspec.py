@@ -57,10 +57,10 @@ class EpaModel:
     `slope == 0` is a constant-EPA level (registers, DRAM).
 
     `source` records where the coefficients came from: the shipped specs
-    use Table-2 constants (`"table"`).  Fitting coefficients to
-    measurements (`"fitted"`) belongs to the calibration slice, which
-    the port has not taken yet (ROADMAP queue 1: "Calibration and
-    baselines")."""
+    use Table-2 constants (`"table"`); `EpaModel.fit` (`"fitted"`)
+    least-squares fits them to CACTI/Accelergy-style measurement
+    samples (`core.calibration.calibrate_epa`), so a spec's energy
+    numbers can come from measurement instead of paper constants."""
 
     base: float
     slope: float = 0.0
@@ -72,6 +72,38 @@ class EpaModel:
         Works with python scalars or numpy arrays."""
         denom = c_pe ** 0.5 if self.pe_scaled else 1.0
         return self.base + self.slope * kb / denom
+
+    @classmethod
+    def fit(cls, kb, c_pe, pj, pe_scaled: bool | None = None) -> "EpaModel":
+        """Least-squares fit of (base, slope) to measured
+        energy-per-access samples: `pj ~ base + slope * kb [/ sqrt(c_pe)]`.
+        `pe_scaled=None` tries both scalings and keeps the lower-residual
+        one.  Negative coefficients are clamped to zero and the remaining
+        coefficient refit (EPA models are physically nonnegative)."""
+        kb = np.asarray(kb, dtype=float)
+        c_pe = np.broadcast_to(np.asarray(c_pe, dtype=float), kb.shape)
+        pj = np.asarray(pj, dtype=float)
+        if kb.shape != pj.shape:
+            raise ValueError(f"kb {kb.shape} / pj {pj.shape} mismatch")
+
+        def _fit_one(scaled: bool) -> tuple["EpaModel", float]:
+            x = kb / np.sqrt(c_pe) if scaled else kb
+            a = np.stack([np.ones_like(x), x], axis=1)
+            (base, slope), *_ = np.linalg.lstsq(a, pj, rcond=None)
+            if slope < 0.0:
+                base, slope = float(np.mean(pj)), 0.0
+            if base < 0.0:
+                base = 0.0
+                denom = float(np.sum(x * x))
+                slope = float(np.sum(x * pj) / denom) if denom > 0 else 0.0
+            model = cls(float(base), float(slope), scaled, source="fitted")
+            resid = float(np.mean((model(kb, c_pe) - pj) ** 2))
+            return model, resid
+
+        if pe_scaled is not None:
+            return _fit_one(bool(pe_scaled))[0]
+        cands = [_fit_one(False), _fit_one(True)]
+        return min(cands, key=lambda mr: mr[1])[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -262,7 +294,9 @@ class CompiledSpec:
     def device_tables(self, device) -> dict:
         """The static tables the tensor model reads, as tensors on
         `device`, built once per device: ``free_mask`` (2, n_levels, 7)
-        bool, ``combos`` (n_combos, n_levels) int64, ``order_table``
+        bool, ``free_idx`` (n_free,) int64 (the free sites' flat
+        indices into a (2, n_levels, 7) tensor, in `free_mask`'s C
+        order), ``combos`` (n_combos, n_levels) int64, ``order_table``
         (3, 7) int64 (`mapping.ORDER_TABLE`) and ``rel`` (3, 7) float32
         (`problem.REL`).  The first use builds them, before any chunk,
         so no host-to-device copy happens inside one."""
@@ -277,6 +311,8 @@ class CompiledSpec:
             self._device_tables[key] = {
                 "free_mask": torch.as_tensor(self.free_mask.copy(),
                                              device=dev),
+                "free_idx": torch.as_tensor(
+                    np.flatnonzero(self.free_mask), device=dev),
                 "combos": torch.as_tensor(self.combos.copy(), device=dev),
                 "order_table": torch.as_tensor(ORDER_TABLE.copy(),
                                                device=dev),

@@ -5,16 +5,17 @@ hardware configuration of a target `ArchSpec` that supports all of
 them: per-parameter max across layers, PE array capped at the spec's
 limit, SRAM sizes rounded up to the spec's increment (Sec. 6.1).
 
-The `*_for` forms work for any compiled spec and return the generic
-`HWConfig` (or `GemminiHW` for the Gemmini spec, so downstream code
-sees the familiar type).
+`minimal_hw` / `random_hw` are the legacy Gemmini entry points
+(returning `GemminiHW`); the `*_for` forms work for any compiled spec
+and return the generic `HWConfig` (or `GemminiHW` for the Gemmini spec,
+so downstream code sees the familiar type).
 """
 from __future__ import annotations
 
 import numpy as np
 
 from .arch import GemminiHW
-from .archspec import GEMMINI_SPEC, HWConfig, resolve_spec
+from .archspec import GEMMINI_SPEC, HWConfig, compile_spec, resolve_spec
 from .mapping import SPATIAL, Mapping
 from .oracle import _caps
 from .problem import Layer
@@ -50,6 +51,27 @@ def minimal_hw_for(cspec, mappings: list[Mapping], layers: list[Layer]):
     return hw
 
 
+def minimal_hw(mappings: list[Mapping], layers: list[Layer]) -> GemminiHW:
+    """Legacy Gemmini entry point."""
+    return minimal_hw_for(compile_spec(GEMMINI_SPEC), mappings, layers)
+
+
+def minimal_hw_population_for(cspec, population: list[list[Mapping]],
+                              layers: list[Layer]) -> list:
+    """Minimal hardware for each member of a population of workload
+    mappings on any spec: one hardware point per member, each the
+    per-parameter max over that member's layers."""
+    return [minimal_hw_for(cspec, mappings, layers)
+            for mappings in population]
+
+
+def minimal_hw_population(population: list[list[Mapping]],
+                          layers: list[Layer]) -> list[GemminiHW]:
+    """Legacy Gemmini entry point: one GemminiHW per member."""
+    return minimal_hw_population_for(compile_spec(GEMMINI_SPEC),
+                                     population, layers)
+
+
 def random_hw_spec(rng: np.random.Generator, spec=None) -> HWConfig:
     """Random valid hardware design (start-point generation, Sec. 5.1).
     Draw order (PE side first, then each searched level inner->outer)
@@ -80,3 +102,9 @@ def random_hw_for(cspec, rng: np.random.Generator):
         return GemminiHW(pe_dim=hw.pe_dim, acc_kb=hw.cap_kb[0],
                          sp_kb=hw.cap_kb[1])
     return hw
+
+
+def random_hw(rng: np.random.Generator) -> GemminiHW:
+    """Legacy Gemmini entry point: 4..128 PEs, 8..512 KB accumulator,
+    32 KB..2 MB scratchpad."""
+    return random_hw_for(compile_spec(GEMMINI_SPEC), rng)

@@ -19,12 +19,18 @@ Protocol details implemented from the paper:
 * every differentiable-model step and every oracle evaluation of a
   rounded mapping counts as one sample (Sec. 6.3).
 
-Two engines are ported, and both run on the device the caller names
+Three engines are ported, and all run on the device the caller names
 (``"cuda"`` by default):
 
 * the *sequential* reference driver (``dosa_search(...,
   population=None)``) runs each start point's Adam descent step by
   step, rounding and re-selecting orderings through the host;
+* the *host-batched* engine (``dosa_search(..., population=P,
+  fused=False)``) runs each GD segment of a whole population chunk on
+  the device, then returns to the host at every rounding point: the
+  chunk is rounded on the host (`rounding.round_population`), its
+  orderings re-selected by one batched device table plus coordinate
+  descent (`select_orderings_population_spec`), and oracle-evaluated;
 * the *fused* engine (``dosa_search(..., population=P)``, the default)
   runs a whole population chunk on the device — every GD segment
   (Adam over the batched model, per-member gradients from one
@@ -35,10 +41,14 @@ Two engines are ported, and both run on the device the caller names
   host-batched order, so both engines report the reference's
   ``best_edp``, ``n_evals`` and ``history`` for a given seed.
 
+``SearchConfig.surrogate`` (a `surrogate.TrainedModel`) makes every
+engine descend through the learned latency model (Sec. 6.5): the loss
+composes the MLP's per-layer latency with the analytical energy, its
+features built on the device by `calibration.traced_features`.
+
 Not ported yet, and raising `NotImplementedError` with the ROADMAP
-queue item: the host-batched engine (``fused=False``), device seeding
-(``start_points != "cosa"``), population sharding (``shards > 1``) and
-the learned latency model (``surrogate``).
+queue item: device seeding (``start_points != "cosa"``), population
+sharding (``shards > 1``) and per-spec surrogate dicts (the fleet's).
 """
 from __future__ import annotations
 
@@ -66,7 +76,8 @@ from .model import (SpecHW, capacities,
                     workload_eval_spec)
 from .oracle import evaluate_workload
 from .problem import Workload
-from .rounding import round_all, rounding_tables, _round_population_core
+from .rounding import (round_all, round_population, rounding_tables,
+                       _round_population_core)
 
 _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
 
@@ -133,7 +144,9 @@ class SearchConfig:
     max_reject_tries: int = 10
     seed: int = 0
     latency_model: Callable | None = None  # (mappings, workload) -> EDP
-    surrogate: object | None = None    # not ported yet (raises)
+    surrogate: object | None = None    # TrainedModel: GD descends
+    #   through the DNN residual/direct latency model (Sec. 6.5),
+    #   calibrated for `spec`'s featurization (core.calibration).
     shards: int | None = None          # not ported beyond 1 (raises)
     start_points: str = "cosa"         # only "cosa" ported (others raise)
 
@@ -160,14 +173,18 @@ class SearchConfig:
                 f"unknown start_points {self.start_points!r}; choose "
                 "'cosa' (host protocol), 'random-device' or "
                 "'cosa-device' (on-device seeding)")
+        # A single-target surrogate must belong to this config's target:
+        # a model calibrated for another spec's physics (or feature
+        # width) is rejected here with calibration's own diagnostics.
+        sur = self.surrogate
+        if sur is not None and not isinstance(sur, dict) \
+                and hasattr(sur, "n_features") and hasattr(sur, "spec_name"):
+            from .calibration import check_surrogate
+            check_surrogate(sur, resolve_spec(self.spec))
 
 
-def _check_ported(cfg: SearchConfig, population, fused: bool) -> None:
+def _check_ported(cfg: SearchConfig) -> None:
     """Raise for the reference features this port has not taken yet."""
-    if population is not None and not fused:
-        raise NotImplementedError(
-            "fused=False (the host-batched engine) is not ported yet "
-            "(ROADMAP queue 1: Host-batched engine)")
     if cfg.start_points != "cosa":
         raise NotImplementedError(
             f"start_points={cfg.start_points!r} needs device seeding, "
@@ -176,10 +193,10 @@ def _check_ported(cfg: SearchConfig, population, fused: bool) -> None:
         raise NotImplementedError(
             "shards > 1 is not ported yet (ROADMAP queue 1: Multi-GPU "
             "population sharding)")
-    if cfg.surrogate is not None:
+    if isinstance(cfg.surrogate, dict):
         raise NotImplementedError(
-            "surrogate latency models are not ported yet (ROADMAP queue "
-            "1: Calibration and baselines)")
+            "per-spec surrogate dicts belong to fleet search, not ported "
+            "yet (ROADMAP queue 1: Fleet)")
 
 
 @dataclasses.dataclass
@@ -243,6 +260,40 @@ def _make_loss_fn(workload: Workload, cfg: SearchConfig, device):
     pe_cap = _pe_cap(cfg, cspec)
     hw_fixed = _fixed_spec_hw(cfg, cspec, device)
     free_mask = cspec.free_mask_t(device)
+    sur = cfg.surrogate
+    if sur is not None:
+        # Spec-generic calibration path: validate the trained model's
+        # feature width against the target's featurization up front,
+        # then put its weights and normalization on the device once.
+        from .calibration import check_surrogate, traced_features
+        from .surrogate import DIRECT_CLIP, RESIDUAL_CLIP, mlp_apply
+        check_surrogate(sur, cspec)
+        sur_params = [{k: v.to(device) for k, v in p.items()}
+                      for p in sur.params]
+        x_mean = torch.as_tensor(np.asarray(sur.x_mean, dtype=np.float32),
+                                 device=device)
+        x_std = torch.as_tensor(np.asarray(sur.x_std, dtype=np.float32),
+                                device=device)
+        logdims = torch.log(dims)
+
+    def surrogate_latency(theta, orders, hw, lat_analytical):
+        """Per-layer latency through the learned model (differentiable:
+        the features are the log-factors, theta at the spec's free
+        sites)."""
+        feats = traced_features(cspec, theta, orders, logdims, hw)
+        out = mlp_apply(sur_params, (feats - x_mean) / x_std)  # (..., L)
+        if sur.kind == "residual":
+            return lat_analytical * torch.exp(
+                torch.clamp(out, -RESIDUAL_CLIP, RESIDUAL_CLIP))
+        return torch.exp(torch.clamp(out, 0.0, DIRECT_CLIP))
+
+    def edp_fixed_orders(theta, f, orders):
+        edp, (en, lat, hw) = workload_eval_spec(cspec, f, orders, strides,
+                                                repeats, hw=hw_fixed)
+        if sur is not None:
+            lat_s = surrogate_latency(theta, orders, hw, lat / repeats)
+            edp = en.sum(dim=-1) * (lat_s * repeats).sum(dim=-1)
+        return edp
 
     def edp_softmax(f):
         hw = infer_hw_spec(cspec, f, strides) if hw_fixed is None \
@@ -271,11 +322,10 @@ def _make_loss_fn(workload: Workload, cfg: SearchConfig, device):
 
     def loss(theta, orders):
         f = build_f(theta, dims, free_mask)
-        if cfg.ordering_mode == "softmax":
+        if cfg.ordering_mode == "softmax" and sur is None:
             edp = edp_softmax(f)
         else:
-            edp = workload_eval_spec(cspec, f, orders, strides, repeats,
-                                     hw=hw_fixed)[0]
+            edp = edp_fixed_orders(theta, f, orders)
         pen = validity_penalty(f) \
             + _spatial_cap_penalty(f, pe_cap, cspec.spatial_sites)
         if hw_fixed is not None:
@@ -302,19 +352,24 @@ def _loss_grad(loss):
 # Engine cache: per (workload, config fields the engine reads, device),
 # the loss closure plus its constant tables already on the device.
 # Fields that only steer the host driver (steps, seed, rejection
-# protocol, latency_model) are excluded on purpose.
+# protocol, latency_model) are excluded on purpose.  The surrogate is
+# keyed by identity: its weights are copied into the engine, and the
+# engine holds the config, so an id is not reused while it is cached.
 _ENGINE_CACHE = LRUCache(maxsize=16)
 
 
 def _engine_key(workload: Workload, cfg: SearchConfig, kind: str, device):
     return (kind, workload, cfg.spec, cfg.lr, cfg.penalty_weight,
             cfg.ordering_mode, cfg.softmax_temp, cfg.fixed_hw,
-            cfg.fix_pe_only, str(device))
+            cfg.fix_pe_only,
+            id(cfg.surrogate) if cfg.surrogate is not None else None,
+            str(device))
 
 
 def make_loss(workload: Workload, cfg: SearchConfig,
               device=DEFAULT_DEVICE):
-    """(grad_fn, dims, strides, repeats) of the sequential driver,
+    """(grad_fn, dims, strides, repeats) of the sequential driver and
+    the host-batched engine (the loss is batched over leading dims),
     cached per (workload, cfg, device)."""
     dev = resolve_device(device)
 
@@ -415,6 +470,43 @@ def select_orderings_spec(cspec: CompiledSpec, fs: torch.Tensor,
     return cspec.combos[choice.cpu().numpy()]
 
 
+def _population_hw(cspec: CompiledSpec, fs: torch.Tensor,
+                   strides: torch.Tensor, hw_fixed: SpecHW | None) -> SpecHW:
+    """One hardware point per member of a (P, L, 2, n_levels, 7)
+    population: the frozen one broadcast, else each member's inferred
+    minimal hardware."""
+    if hw_fixed is None:
+        return infer_hw_spec(cspec, fs, strides)
+    P = fs.shape[0]
+    return SpecHW(c_pe=hw_fixed.c_pe.expand(P),
+                  cap_words=hw_fixed.cap_words.expand(P, cspec.n_levels))
+
+
+def _population_choice(cspec: CompiledSpec, fs: torch.Tensor,
+                       strides: torch.Tensor, repeats: torch.Tensor,
+                       hws: SpecHW, n_passes: int = 2) -> torch.Tensor:
+    """(P, L) combo indices: every member's (L, n_combos) energy and
+    latency tables in one batched computation, then coordinate descent
+    per member, all on the population's device."""
+    e, lat = layer_el_all_orderings_population_spec(cspec, fs, strides, hws)
+    rep = repeats[None, :, None]
+    return _cd_orderings(e * rep, lat * rep, n_passes=n_passes)
+
+
+def select_orderings_population_spec(cspec: CompiledSpec,
+                                     fs_pop: torch.Tensor,
+                                     strides: torch.Tensor,
+                                     repeats: torch.Tensor, hws: SpecHW,
+                                     n_passes: int = 2) -> np.ndarray:
+    """Population-wide iterative ordering re-selection of the
+    host-batched engine: fs_pop (P, L, 2, n_levels, 7) on the device,
+    hws with (P,) / (P, n_levels) leaves.  Returns (P, L, n_levels)
+    numpy."""
+    choice = _population_choice(cspec, fs_pop, strides, repeats, hws,
+                                n_passes)
+    return cspec.combos[choice.cpu().numpy()]
+
+
 # ---------------------------------------------------------------------------
 # The fused engine
 # ---------------------------------------------------------------------------
@@ -447,18 +539,10 @@ class FusedEngine:
             f_round, theta = _round_population_core(cspec, self.tables,
                                                     f_cont, self.pe_cap)
             if self.cfg.ordering_mode in ("iterative", "softmax"):
-                if self.hw_fixed is not None:
-                    P = theta.shape[0]
-                    hws = SpecHW(
-                        c_pe=self.hw_fixed.c_pe.expand(P),
-                        cap_words=self.hw_fixed.cap_words.expand(
-                            P, cspec.n_levels))
-                else:
-                    hws = infer_hw_spec(cspec, f_round, self.strides)
-                e, lat = layer_el_all_orderings_population_spec(
-                    cspec, f_round, self.strides, hws)
-                rep = self.repeats[None, :, None]
-                orders = self.combos[_cd_orderings(e * rep, lat * rep)]
+                hws = _population_hw(cspec, f_round, self.strides,
+                                     self.hw_fixed)
+                orders = self.combos[_population_choice(
+                    cspec, f_round, self.strides, self.repeats, hws)]
             edp = population_edp_spec(cspec, f_round, orders, self.strides,
                                       self.repeats, hw=self.hw_fixed)
             best = population_best_update(best, edp, f_round, orders)
@@ -610,8 +694,9 @@ def dosa_search(workload: Workload, cfg: SearchConfig,
     """Run DOSA co-search on `device` (the card unless the caller asks
     for the CPU).  `population=None` is the sequential reference driver;
     `population=P` advances the start points P at a time through the
-    fused engine.  Routes through `api.run_request`, as the reference
-    does."""
+    fused engine, or with ``fused=False`` through the host-batched one
+    (same protocol, same sample counting, same start points for a given
+    seed).  Routes through `api.run_request`, as the reference does."""
     from ..api import SearchRequest, run_request
     return run_request(SearchRequest(
         workload=workload, config=cfg, population=population,
@@ -622,12 +707,14 @@ def execute_search(workload: Workload, cfg: SearchConfig,
                    population: int | None = None, fused: bool = True,
                    device=DEFAULT_DEVICE) -> SearchResult:
     """Engine dispatch shared by `dosa_search` and `api.run_request`."""
-    _check_ported(cfg, population, fused)
+    _check_ported(cfg)
     dev = resolve_device(device)
     if population is not None:
         if population < 1:
             raise ValueError(f"population must be >= 1, got {population}")
-        return _dosa_search_fused(workload, cfg, int(population), dev)
+        if fused:
+            return _dosa_search_fused(workload, cfg, int(population), dev)
+        return _dosa_search_batched(workload, cfg, int(population), dev)
     return _dosa_search_sequential(workload, cfg, dev)
 
 
@@ -710,6 +797,58 @@ def _population_inputs(chunk: list[list[Mapping]], cspec: CompiledSpec,
                           device)
     orders = torch.as_tensor(orders_from_population(chunk), device=device)
     return theta, orders
+
+
+def _dosa_search_batched(workload: Workload, cfg: SearchConfig,
+                         population: int,
+                         device: torch.device) -> SearchResult:
+    """Host-batched engine: each GD segment of a population chunk runs
+    on the device (`_adam_segment` over the batched loss); at every
+    rounding point the chunk comes back to the host, is rounded there
+    (`round_population`), re-selects its orderings (one batched device
+    table, then coordinate descent) and is oracle-evaluated member by
+    member.  A ragged final chunk is padded to `population` with
+    replicas of its last member and the padding is masked out of the
+    accounting, as in the reference."""
+    cspec = _cspec(cfg)
+    grad_fn, dims_t, strides_t, repeats_t = make_loss(workload, cfg, device)
+    dims = workload.dims_array()
+    free_mask_t = cspec.free_mask_t(device)
+    pe_cap = int(_pe_cap(cfg, cspec))
+    hw_fixed = _fixed_spec_hw(cfg, cspec, device)
+    rec = _Recorder(workload, cfg, cspec)
+    starts = _start_points(workload, cfg, rec)
+    segments = _segment_lengths(cfg.steps, cfg.round_every)
+
+    for lo in range(0, len(starts), population):
+        chunk = starts[lo:lo + population]
+        n_real = len(chunk)
+        for mappings in chunk:
+            rec.record(mappings)
+        chunk = chunk + [chunk[-1]] * (population - n_real)
+        theta, orders = _population_inputs(chunk, cspec, device)
+        for n_steps in segments:
+            theta = _adam_segment(grad_fn, cfg.lr, theta, orders, n_steps)
+            rec.count(n_steps * n_real)  # one sample per GD step
+            f_cont = build_f(theta, dims_t, free_mask_t).cpu().numpy()
+            rounded_pop = round_population(f_cont, orders.cpu().numpy(),
+                                           dims, pe_cap=pe_cap, spec=cspec)
+            if cfg.ordering_mode in ("iterative", "softmax"):
+                fs_pop = torch.from_numpy(np.stack(
+                    [stack_mappings(ms)[0] for ms in rounded_pop]
+                ).astype(np.float32)).to(device)
+                hws = _population_hw(cspec, fs_pop, strides_t, hw_fixed)
+                new_orders = select_orderings_population_spec(
+                    cspec, fs_pop, strides_t, repeats_t, hws)
+                for ms, no in zip(rounded_pop, new_orders):
+                    for mp, o in zip(ms, no):
+                        mp.order = o
+            for ms in rounded_pop[:n_real]:
+                rec.record(ms)
+            # Continue GD from the rounded points, fresh momentum.
+            theta, orders = _population_inputs(rounded_pop, cspec, device)
+
+    return rec.finish()
 
 
 def _dosa_search_fused(workload: Workload, cfg: SearchConfig,

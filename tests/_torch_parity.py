@@ -77,20 +77,21 @@ def assert_mappings_equal(a, b):
 E2E = dict(steps=20, round_every=10, n_start_points=3, seed=0)
 
 
-def reference_search(wl, mode, name, population):
+def reference_search(wl, mode, name, population, fused=True):
     """The reference's driver of the same kind on the E2E config (the
-    sequential driver records its history start by start, the fused one
-    segment by segment, so each port driver meets its own kind)."""
+    sequential driver records its history start by start, the
+    population engines segment by segment, so each port driver meets
+    its own kind)."""
     from repro.core.search import SearchConfig, dosa_search
     cfg = SearchConfig(ordering_mode=mode, spec=REF_SPECS[name], **E2E)
-    return dosa_search(wl, cfg, population=population)
+    return dosa_search(wl, cfg, population=population, fused=fused)
 
 
-def port_search(wl, mode, name, population):
+def port_search(wl, mode, name, population, fused=True):
     from repro_torch.core.search import SearchConfig, dosa_search
     cfg = SearchConfig(ordering_mode=mode, spec=PORT_SPECS[name], **E2E)
     return dosa_search(port_workload(wl), cfg, population=population,
-                       device="cpu")
+                       fused=fused, device="cpu")
 
 
 def assert_search_equal(got, ref):

@@ -30,12 +30,9 @@ def test_unported_features_raise(tiny_workload):
     from repro_torch.core.search import SearchConfig, dosa_search
     from _torch_parity import PORT_SPECS, port_workload
     wl = port_workload(tiny_workload)
-    cfg = SearchConfig(steps=2, round_every=1, n_start_points=1)
-    with pytest.raises(NotImplementedError, match="host-batched"):
-        dosa_search(wl, cfg, population=2, fused=False, device="cpu")
     for kw, what in ((dict(start_points="cosa-device"), "seeding"),
                      (dict(shards=2), "sharding"),
-                     (dict(surrogate=object()), "surrogate")):
+                     (dict(surrogate={"gemmini": object()}), "Fleet")):
         with pytest.raises(NotImplementedError, match=what):
             dosa_search(wl, SearchConfig(steps=2, round_every=1,
                                          n_start_points=1, **kw),

@@ -48,3 +48,24 @@ def test_fixed_hardware_search_matches_reference(fix_pe_only, population,
                    TConfig(fixed_hw=hw_t, fix_pe_only=fix_pe_only, **E2E),
                    population=population, device="cpu")
     assert_search_equal(got, ref)
+
+
+@pytest.mark.parametrize("mode,name", [
+    ("iterative", "gemmini"), ("none", "gemmini"), ("softmax", "gemmini"),
+    ("iterative", "tpu_v5e"), ("iterative", "edge3")])
+def test_host_batched_matches_reference(mode, name, tiny_workload):
+    """The host-batched engine (``fused=False``): rounding on the host,
+    orderings re-selected per chunk, a ragged second chunk padded and
+    masked, against the reference's host-batched engine."""
+    got = port_search(tiny_workload, mode, name, 2, fused=False)
+    assert_search_equal(
+        got, reference_search(tiny_workload, mode, name, 2, fused=False))
+
+
+def test_host_batched_equals_fused(tiny_workload):
+    """Both population engines round to the same candidates, so their
+    oracle accounting is identical."""
+    host = port_search(tiny_workload, "iterative", "gemmini", 2,
+                       fused=False)
+    assert_search_equal(host, port_search(tiny_workload, "iterative",
+                                          "gemmini", 2))
