@@ -42,6 +42,24 @@ Sec. 6 experiments come next, with the counts again set to 0:
 - `baselines_resnet50`: random search (host numpy) with about the
   ResNet-50 co-search's sample count.
 
+Then the co-search service, counts again set to 0:
+
+- `device_seed`: ResNet-50's dims, 1024 members, both seeding modes,
+  on the card under set_sync_debug_mode("error"), against the CPU and
+  the host twin on the same uniforms;
+- `device_seeded_search_resnet50`: 256 starts seeded on the card
+  (start_points="cosa-device"), 500 GD steps rounded every 250 (cut
+  from the paper's 1490 for time), GD steps profiled at P=256;
+- `fleet_resnet50`: ResNet-50 over Gemmini, TPU v5e and the edge spec
+  (two engine groups), then fleet against single-target search on the
+  small config;
+- `service_http`: a `CoSearchServer` on the card answering 8 HTTP
+  requests (a same-spec batch padded to member bucket 4, a mixed-spec
+  group, a duplicate, a ResNet-50 request, a malformed one), each
+  answer against a direct search on the card; kill/resume from a
+  checkpoint; a seeded chaos schedule; the reference's metric families
+  and span names.
+
 Last, it times both kernels (the wgmma variants of the main path, and
 the float32 flash on its simt kernel) beside their bounds, plain
 versions and library calls.
@@ -121,6 +139,38 @@ FIG12 = dict(steps=1490, round_every=500, n_start_points=3, seed=17)
 FIG12_SHORT = dict(steps=160, round_every=80, n_start_points=3, seed=17)
 # Cuts from the paper's scale above (none).
 CUTS: list = []
+
+# The co-search service slice.  Device seeding: ResNet-50's dims on
+# Gemmini, 1024 members.  The device-seeded search: 256 CoSA-seeded
+# starts in one chunk, 500 GD steps rounded every 250 (the paper runs
+# 1490, every 500: cut to fit the script's time budget).  The fleet:
+# ResNet-50 over the three shipped specs, 2 starts each, the same
+# schedule.  The service: 8 requests over HTTP on the small config
+# (20 steps, round every 10) and one ResNet-50 request of 250 steps.
+SEED_N = 1024
+DEVICE_SEEDED = dict(steps=500, round_every=250, n_start_points=256,
+                     seed=0, start_points="cosa-device")
+DEVICE_SEEDED_CUT = ("500 GD steps rounded every 250, not the paper's "
+                     "1490 every 500: the script's time budget")
+FLEET = dict(steps=500, round_every=250, n_start_points=2, seed=0)
+SMALL = dict(steps=20, round_every=10)
+SERVE_RESNET50 = dict(steps=250, round_every=125, n_start_points=2, seed=0)
+# The reference service's metric families (`repro.serve.cosearch_service`,
+# `repro.obs.telemetry`, `repro.runtime.search_checkpoint`) and its
+# request-lifecycle span and event names.
+REF_METRIC_FAMILIES = (
+    "serve_requests_submitted_total", "serve_requests_completed_total",
+    "serve_segments_total", "serve_batches_total", "serve_dedup_hits_total",
+    "serve_quarantined_total", "serve_batch_splits_total",
+    "serve_timeouts_total", "serve_degraded_requests_total",
+    "serve_retries_total", "serve_backoff_seconds_total",
+    "serve_fault_events_total", "serve_request_seconds",
+    "engine_cache_hit_rate", "engine_cache_size",
+    "engine_cache_build_seconds_total", "engine_build_total",
+    "engine_build_seconds", "checkpoint_ops_total",
+    "checkpoint_bytes_total", "checkpoint_seconds")
+REF_REQUEST_SPANS = ("request", "queue_wait", "segment")
+REF_REQUEST_EVENTS = ("submitted", "batch_join", "drain")
 
 
 def emit(obj) -> None:
@@ -315,37 +365,44 @@ def phase_chunk_sync_free(torch, search, wl, cfg, res,
           "rerun_best_edp": replay, "deterministic": True})
 
 
-def phase_profile_gd(torch, search, wl, cfg, n_steps: int = 10,
-                     phase: str = "profile_gd_steps") -> dict:
+def profile_steps(torch, search, engine, lr, theta, orders,
+                  n_steps: int) -> dict:
     """Where a GD step's time goes: `n_steps` Adam steps of the fused
     engine timed on the host clock, then the same under torch.profiler
     — device operations per step, device busy time per step, and the
     busy share of an unprofiled step."""
     from torch.profiler import ProfilerActivity, profile
 
-    engine, theta, orders, _ = chunk_inputs(search, wl, cfg)
-    search._adam_segment(engine.grad_fn, cfg.lr, theta, orders, 2)  # warm
+    search._adam_segment(engine.grad_fn, lr, theta, orders, 2)  # warm
     torch.cuda.synchronize()
     t0 = now()
-    search._adam_segment(engine.grad_fn, cfg.lr, theta, orders, n_steps)
+    search._adam_segment(engine.grad_fn, lr, theta, orders, n_steps)
     torch.cuda.synchronize()
     step_ms = (now() - t0) * 1e3 / n_steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = now()
-        search._adam_segment(engine.grad_fn, cfg.lr, theta, orders, n_steps)
+        search._adam_segment(engine.grad_fn, lr, theta, orders, n_steps)
         torch.cuda.synchronize()
         prof_ms = (now() - t0) * 1e3 / n_steps
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / n_steps
+    return {"wall_ms_per_step": step_ms,
+            "wall_ms_per_step_profiled": prof_ms,
+            "device_ops_per_step": len(dev) / n_steps,
+            "device_busy_ms_per_step": busy_ms if dev else "not measured",
+            "device_busy_share": busy_ms / step_ms if dev
+            else "not measured"}
+
+
+def phase_profile_gd(torch, search, wl, cfg, n_steps: int = 10,
+                     phase: str = "profile_gd_steps") -> dict:
+    """`profile_steps` on the host-seeded population of (wl, cfg)."""
+    engine, theta, orders, _ = chunk_inputs(search, wl, cfg)
     rec = {"phase": phase, "workload": wl.name, "steps": n_steps,
-           "wall_ms_per_step": step_ms,
-           "wall_ms_per_step_profiled": prof_ms,
-           "device_ops_per_step": len(dev) / n_steps,
-           "device_busy_ms_per_step": busy_ms if dev else "not measured",
-           "device_busy_share": busy_ms / step_ms if dev
-           else "not measured"}
+           **profile_steps(torch, search, engine, cfg.lr, theta, orders,
+                           n_steps)}
     emit(rec)
     return rec
 
@@ -490,17 +547,22 @@ def phase_baselines_resnet50(random_search, wl, res):
           "ratio_to_dosa": best / res.best_edp})
 
 
+def tiny_workload(problem):
+    """The port tests' 3-layer workload: the small config's."""
+    Layer, Workload = problem.Layer, problem.Workload
+    return Workload(layers=(
+        Layer.conv(64, 64, 3, 56, name="c1"),
+        Layer.matmul(512, 1024, 768, name="m1"),
+        Layer.conv(128, 256, 3, 28, stride=2, name="c2"),
+    ), name="tiny")
+
+
 def phase_card_vs_cpu(search, problem):
     """The end-to-end test's short config on the card and on the CPU:
     rounded candidates and results must be equal."""
     import numpy as np
 
-    Layer, Workload = problem.Layer, problem.Workload
-    wl = Workload(layers=(
-        Layer.conv(64, 64, 3, 56, name="c1"),
-        Layer.matmul(512, 1024, 768, name="m1"),
-        Layer.conv(128, 256, 3, 28, stride=2, name="c2"),
-    ), name="tiny")
+    wl = tiny_workload(problem)
     cfg = search.SearchConfig(steps=20, round_every=10, n_start_points=3,
                               seed=0)
     out = {}
@@ -520,6 +582,341 @@ def phase_card_vs_cpu(search, problem):
         out["sequential" if pop is None else "fused"] = {
             "best_edp": a.best_edp, "n_evals": a.n_evals}
     emit({"phase": "card_vs_cpu", "equal": True, **out})
+
+
+def phase_device_seed(torch, np, mapping, dnn_zoo):
+    """Device seeding at ResNet-50's dims, SEED_N members, both modes:
+    the same uniforms (drawn on the CPU, then copied) seed on the card
+    under set_sync_debug_mode("error") and on the CPU; f, theta and
+    orders must be equal, and equal to the host twin."""
+    wl = dnn_zoo.resnet50()
+    dims = wl.dims_array()
+    u_cpu = mapping.seed_uniforms(dims, SEED_N,
+                                  torch.Generator().manual_seed(5))
+    u_card = tuple(u.to("cuda") for u in u_cpu)
+    out = {}
+    for mode in ("random", "cosa"):
+        def seed(dev, u):
+            return mapping.seed_population(dims, SEED_N, mode=mode,
+                                           device=dev, uniforms=u)
+        seed("cuda", u_card)          # builds the tables on the card
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            card = seed("cuda", u_card)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ms = cuda_ms(lambda: seed("cuda", u_card), warmup=2, iters=10)
+        cpu = seed("cpu", u_cpu)
+        f_h, o_h = mapping.seed_population_host(
+            dims, *(u.numpy() for u in u_cpu), mode=mode)
+        for name, a, b in zip(("f", "theta", "orders"), card, cpu):
+            check(torch.equal(a.cpu(), b),
+                  f"device_seed {mode}: {name} card != CPU")
+        check(np.array_equal(cpu[0].numpy(), f_h)
+              and np.array_equal(cpu[2].numpy(), o_h),
+              f"device_seed {mode}: port != host twin")
+        out[mode] = {"ms_per_call": ms, "sync_free": True,
+                     "equal_cpu_and_host_twin": True}
+    emit({"phase": "device_seed", "workload": wl.name,
+          "layers": len(wl.layers), "members": SEED_N, "spec": "gemmini",
+          **out})
+
+
+def phase_device_seeded_search(torch, search, mapping, oracle, wl,
+                               host_res, gd_p7):
+    """The fused engine seeding its 256 starts on the card
+    (start_points="cosa-device") on ResNet-50, one chunk; oracle
+    re-evaluation equals best_edp; GD steps profiled at P=256 beside
+    the P=7 steps of the paper-protocol search."""
+    cfg = search.SearchConfig(**DEVICE_SEEDED)
+    pop = cfg.n_start_points
+    torch.cuda.synchronize()
+    t0 = now()
+    res = search.dosa_search(wl, cfg, population=pop, device="cuda")
+    secs = now() - t0
+    edp, _ = oracle.evaluate_workload(res.best_mappings, wl.layers)
+    check(edp == res.best_edp, f"device-seeded search: oracle {edp} != "
+          f"best_edp {res.best_edp}")
+    n_seg = len(search._segment_lengths(cfg.steps, cfg.round_every))
+    check(res.n_evals == pop * (cfg.steps + n_seg) and not res.start_edps,
+          f"device-seeded search: n_evals {res.n_evals}")
+    engine = search.make_fused_runner(wl, cfg, "cuda")
+    _, theta, orders = mapping.seed_population(
+        wl.dims_array(), pop, search.chunk_generator(cfg.seed, 0, "cuda"),
+        spec=engine.cspec, pe_cap=engine.pe_cap, mode="cosa",
+        device="cuda")
+    prof = profile_steps(torch, search, engine, cfg.lr, theta, orders, 10)
+    emit({"phase": "device_seeded_search_resnet50", "cut": DEVICE_SEEDED_CUT,
+          "steps": cfg.steps, "round_every": cfg.round_every,
+          "population": pop, "start_points": cfg.start_points,
+          "seconds": secs, "best_edp": res.best_edp, "oracle_edp": edp,
+          "n_evals": res.n_evals,
+          "host_cosa_p7_best_edp": host_res.best_edp,
+          "ratio_to_host_cosa_p7": res.best_edp / host_res.best_edp,
+          "p256_step": prof,
+          "p7_step": {k: gd_p7[k] for k in prof}})
+
+
+def _fleet_group_seconds(spans, t_begin):
+    """Seconds of each structural group of one fleet run, from its
+    spans: from the end of the previous group's last oracle span (or
+    the run's start) to the end of this group's (start points, engine
+    build, device work, read-back and oracle replay)."""
+    groups, last_end, cur = [], t_begin, None
+    for sp in spans:
+        if sp.name == "fleet.fused_dispatch":
+            cur = {"specs": sp.attrs["specs"],
+                   "members": sp.attrs["members"], "t0": last_end}
+            groups.append(cur)
+        elif sp.name == "fleet.oracle" and cur is not None:
+            last_end = sp.t_end
+            cur["seconds"] = sp.t_end - cur["t0"]
+    for g in groups:
+        g.pop("t0")
+    return groups
+
+
+def phase_fleet(torch, fleet, search, oracle, archspec, obs, wl, problem):
+    """Fleet search of ResNet-50 over the three shipped specs on the
+    card: 2 engine groups, every entry re-evaluated by its spec's
+    oracle, a frontier; then, on the small config, fleet equals
+    single-target search per spec on the card."""
+    import dataclasses
+
+    specs = [archspec.GEMMINI_SPEC, archspec.TPU_V5E_SPEC,
+             archspec.EDGE_SPEC]
+    cfg = search.SearchConfig(**FLEET)
+    fleet._FLEET_ENGINE_CACHE.clear()
+    tracer = obs.Tracer()
+    prev = obs.set_tracer(tracer)
+    try:
+        torch.cuda.synchronize()
+        t_begin = obs.default_clock()
+        t0 = now()
+        res = fleet.fleet_search(wl, specs, cfg, device="cuda")
+        secs = now() - t0
+    finally:
+        obs.set_tracer(prev)
+    n_groups = len(fleet._FLEET_ENGINE_CACHE)
+    check(n_groups == 2, f"fleet: {n_groups} engine groups, expected 2")
+    entries = {}
+    for spec in specs:
+        e = res.entry(spec.name, wl.name)
+        edp, _ = oracle.evaluate_workload(e.best_mappings, wl.layers,
+                                          spec=spec)
+        check(edp == e.best_edp, f"fleet {spec.name}: oracle {edp} != "
+              f"best_edp {e.best_edp}")
+        entries[spec.name] = {"best_edp": e.best_edp, "n_evals": e.n_evals,
+                              "energy_pj": e.best_energy,
+                              "latency_cycles": e.best_latency}
+    front = res.frontier()
+    check(len(front) >= 1, "fleet: empty frontier")
+    small = tiny_workload(problem)
+    cfg_s = search.SearchConfig(n_start_points=2, seed=3, **SMALL)
+    fr = fleet.fleet_search(small, specs, cfg_s, device="cuda")
+    for spec in specs:
+        solo = search.dosa_search(small, dataclasses.replace(cfg_s,
+                                                             spec=spec),
+                                  population=2, device="cuda")
+        e = fr.entry(spec.name, small.name)
+        check((e.best_edp, e.n_evals, e.start_edps)
+              == (solo.best_edp, solo.n_evals, solo.start_edps),
+              f"fleet != single-target search on {spec.name} (small)")
+    emit({"phase": "fleet_resnet50", **FLEET, "specs":
+          [s.name for s in specs], "engine_groups": n_groups,
+          "seconds": secs,
+          "group_seconds": _fleet_group_seconds(tracer.spans(), t_begin),
+          "entries": entries, "frontier": [e.spec_name for e in front],
+          "small_fleet_equals_single_target": True})
+
+
+def _layers_json(wl):
+    return {"name": wl.name, "layers": [
+        {"dims": list(lay.dims), "wstride": lay.wstride,
+         "hstride": lay.hstride, "repeat": lay.repeat, "name": lay.name}
+        for lay in wl.layers]}
+
+
+def _http(base, path, body=None):
+    """(status, parsed body) of one GET, or one POST of JSON `body`."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={"Content-Type":
+                                          "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            text = r.read().decode()
+            status = r.status
+    except urllib.error.HTTPError as e:
+        text, status = e.read().decode(), e.code
+    if path == "/v1/metrics":
+        return status, text
+    return status, json.loads(text)
+
+
+def phase_service_http(torch, search, api, service_mod, server_mod, chaos,
+                       problem, wl_resnet):
+    """The co-search service on the card behind its HTTP front-end: 8
+    requests (3 same-spec that batch into member bucket 4, 2 mixed-spec
+    through the fleet engine, 1 duplicate, 1 ResNet-50 of 250 steps,
+    1 malformed).  Every ok outcome equals a direct dosa_search on the
+    card; a service killed after one segment resumes from its
+    checkpoint to the same outcome; a seeded chaos schedule leaves the
+    healthy requests' answers unchanged; /v1/metrics and /v1/trace carry
+    the reference's families and span names."""
+    import dataclasses
+    import shutil
+    import threading
+
+    t_phase = now()
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    small = tiny_workload(problem)
+    wl_small = _layers_json(small)
+    same = [{"workload": wl_small,
+             "config": dict(SMALL, n_start_points=1, seed=s)}
+            for s in (1, 2, 3)]
+    mixed = [{"workload": wl_small,
+              "config": dict(SMALL, n_start_points=2, seed=4, spec=name)}
+             for name in ("tpu_v5e", "edge3")]
+    resnet = {"workload": _layers_json(wl_resnet), "config": SERVE_RESNET50}
+    malformed = {"workload": wl_small, "config": {"stepz": 20}}
+    bodies = same + mixed + [same[0], resnet]
+    srv = server_mod.CoSearchServer(service_mod.ServiceConfig(
+        bucket_workloads=False, checkpoint_dir=str(ckpt / "http")),
+        device="cuda")
+    # The scheduler starts once the burst is in, so the 3 same-spec
+    # requests form one batch (the server batches what is pending when
+    # it steps).
+    gate = threading.Event()
+    schedule = srv._schedule
+    srv._schedule = lambda: (gate.wait(), schedule())
+    host, port = srv.start()
+    base = f"http://{host}:{port}"
+    try:
+        subs = [_http(base, "/v1/search", b) for b in bodies]
+        code_bad, bad = _http(base, "/v1/search", malformed)
+        check(all(c == 202 for c, _ in subs), f"submissions: {subs}")
+        check([s["deduplicated"] for _, s in subs]
+              == [False] * 5 + [True, False]
+              and subs[5][1]["request_id"] == subs[0][1]["request_id"],
+              f"dedup: {subs}")
+        check(code_bad == 400 and "serveable" in bad["error"]["message"],
+              f"malformed request: {code_bad} {bad}")
+        torch.cuda.synchronize()
+        t0 = now()
+        gate.set()
+        check(srv.wait_idle(timeout=900), "service did not drain")
+        wall = now() - t0
+        rids = [s["request_id"] for _, s in subs]
+        outs = {rid: _http(base, f"/v1/result/{rid}")[1] for rid in rids}
+        _, stats = _http(base, "/v1/stats")
+        _, metrics = _http(base, "/v1/metrics")
+        traces = {rid: _http(base, f"/v1/trace/{rid}")[1]["trace"]
+                  for rid in rids}
+    finally:
+        srv.stop()
+    check(stats["n_batches"] == 3 and stats["n_grouped_batches"] == 1,
+          f"batches: {stats['n_batches']}, grouped "
+          f"{stats['n_grouped_batches']}")
+    # Every ok outcome against a direct search on the card.
+    directs = []
+    for body in same + mixed:
+        c = dict(body["config"])
+        spec = c.pop("spec", None)
+        cfg = search.SearchConfig(
+            spec=None if spec is None else server_mod.SPEC_REGISTRY[spec],
+            **c)
+        directs.append((small, cfg))
+    directs.append((wl_resnet, search.SearchConfig(**SERVE_RESNET50)))
+    # (The fleet engine records each spec's starts as it draws them, so
+    # a mixed-spec request's history interleaves differently from a
+    # direct search's; its best EDP and sample count are the same.)
+    for i, (rid, (wl, cfg)) in enumerate(zip(rids[:5] + rids[6:],
+                                            directs)):
+        out = outs[rid]
+        check(out["status"] == "ok", f"request {rid}: {out['status']}")
+        d = search.dosa_search(wl, cfg, population=cfg.n_start_points,
+                               device="cuda")
+        check(out["best_edp"] == d.best_edp and out["n_evals"] == d.n_evals
+              and (i in (3, 4) or out["history"]
+                   == [[e, v] for e, v in d.history]),
+              f"served != direct for {rid}")
+    # Kill after one segment, resume from the checkpoint.
+    req = api.SearchRequest(workload=small, config=search.SearchConfig(
+        steps=30, round_every=10, n_start_points=2, seed=7), device="cuda")
+    svc_cfg = service_mod.ServiceConfig(bucket_workloads=False,
+                                        checkpoint_dir=str(ckpt / "resume"))
+    svc = service_mod.CoSearchService(svc_cfg)
+    rid = svc.submit(req)
+    svc.step()
+    del svc
+    svc = service_mod.CoSearchService(svc_cfg)
+    svc.submit(req)
+    resumed = svc.drain()[rid].result
+    n_resumed_events = len(svc.events(rid))
+    direct = search.dosa_search(small, req.config, population=2,
+                                device="cuda")
+    check(n_resumed_events == 2 and (resumed.best_edp, resumed.n_evals,
+                                     resumed.history)
+          == (direct.best_edp, direct.n_evals, direct.history),
+          "kill/resume outcome != direct")
+    # A seeded chaos schedule: healthy requests answer unchanged.
+    svc = service_mod.CoSearchService(service_mod.ServiceConfig(
+        bucket_workloads=False, checkpoint_dir=str(ckpt / "chaos"),
+        max_restarts=8, backoff_base_s=0.0))
+    monkey = chaos.ChaosMonkey(chaos.ChaosConfig(
+        seed=11, p_transient=0.4, p_torn_checkpoint=0.5, max_faults=4))
+    monkey.attach(svc)
+    chaos_reqs = [api.SearchRequest(
+        workload=small, config=search.SearchConfig(n_start_points=2,
+                                                   seed=s, **SMALL),
+        device="cuda") for s in (4, 5)]
+    for r in chaos_reqs:
+        svc.submit(r)
+    chaos_outs = svc.drain()
+    for r in chaos_reqs:
+        d = search.dosa_search(small, r.config, population=2,
+                               device="cuda")
+        o = chaos_outs[r.request_id]
+        check(o.status == "ok" and (o.best_edp, o.n_evals, o.history)
+              == (d.best_edp, d.n_evals, d.history),
+              "chaos changed a healthy request's answer")
+    injected = monkey.stats()
+    check(injected["transient"] + injected["torn_checkpoint"] > 0,
+          "chaos injected nothing")
+    # The reference's metric families and span names.
+    families = {line.split()[2] for line in metrics.splitlines()
+                if line.startswith("# TYPE ")}
+    missing = [f for f in REF_METRIC_FAMILIES if f not in families]
+    check(not missing, f"/v1/metrics lacks {missing}")
+    for rid, tree in traces.items():
+        names = {tree["name"]} | {c["name"] for c in tree["children"]}
+        events = [e["name"] for e in tree["events"]]
+        check(set(REF_REQUEST_SPANS) <= names
+              and all(e in events for e in REF_REQUEST_EVENTS),
+              f"/v1/trace/{rid}: spans {names}, events {events}")
+    check("dedup_hit" in [e["name"] for e in traces[rids[0]]["events"]],
+          "the duplicate left no dedup_hit event")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    labels = ["same_seed1", "same_seed2", "same_seed3", "mixed_tpu_v5e",
+              "mixed_edge3", "duplicate", "resnet50"]
+    emit({"phase": "service_http", "requests": len(bodies) + 1,
+          "searches": len(set(rids)), "wall_seconds": wall,
+          "requests_per_s": len(bodies) / wall,
+          "latency_s": {lab: traces[rid]["duration_s"]
+                        for lab, rid in zip(labels, rids)},
+          "batches": stats["n_batches"],
+          "grouped_batches": stats["n_grouped_batches"],
+          "member_bucket_same_spec": 4,
+          "served_equals_direct": True, "malformed": bad["error"],
+          "kill_resume_equal": True, "chaos_injected": injected,
+          "chaos_equal": True, "metric_families": len(REF_METRIC_FAMILIES),
+          "faults": stats["faults"], "phase_seconds": now() - t_phase})
 
 
 def phase_matmul_timing(torch, matmul, matmul_ref, x, y, launches):
@@ -914,9 +1311,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
-    from repro_torch import configs
-    from repro_torch.core import (calibration, cosa, oracle, problem,
-                                  rtl_sim, search, surrogate)
+    from repro_torch import api, configs
+    from repro_torch.core import (archspec, calibration, cosa, fleet,
+                                  mapping, oracle, problem, rtl_sim, search,
+                                  surrogate)
     from repro_torch.core.arch import GEMMINI_DEFAULT
     from repro_torch.core.baselines import random_search
     from repro_torch.kernels import build
@@ -928,7 +1326,11 @@ def main() -> int:
     from repro_torch.kernels.matmul.ref import matmul_ref
     from repro_torch.launch import serve
     from repro_torch.models import lm as lm_mod
+    from repro_torch.obs import telemetry as obs
+    from repro_torch.runtime import chaos
+    from repro_torch.serve import cosearch_service as service_mod
     from repro_torch.serve import serve_step
+    from repro_torch.serve import server as server_mod
     from repro_torch.workloads import dnn_zoo
 
     smi = smi_line()
@@ -1002,6 +1404,23 @@ def main() -> int:
     phase_baselines_resnet50(random_search, wl, res)
     emit({"phase": "main_path_launches",
           "path": "calibration+calibrated_search+baselines",
+          "matmul": matmul.launches,
+          "flash_attention": flash_attention.launches})
+
+    # ---- the co-search service slice, counts from 0 (no kernel of this
+    # repo is on these paths): device seeding, the device-seeded search,
+    # fleet search, the service behind its HTTP front-end.
+    matmul.launches = 0
+    matmul.launches_by_variant.update(wgmma=0, simt=0)
+    flash_attention.launches = 0
+    phase_device_seed(torch, np, mapping, dnn_zoo)
+    phase_device_seeded_search(torch, search, mapping, oracle, wl, res,
+                               gd_resnet50)
+    phase_fleet(torch, fleet, search, oracle, archspec, obs, wl, problem)
+    phase_service_http(torch, search, api, service_mod, server_mod, chaos,
+                       problem, wl)
+    emit({"phase": "main_path_launches",
+          "path": "device_seed+fleet+service",
           "matmul": matmul.launches,
           "flash_attention": flash_attention.launches})
     mm_row = phase_matmul_timing(torch, matmul, matmul_ref, x, y,

@@ -3,8 +3,11 @@
 The reference hands its state over as plain Python and numpy (the
 port never imports it): an `ArchSpec` as the dict of its dataclass
 fields (`dataclasses.asdict`), a search population as numpy arrays,
-a `PopulationBest` as its three arrays, an MLP's parameter list or an
-LM's parameter tree with numpy leaves.  These functions rebuild the
+a `PopulationBest` as its three arrays, a fleet member's `SpecParams`
+as its eleven arrays, an MLP's parameter list or an LM's parameter
+tree with numpy leaves.  Serving checkpoints need no conversion: the
+port's `runtime.search_checkpoint` reads and writes the reference's
+files.  These functions rebuild the
 port's objects from that, on a named device.
 """
 from __future__ import annotations
@@ -65,6 +68,18 @@ def population_best_from_numpy(edp, f, orders,
         edp=torch.from_numpy(np.array(edp, dtype=np.float32)).to(dev),
         f=torch.from_numpy(np.array(f, dtype=np.float32)).to(dev),
         orders=torch.from_numpy(np.array(orders, dtype=np.int64)).to(dev))
+
+
+def spec_params_from_numpy(params, device=DEFAULT_DEVICE):
+    """The port's `fleet.SpecParams` (float32 tensors on `device`) from
+    the reference's, given as its fields in order (numpy leaves, one
+    member or a stacked member axis)."""
+    from .core.fleet import SpecParams
+
+    dev = resolve_device(device)
+    return SpecParams(*(
+        torch.from_numpy(np.array(x, dtype=np.float32)).to(dev)
+        for x in params))
 
 
 def _tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:

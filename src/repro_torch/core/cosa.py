@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..device import DEFAULT_DEVICE
 from .archspec import resolve_spec
 from .mapping import SPATIAL, TEMPORAL, Mapping
 from .oracle import _caps, evaluate
@@ -115,8 +116,15 @@ def cosa_map_workload(layers, hw, optimize_order: bool = False,
             for lay in layers]
 
 
-def cosa_seed_population(*args, **kwargs):
-    """The reference's device CoSA-seed kernel is not ported yet."""
-    raise NotImplementedError(
-        "device CoSA seeding is not ported yet (ROADMAP queue 1: "
-        "Device seeding); use start_points='cosa'")
+def cosa_seed_population(dims, n: int, generator=None, *, spec=None,
+                         pe_cap=None, device=DEFAULT_DEVICE, uniforms=None):
+    """Device CoSA seeding: `cosa_map`'s greedy spatial stage (largest
+    valid divisor per spatial site, `_largest_divisor_leq`) with uniform
+    random temporal factors, over the spec's padded divisor tables —
+    `mapping.seed_population` in its "cosa" mode.  No buffer-budget
+    fitting (that stays a host concern).  Returns tensors (f, theta,
+    orders) for an n-member population on `device`."""
+    from .mapping import seed_population
+
+    return seed_population(dims, n, generator, spec=spec, pe_cap=pe_cap,
+                           mode="cosa", device=device, uniforms=uniforms)

@@ -1,10 +1,11 @@
 """Bounded LRU cache with hit/miss/eviction accounting.
 
-The engine cache (`search._ENGINE_CACHE`) holds per-(workload, config)
-engines: loss closures plus their static tables already placed on the
-device.  They must stay warm across repeated searches, but a
-long-lived co-search server streams an unbounded variety of
-(workload, config) shapes through them, so the cache is also
+The engine caches (`search._ENGINE_CACHE`, `fleet._FLEET_ENGINE_CACHE`)
+hold per-(workload, config, device) engines: loss closures plus their
+static tables already placed on the device.  They must stay warm
+across repeated searches, but a long-lived co-search server streams an
+unbounded variety of (workload, config) shapes through them, so the
+cache is also
 *bounded* and observable: recently-used entries survive (true LRU, not
 insertion order), and hit/miss/eviction counters report its health.
 The PyTorch port's copy of the reference's `repro.core.lru`.
@@ -12,7 +13,6 @@ The PyTorch port's copy of the reference's `repro.core.lru`.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Callable
 
 
 class LRUCache:
@@ -58,15 +58,6 @@ class LRUCache:
             self._data.popitem(last=False)
             self.evictions += 1
         self._data[key] = value
-
-    def get_or_build(self, key, build: Callable):
-        """The engine-cache idiom: return the cached value (hit) or
-        build, insert and return it (miss + possible eviction)."""
-        hit = self.get(key, None)
-        if hit is None:
-            hit = build()
-            self.put(key, hit)
-        return hit
 
     def pop_lru(self):
         """Remove and return the least-recently-used ``(key, value)``

@@ -23,7 +23,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
+from ..device import DEFAULT_DEVICE
 from .arch import ACC, SP
 from .archspec import resolve_spec, sites_per_dim
 from .problem import C, K, N, NDIMS, P, Q, R, S
@@ -119,21 +121,81 @@ def random_mapping(dims: np.ndarray, rng: np.random.Generator,
 
 
 # ---------------------------------------------------------------------------
-# Population seeding: the host twin (the device kernel is not ported yet)
+# Population seeding on the device (the fused engine's start stage)
 # ---------------------------------------------------------------------------
 
-def seed_population(*args, **kwargs):
-    """On-device population seeding (the reference's
-    `mapping.seed_population`) is not ported yet; its host twin
-    `seed_population_host` is."""
-    raise NotImplementedError(
-        "device seeding is not ported yet (ROADMAP queue 1: "
-        "Device seeding); use start_points='cosa'")
+def seed_uniforms(dims, n: int, generator, *, spec=None):
+    """The uniforms `seed_population` consumes: u_f (n, L, 7, S_max)
+    drives one divisor pick per (member, layer, dim, site), u_o (n, L,
+    n_levels) the per-level ordering choice; both float32, drawn from
+    the `torch.Generator` on its own device (the reference draws the
+    same shapes from a jax key)."""
+    cspec = resolve_spec(spec)
+    L = int(np.asarray(dims).shape[0])
+    s_max = max(len(s) for s in sites_per_dim(cspec))
+    dev = generator.device
+    u_f = torch.rand((n, L, NDIMS, s_max), generator=generator,
+                     dtype=torch.float32, device=dev)
+    u_o = torch.rand((n, L, cspec.n_levels), generator=generator,
+                     dtype=torch.float32, device=dev)
+    return u_f, u_o
+
+
+def seed_population(dims, n: int, generator=None, *, spec=None,
+                    pe_cap=None, mode: str = "random",
+                    device=DEFAULT_DEVICE, uniforms=None):
+    """Seed an n-member population of valid integer mappings on the
+    device, so a large start population never exists on the host.
+    Returns tensors (f, theta, orders) on `device`: f (n, L, 2,
+    n_levels, 7) integer-valued float32 factors, theta the matching
+    free-site log-factors (the GD-ready carry, from the same float32 log
+    table the rounding stage uses), orders (n, L, n_levels) int64.
+
+    mode="random" mirrors `random_mapping`: each site takes a uniform
+    valid divisor of the remaining quotient (spatial capped at
+    `pe_cap`); mode="cosa" fills spatial sites with the largest valid
+    divisor (CoSA's greedy spatial stage) and draws temporal factors
+    uniformly.  The uniforms come from `generator` (a `torch.Generator`
+    on `device`), or are given as `uniforms=(u_f, u_o)` (tensors or
+    numpy arrays of `seed_uniforms`' shapes; tests hand in the
+    reference's).  Equal to the host twin `seed_population_host` on the
+    same uniforms."""
+    from ..device import resolve_device
+    from .rounding import _seed_population_core, rounding_tables_cached
+
+    cspec = resolve_spec(spec)
+    if mode not in ("random", "cosa"):
+        raise ValueError(f"unknown seeding mode {mode!r}")
+    if pe_cap is None:
+        pe_cap = cspec.pe_cap
+    dev = resolve_device(device)
+    if uniforms is None:
+        if generator is None:
+            raise ValueError("seed_population needs a generator or "
+                             "uniforms")
+        u_f, u_o = seed_uniforms(dims, n, generator, spec=cspec)
+    else:
+        u_f, u_o = (u if isinstance(u, torch.Tensor) else
+                    torch.from_numpy(np.array(u, dtype=np.float32))
+                    for u in uniforms)
+    dims_key = tuple(tuple(int(x) for x in row) for row in np.asarray(dims))
+    tables = rounding_tables_cached(dims_key, dev)
+    return _seed_population_core(cspec, tables, u_f.to(dev), u_o.to(dev),
+                                 int(pe_cap), mode == "cosa")
+
+
+def random_mapping_population(dims, n: int, generator=None, *, spec=None,
+                              pe_cap=None, device=DEFAULT_DEVICE,
+                              uniforms=None):
+    """`random_mapping`, vectorized over the spec's padded divisor
+    tables: `seed_population` in its random mode."""
+    return seed_population(dims, n, generator, spec=spec, pe_cap=pe_cap,
+                           mode="random", device=device, uniforms=uniforms)
 
 
 def seed_population_host(dims, u_f, u_o, *, spec=None, pe_cap=None,
                          mode: str = "random"):
-    """Numpy twin of the reference's device seeding kernel: the
+    """Numpy twin of the device seeding stage: the
     `random_mapping` site walk, driven by pre-drawn uniforms instead of
     a Generator (pick = floor(u * n_valid) over the ascending valid
     divisors — exactly how `rng.choice` consumes a uniform).  Returns

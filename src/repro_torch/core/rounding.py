@@ -28,6 +28,10 @@ Two implementations share the projection semantics:
   identical set, since the remaining quotient always divides the dim)
   and takes the first nearest divisor — the same innermost->outermost
   running-quotient capping, exact integer arithmetic in int64.
+
+Its sibling `_seed_population_core` walks the same site schedule over
+the same tables but *draws* each factor from a pre-drawn uniform: the
+device seeding stage of the fused engine (`mapping.seed_population`).
 """
 from __future__ import annotations
 
@@ -40,7 +44,7 @@ import torch
 from .archspec import padded_divisor_tables
 from .archspec import sites_per_dim as _sites_per_dim
 from .archspec import resolve_spec
-from .mapping import SPATIAL, TEMPORAL, Mapping
+from .mapping import NORDERS, SPATIAL, TEMPORAL, Mapping
 from .problem import NDIMS, divisors
 
 
@@ -135,6 +139,13 @@ def rounding_tables(dims, device) -> RoundingTables:
         dims=torch.as_tensor(np.asarray(dims, dtype=np.int64), device=dev))
 
 
+@functools.lru_cache(maxsize=64)
+def rounding_tables_cached(dims_key: tuple, device) -> RoundingTables:
+    """`rounding_tables` of hashable dims, kept per (dims, device): the
+    seeding stage reads them without copying anything to the device."""
+    return rounding_tables(np.asarray(dims_key, dtype=np.int64), device)
+
+
 def _round_population_core(cspec, tables: RoundingTables, f, pe_cap):
     """Nearest-divisor projection of a whole population on its device.
 
@@ -199,3 +210,80 @@ def _round_population_core(cspec, tables: RoundingTables, f, pe_cap):
     out = torch.stack(out_cells, dim=-1).reshape(shape)
     theta = torch.stack(theta_cells, dim=-1).reshape(shape)
     return out, theta
+
+
+def _seed_population_core(cspec, tables: RoundingTables, u_f, u_o,
+                          pe_cap, spatial_max: bool):
+    """Population seeding on the tables' device — the sibling of
+    `_round_population_core`: the same innermost->outermost site walk
+    over the padded divisor tables, *drawing* each factor instead of
+    projecting one.
+
+    u_f: (P, L, 7, S_max) float32 uniforms, one per (member, layer,
+    dim, site); u_o: (P, L, n_levels) float32 uniforms for the
+    per-level ordering choice.  Each site takes the
+    ``min(trunc(u * n_valid), n_valid - 1)``-th valid divisor of the
+    remaining quotient in ascending order (the float32 product and the
+    truncation of the reference); spatial sites are capped at `pe_cap`,
+    and with `spatial_max=True` take the largest valid divisor instead
+    (CoSA's greedy spatial fill).  The selection is the first index
+    where the running count of valid divisors reaches pick + 1 (unique,
+    so `argmax` needs no tie rule).  The backing store absorbs the
+    remainder.  Returns (f, theta, orders): float32 integer factors,
+    the free-site log-factors gathered from the float32 log table, and
+    int64 ordering choices.  Nothing is read back to the host and no
+    tensor is built from host data, so the stage runs under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    per_dim = _sites_per_dim(cspec)
+    P, L = u_f.shape[0], u_f.shape[1]
+    vals, lgs, backing = {}, {}, []
+    for d in range(NDIMS):
+        divs = tables.divs[:, d, :]                        # (L, D)
+        logs = tables.logs[:, d, :]
+        alive = divs > 0
+        div_safe = torch.where(alive, divs, torch.ones_like(divs))
+        remaining = tables.dims[:, d].expand(P, L)         # (P, L)
+        for si, (k, lvl) in enumerate(per_dim[d]):
+            valid = alive & (remaining[..., None] % div_safe == 0)
+            if k == SPATIAL:
+                valid = valid & (divs <= pe_cap)
+            count = valid.sum(dim=-1)                      # (P, L), >= 1
+            if k == SPATIAL and spatial_max:
+                pick = count - 1                           # largest valid
+            else:
+                u = u_f[:, :, d, si]
+                pick = torch.minimum(
+                    (u * count.to(u.dtype)).to(torch.int32).to(count.dtype),
+                    count - 1)
+            cum = torch.cumsum(valid, dim=-1)
+            hit = (cum == pick[..., None] + 1) & valid
+            sel = torch.argmax(hit.to(torch.int32), dim=-1, keepdim=True)
+            val = torch.gather(divs.expand_as(valid), -1, sel)[..., 0]
+            lgs[(k, lvl, d)] = torch.gather(
+                logs.expand_as(valid), -1, sel)[..., 0]
+            vals[(k, lvl, d)] = val
+            remaining = remaining // val
+        backing.append(remaining)
+    nl = cspec.n_levels
+    dev = u_f.device
+    one = torch.ones((P, L), dtype=torch.float32, device=dev)
+    zero = torch.zeros((P, L), dtype=torch.float32, device=dev)
+    out_cells, theta_cells = [], []
+    for k in range(2):
+        for lvl in range(nl):
+            for d in range(NDIMS):
+                if (k, lvl, d) in vals:
+                    out_cells.append(vals[(k, lvl, d)].to(torch.float32))
+                    theta_cells.append(lgs[(k, lvl, d)])
+                elif k == TEMPORAL and lvl == cspec.backing:
+                    out_cells.append(backing[d].to(torch.float32))
+                    theta_cells.append(zero)
+                else:
+                    out_cells.append(one)
+                    theta_cells.append(zero)
+    shape = (P, L, 2, nl, NDIMS)
+    out = torch.stack(out_cells, dim=-1).reshape(shape)
+    theta = torch.stack(theta_cells, dim=-1).reshape(shape)
+    orders = torch.clamp((u_o * NORDERS).to(torch.int32),
+                         max=NORDERS - 1).to(torch.int64)
+    return out, theta, orders

@@ -46,9 +46,21 @@ engine descend through the learned latency model (Sec. 6.5): the loss
 composes the MLP's per-layer latency with the analytical energy, its
 features built on the device by `calibration.traced_features`.
 
+Start points come from the host CoSA protocol by default (Sec. 5.3.1);
+``SearchConfig.start_points`` selects seeding on the device instead
+("random-device" / "cosa-device", `mapping.seed_population`): each
+chunk's uniforms come from a `torch.Generator` seeded from (seed,
+chunk), so a large population never exists on the host.  The fused
+engine only.
+
+The engines report the reference's telemetry spans (`obs.telemetry`):
+``engine.build`` on an engine-cache miss, ``search.starts`` /
+``search.fused_dispatch`` / ``search.readback`` / ``search.oracle`` in
+the fused driver, ``search.gd_segment`` / ``search.rounding`` /
+``search.ordering`` / ``search.oracle`` in the host-batched one.
+
 Not ported yet, and raising `NotImplementedError` with the ROADMAP
-queue item: device seeding (``start_points != "cosa"``), population
-sharding (``shards > 1``) and per-spec surrogate dicts (the fleet's).
+queue item: population sharding over several cards (``shards > 1``).
 """
 from __future__ import annotations
 
@@ -59,6 +71,7 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..obs import telemetry as _obs
 from .arch import GemminiHW
 from .archspec import (ArchSpec, CompiledSpec, GEMMINI_SPEC, HWConfig,
                        resolve_spec)
@@ -147,8 +160,12 @@ class SearchConfig:
     surrogate: object | None = None    # TrainedModel: GD descends
     #   through the DNN residual/direct latency model (Sec. 6.5),
     #   calibrated for `spec`'s featurization (core.calibration).
-    shards: int | None = None          # not ported beyond 1 (raises)
-    start_points: str = "cosa"         # only "cosa" ported (others raise)
+    shards: int | None = None          # population shard count; only
+    #   1 (or None, auto) is ported, larger counts raise
+    start_points: str = "cosa"         # "cosa": host CoSA protocol with
+    #   rejection (Sec. 5.3.1); "random-device" / "cosa-device": seed the
+    #   population on the device (`mapping.seed_population`), fused
+    #   engine only, no start oracle evals (start_edps stays empty).
 
     def __post_init__(self):
         """Fail fast on configurations the reference rejects."""
@@ -184,19 +201,14 @@ class SearchConfig:
 
 
 def _check_ported(cfg: SearchConfig) -> None:
-    """Raise for the reference features this port has not taken yet."""
-    if cfg.start_points != "cosa":
-        raise NotImplementedError(
-            f"start_points={cfg.start_points!r} needs device seeding, "
-            "not ported yet (ROADMAP queue 1: Device seeding)")
+    """Raise for the reference features this port has not taken yet.
+    Callers run it before any work starts (the service when a request
+    is submitted), since `NotImplementedError` is a `RuntimeError`,
+    which the serving layer's fault taxonomy would retry."""
     if cfg.shards is not None and cfg.shards > 1:
         raise NotImplementedError(
-            "shards > 1 is not ported yet (ROADMAP queue 1: Multi-GPU "
-            "population sharding)")
-    if isinstance(cfg.surrogate, dict):
-        raise NotImplementedError(
-            "per-spec surrogate dicts belong to fleet search, not ported "
-            "yet (ROADMAP queue 1: Fleet)")
+            "shards > 1 is not ported yet (ROADMAP queue 1 item 7: "
+            "Multi-GPU population sharding)")
 
 
 @dataclasses.dataclass
@@ -355,6 +367,9 @@ def _loss_grad(loss):
 # protocol, latency_model) are excluded on purpose.  The surrogate is
 # keyed by identity: its weights are copied into the engine, and the
 # engine holds the config, so an id is not reused while it is cached.
+# Bounded LRU with eviction accounting: a long-lived co-search server
+# streams unbounded (workload, config) variety through this cache;
+# `engine_cache_stats()` surfaces its counters.
 _ENGINE_CACHE = LRUCache(maxsize=16)
 
 
@@ -366,18 +381,52 @@ def _engine_key(workload: Workload, cfg: SearchConfig, kind: str, device):
             str(device))
 
 
-def make_loss(workload: Workload, cfg: SearchConfig,
-              device=DEFAULT_DEVICE):
-    """(grad_fn, dims, strides, repeats) of the sequential driver and
-    the host-batched engine (the loss is batched over leading dims),
-    cached per (workload, cfg, device)."""
+def _cached_engine(workload: Workload, cfg: SearchConfig, kind: str,
+                   device, build):
+    """The cached engine of (workload, cfg, kind, device), or a new one
+    built under an ``engine.build`` span (timed by the telemetry clock)
+    whose seconds the cache keeps per entry."""
+    key = _engine_key(workload, cfg, kind, device)
+    hit = _ENGINE_CACHE.get(key, None)
+    if hit is not None:
+        return hit
+    label = f"{kind}:{workload.name}"
+    value, build_s = _obs.profile_build(build, kind=kind, cache="search",
+                                        label=label)
+    _ENGINE_CACHE.put(key, value)
+    _ENGINE_CACHE.note_build_time(label, build_s)
+    return value
+
+
+def engine_cache_stats() -> dict:
+    """Hit/miss/eviction counters of the engine cache — the serving
+    layer's warm-engine health metric."""
+    return _ENGINE_CACHE.stats()
+
+
+def _grad_engine(workload: Workload, cfg: SearchConfig, kind: str,
+                 device):
+    """(grad_fn, dims, strides, repeats) of the loss batched over
+    leading dims, cached per (workload, cfg, kind, device)."""
     dev = resolve_device(device)
 
     def build():
         loss, dims, strides, repeats = _make_loss_fn(workload, cfg, dev)
         return _loss_grad(loss), dims, strides, repeats
-    return _ENGINE_CACHE.get_or_build(
-        _engine_key(workload, cfg, "sequential", dev), build)
+    return _cached_engine(workload, cfg, kind, dev, build)
+
+
+def make_loss(workload: Workload, cfg: SearchConfig,
+              device=DEFAULT_DEVICE):
+    """The sequential driver's gradient engine (`_grad_engine`)."""
+    return _grad_engine(workload, cfg, "sequential", device)
+
+
+def make_population_runner(workload: Workload, cfg: SearchConfig,
+                           device=DEFAULT_DEVICE):
+    """The host-batched engine's gradient engine, cached under its own
+    kind, as the reference keys its segment runner."""
+    return _grad_engine(workload, cfg, "population", device)
 
 
 # ---------------------------------------------------------------------------
@@ -579,8 +628,29 @@ def make_fused_runner(workload: Workload, cfg: SearchConfig,
             combos=cspec.device_tables(dev)["combos"],
             pe_cap=int(_pe_cap(cfg, cspec)),
             hw_fixed=_fixed_spec_hw(cfg, cspec, dev))
-    return _ENGINE_CACHE.get_or_build(
-        _engine_key(workload, cfg, "fused", dev), build)
+    return _cached_engine(workload, cfg, "fused", dev, build)
+
+
+def shard_population(theta, orders, shards: int):
+    """Place a (P, ...) population on the "pop" mesh of `shards` cards.
+    Only ``shards == 1``, where placement is a no-op, is ported."""
+    if shards == 1:
+        return theta, orders
+    raise NotImplementedError(
+        "shards > 1 is not ported yet (ROADMAP queue 1 item 7: "
+        "Multi-GPU population sharding)")
+
+
+def chunk_generator(seed: int, lo: int, device) -> torch.Generator:
+    """The `torch.Generator` of the device-seeded chunk whose first
+    member is `lo`: one stream per (seed, chunk), as the reference folds
+    the chunk index into its key, so a chunk's draws do not depend on
+    how many chunks came before it."""
+    hi, low = np.random.SeedSequence(
+        (int(seed), int(lo))).generate_state(2, np.uint32)
+    gen = torch.Generator(device=device)
+    gen.manual_seed((int(hi) << 31) ^ int(low))
+    return gen
 
 
 # ---------------------------------------------------------------------------
@@ -671,10 +741,11 @@ def _generate_start_point(workload: Workload, cfg: SearchConfig,
     return mappings, edp0, best_start_edp
 
 
-def _start_points(workload: Workload, cfg: SearchConfig, rec: _Recorder):
+def _start_points(workload: Workload, cfg: SearchConfig, rec: _Recorder,
+                  rng: np.random.Generator | None = None):
     """All start points, consuming one seeded RNG stream in the
     reference's order, so every engine descends from the same ones."""
-    rng = np.random.default_rng(cfg.seed)
+    rng = np.random.default_rng(cfg.seed) if rng is None else rng
     starts, best_start_edp = [], float("inf")
     for _ in range(cfg.n_start_points):
         mappings, edp0, best_start_edp = _generate_start_point(
@@ -682,6 +753,17 @@ def _start_points(workload: Workload, cfg: SearchConfig, rec: _Recorder):
         rec.best.start_edps.append(edp0)
         starts.append(mappings)
     return starts
+
+
+def generate_start_points(workload: Workload, cfg: SearchConfig,
+                          rng: np.random.Generator | None = None):
+    """All `cfg.n_start_points` start points, generated with the running
+    population-wide rejection rule.  Returns (population, start_edps,
+    n_evals_spent); the drivers consume the same per-start helper, so
+    the start points are identical across engines for a given seed."""
+    rec = _Recorder(workload, cfg, _cspec(cfg))
+    population = _start_points(workload, cfg, rec, rng)
+    return population, rec.best.start_edps, rec.evals
 
 
 # ---------------------------------------------------------------------------
@@ -708,6 +790,11 @@ def execute_search(workload: Workload, cfg: SearchConfig,
                    device=DEFAULT_DEVICE) -> SearchResult:
     """Engine dispatch shared by `dosa_search` and `api.run_request`."""
     _check_ported(cfg)
+    if cfg.start_points != "cosa" and (population is None or not fused):
+        raise ValueError(
+            f"start_points={cfg.start_points!r} seeds the population on "
+            "device and only the fused engine consumes it; pass "
+            "population=P with fused=True")
     dev = resolve_device(device)
     if population is not None:
         if population < 1:
@@ -811,7 +898,8 @@ def _dosa_search_batched(workload: Workload, cfg: SearchConfig,
     replicas of its last member and the padding is masked out of the
     accounting, as in the reference."""
     cspec = _cspec(cfg)
-    grad_fn, dims_t, strides_t, repeats_t = make_loss(workload, cfg, device)
+    grad_fn, dims_t, strides_t, repeats_t = make_population_runner(
+        workload, cfg, device)
     dims = workload.dims_array()
     free_mask_t = cspec.free_mask_t(device)
     pe_cap = int(_pe_cap(cfg, cspec))
@@ -820,31 +908,41 @@ def _dosa_search_batched(workload: Workload, cfg: SearchConfig,
     starts = _start_points(workload, cfg, rec)
     segments = _segment_lengths(cfg.steps, cfg.round_every)
 
+    tracer = _obs.get_tracer()
     for lo in range(0, len(starts), population):
         chunk = starts[lo:lo + population]
         n_real = len(chunk)
         for mappings in chunk:
             rec.record(mappings)
         chunk = chunk + [chunk[-1]] * (population - n_real)
+        P = len(chunk)
         theta, orders = _population_inputs(chunk, cspec, device)
-        for n_steps in segments:
-            theta = _adam_segment(grad_fn, cfg.lr, theta, orders, n_steps)
-            rec.count(n_steps * n_real)  # one sample per GD step
-            f_cont = build_f(theta, dims_t, free_mask_t).cpu().numpy()
-            rounded_pop = round_population(f_cont, orders.cpu().numpy(),
-                                           dims, pe_cap=pe_cap, spec=cspec)
+        for seg, n_steps in enumerate(segments):
+            with tracer.span("search.gd_segment", segment=seg,
+                             n_steps=n_steps, population=P):
+                theta = _adam_segment(grad_fn, cfg.lr, theta, orders,
+                                      n_steps)
+                rec.count(n_steps * n_real)  # one sample per GD step
+            with tracer.span("search.rounding", segment=seg):
+                f_cont = build_f(theta, dims_t, free_mask_t).cpu().numpy()
+                rounded_pop = round_population(
+                    f_cont, orders.cpu().numpy(), dims, pe_cap=pe_cap,
+                    spec=cspec)
             if cfg.ordering_mode in ("iterative", "softmax"):
-                fs_pop = torch.from_numpy(np.stack(
-                    [stack_mappings(ms)[0] for ms in rounded_pop]
-                ).astype(np.float32)).to(device)
-                hws = _population_hw(cspec, fs_pop, strides_t, hw_fixed)
-                new_orders = select_orderings_population_spec(
-                    cspec, fs_pop, strides_t, repeats_t, hws)
-                for ms, no in zip(rounded_pop, new_orders):
-                    for mp, o in zip(ms, no):
-                        mp.order = o
-            for ms in rounded_pop[:n_real]:
-                rec.record(ms)
+                with tracer.span("search.ordering", segment=seg):
+                    fs_pop = torch.from_numpy(np.stack(
+                        [stack_mappings(ms)[0] for ms in rounded_pop]
+                    ).astype(np.float32)).to(device)
+                    hws = _population_hw(cspec, fs_pop, strides_t,
+                                         hw_fixed)
+                    new_orders = select_orderings_population_spec(
+                        cspec, fs_pop, strides_t, repeats_t, hws)
+                    for ms, no in zip(rounded_pop, new_orders):
+                        for mp, o in zip(ms, no):
+                            mp.order = o
+            with tracer.span("search.oracle", segment=seg):
+                for ms in rounded_pop[:n_real]:
+                    rec.record(ms)
             # Continue GD from the rounded points, fresh momentum.
             theta, orders = _population_inputs(rounded_pop, cspec, device)
 
@@ -852,8 +950,9 @@ def _dosa_search_batched(workload: Workload, cfg: SearchConfig,
 
 
 def _dosa_search_fused(workload: Workload, cfg: SearchConfig,
-                       population: int,
-                       device: torch.device) -> SearchResult:
+                       population: int, device: torch.device,
+                       chunk_uniforms: Callable | None = None
+                       ) -> SearchResult:
     """Fused driver: per population chunk the device runs every GD
     segment, rounding and ordering re-selection (`FusedEngine.run`),
     and the host reads the per-segment rounded candidates back once.
@@ -861,30 +960,64 @@ def _dosa_search_fused(workload: Workload, cfg: SearchConfig,
     reference's host-batched order.  A ragged final chunk is padded to
     `population` with replicas of its last member (per-member ops make
     the padding inert) and the padding is masked out of the
-    accounting."""
+    accounting.
+
+    `cfg.start_points` in {"random-device", "cosa-device"} seeds each
+    chunk on the device (`mapping.seed_population`, uniforms from
+    `chunk_generator(cfg.seed, lo)`) instead of the host CoSA protocol;
+    `chunk_uniforms(lo, population) -> (u_f, u_o)`, when given, supplies
+    each chunk's uniforms instead (tests hand in the reference's)."""
     cspec = _cspec(cfg)
     engine = make_fused_runner(workload, cfg, device)
     rec = _Recorder(workload, cfg, cspec)
-    starts = _start_points(workload, cfg, rec)
+    device_seeded = cfg.start_points != "cosa"
+    tracer = _obs.get_tracer()
+    starts = []
+    if not device_seeded:
+        with tracer.span("search.starts", n=cfg.n_start_points):
+            starts = _start_points(workload, cfg, rec)
     seg_lens = _segment_lengths(cfg.steps, cfg.round_every)
     n_full, rem = divmod(cfg.steps, cfg.round_every)
+    shards = 1 if cfg.shards is None else cfg.shards
 
     for lo in range(0, cfg.n_start_points, population):
         n_real = min(population, cfg.n_start_points - lo)
-        chunk = starts[lo:lo + population]
-        for mappings in chunk:
-            rec.record(mappings)
-        chunk = chunk + [chunk[-1]] * (population - n_real)
-        theta, orders = _population_inputs(chunk, cspec, device)
-        (f_seg, o_seg, _), _best = engine.run(
-            theta, orders, n_full=n_full, rem=rem, seg_len=cfg.round_every)
+        if device_seeded:
+            from .mapping import seed_population
+            mode = ("cosa" if cfg.start_points == "cosa-device"
+                    else "random")
+            uniforms = None if chunk_uniforms is None \
+                else chunk_uniforms(lo, population)
+            gen = None if uniforms is not None \
+                else chunk_generator(cfg.seed, lo, device)
+            _, theta, orders = seed_population(
+                workload.dims_array(), population, gen, spec=cspec,
+                pe_cap=int(_pe_cap(cfg, cspec)), mode=mode, device=device,
+                uniforms=uniforms)
+        else:
+            chunk = starts[lo:lo + population]
+            for mappings in chunk:
+                rec.record(mappings)
+            chunk = chunk + [chunk[-1]] * (population - n_real)
+            theta, orders = _population_inputs(chunk, cspec, device)
+        # The device work is enqueued here and drains inside the
+        # read-back span below, where the copy to the host waits for it.
+        with tracer.span("search.fused_dispatch", chunk=lo,
+                         population=population, shards=shards,
+                         n_full=n_full, rem=rem):
+            theta, orders = shard_population(theta, orders, shards)
+            (f_seg, o_seg, _), _best = engine.run(
+                theta, orders, n_full=n_full, rem=rem,
+                seg_len=cfg.round_every)
 
         # ---- the chunk's one read-back + oracle replay (padding skipped)
-        f_seg = f_seg.cpu().numpy().astype(float)   # (S, P, L, 2, nl, 7)
-        o_seg = o_seg.cpu().numpy()                 # (S, P, L, n_levels)
+        with tracer.span("search.readback", chunk=lo):
+            f_seg = f_seg.cpu().numpy().astype(float)  # (S, P, L, 2, nl, 7)
+            o_seg = o_seg.cpu().numpy()                # (S, P, L, n_levels)
         for s, n_steps in enumerate(seg_lens):
-            rec.count(n_steps * n_real)  # one sample per GD step
-            for p in range(n_real):
-                rec.record(unstack_mappings(f_seg[s, p], o_seg[s, p]))
+            with tracer.span("search.oracle", segment=s, chunk=lo):
+                rec.count(n_steps * n_real)  # one sample per GD step
+                for p in range(n_real):
+                    rec.record(unstack_mappings(f_seg[s, p], o_seg[s, p]))
 
     return rec.finish()

@@ -43,8 +43,8 @@ def run(args: argparse.Namespace, clock):
     decode loop by `clock`, the tokens read back included)."""
     if args.ckpt_dir:
         raise NotImplementedError(
-            "--ckpt-dir: checkpoint restore waits for the checkpoint "
-            "slice of the port (ROADMAP queue 1 item 6)")
+            "--ckpt-dir: restoring LM weights from a checkpoint is not "
+            "ported yet (ROADMAP queue 1 item 8.7)")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
     gen = torch.Generator(dev).manual_seed(args.seed)

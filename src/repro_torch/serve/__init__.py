@@ -1,1 +1,3 @@
-"""Serving steps of the port's LM: prefill and greedy decode."""
+"""Serving in the port: the LM's prefill and greedy decode
+(`serve_step`), and the co-search service (`cosearch_service`) behind
+its HTTP front-end (`server`)."""

@@ -71,3 +71,23 @@ def test_port_imports_with_jax_and_reference_blocked():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.obs.telemetry", "repro_torch.obs.history",
+    "repro_torch.checkpoint.checkpoint", "repro_torch.runtime.faults",
+    "repro_torch.runtime.search_checkpoint", "repro_torch.runtime.chaos",
+    "repro_torch.core.fleet", "repro_torch.serve.cosearch_service",
+    "repro_torch.serve.server"])
+def test_serving_slice_modules_are_held_to_the_rules(module):
+    """The serving slice's subpackages are among the modules the
+    blocked-import run above imports, and none calls a clock itself:
+    `time.monotonic` appears only as a reference (a default to inject),
+    never called."""
+    assert module in _port_modules()
+    path = ROOT / "src" / (module.replace(".", "/") + ".py")
+    tree = ast.parse(path.read_text())
+    calls = [ast.unparse(n.func) for n in ast.walk(tree)
+             if isinstance(n, ast.Call)]
+    assert not [c for c in calls if c.startswith("time.")
+                and c != "time.sleep"]

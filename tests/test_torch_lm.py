@@ -292,5 +292,5 @@ def test_serve_cli_ckpt_dir_waits_for_checkpoint_slice(tmp_path):
 
     args = serve.parse_args(["--reduced", "--device", "cpu",
                              "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 8.7"):
         serve.run(args, clock=lambda: 0.0)

@@ -26,18 +26,25 @@ def test_gemmini_search_matches_reference(mode, population, tiny_workload):
 
 
 def test_unported_features_raise(tiny_workload):
+    """Population sharding is the one search feature still to port: it
+    raises, naming its ROADMAP item.  Device seeding outside the fused
+    engine is refused with the reference's ValueError, and portfolio
+    requests are fleet requests."""
     from repro_torch.api import SearchRequest
     from repro_torch.core.search import SearchConfig, dosa_search
     from _torch_parity import PORT_SPECS, port_workload
     wl = port_workload(tiny_workload)
-    for kw, what in ((dict(start_points="cosa-device"), "seeding"),
-                     (dict(shards=2), "sharding"),
-                     (dict(surrogate={"gemmini": object()}), "Fleet")):
-        with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(NotImplementedError, match="item 7.*sharding"):
+        dosa_search(wl, SearchConfig(steps=2, round_every=1,
+                                     n_start_points=1, shards=2),
+                    population=1, device="cpu")
+    for population, fused in ((None, True), (1, False)):
+        with pytest.raises(ValueError, match="only the fused engine"):
             dosa_search(wl, SearchConfig(steps=2, round_every=1,
-                                         n_start_points=1, **kw),
-                        population=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="fleet"):
-        SearchRequest(workload=wl, specs=(PORT_SPECS["gemmini"],))
+                                         n_start_points=1,
+                                         start_points="cosa-device"),
+                        population=population, fused=fused, device="cpu")
+    assert SearchRequest(workload=wl, specs=(PORT_SPECS["gemmini"],),
+                         device="cpu").is_fleet
     with pytest.raises(ValueError):
         SearchConfig(ordering_mode="bogus")
