@@ -7,15 +7,17 @@ source trees.
 Each DIR holds kernel sources as in `src/repro_torch/kernels/csrc`
 (`matmul.cu`, `flash_attention.cu` and the headers they include): this
 checkout's, or another commit's unpacked with `git archive` into a
-directory `.gitignore` lists.  Each tree is built with the port's nvcc
-flags into `build/kernel_ab/NAME/`.  Its wgmma entries then run at the
-main path's shapes (the matmul at the Qwen3-0.6B FFN shape, flash
-attention at the prefill shape, bf16, causal) and are held against the
-plain versions (2e-2).  Then they are timed in turns (the trees in
-order, then reversed, twice over).  Each time is the median of 15 runs
-of 20 back-to-back launches between a pair of CUDA events.  It prints
-one JSON line per tree, then the card's name and power limit.  Needs one
-card; compare trees only within one run.
+directory `.gitignore` lists.  The flash entry takes the optional
+log-sum-exp pointer after the output (passed null here), so a tree
+must be of a commit whose entry has it.  Each tree is built with the
+port's nvcc flags into `build/kernel_ab/NAME/`.  Its wgmma entries
+then run at the main path's shapes (the matmul at the Qwen3-0.6B FFN
+shape, flash attention at the prefill shape, bf16, causal) and are
+held against the plain versions (2e-2).  Then they are timed in turns
+(the trees in order, then reversed, twice over).  Each time is the
+median of 15 runs of 20 back-to-back launches between a pair of CUDA
+events.  It prints one JSON line per tree, then the card's name and
+power limit.  Needs one card; compare trees only within one run.
 """
 from __future__ import annotations
 
@@ -50,7 +52,7 @@ def build_tree(build, name: str, src: Path) -> dict:
     mm.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p]
     fa = libs["flash_attention"].repro_flash_attention_bf16_wgmma
-    fa.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+    fa.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
         + [ctypes.c_float, ctypes.c_void_p]
     return {"matmul": mm, "flash": fa}
 
@@ -105,8 +107,9 @@ def main(argv: list[str]) -> int:
                                      stream)
         else:
             rc = fns[name]["flash"](q.data_ptr(), k.data_ptr(),
-                                    v.data_ptr(), fa_out.data_ptr(), B, HQ,
-                                    HKV, S, S, D, 1, 0, D ** -0.5, stream)
+                                    v.data_ptr(), fa_out.data_ptr(), None,
+                                    B, HQ, HKV, S, S, D, 1, 0, D ** -0.5,
+                                    stream)
         if rc != 0:
             raise RuntimeError(f"{name} {which}: launch failed ({rc})")
 

@@ -5,15 +5,19 @@ NVIDIA GPU.
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It builds the port's CUDA kernels
-(the matmul and the flash attention, one nvcc each, in parallel) from
-the sources in the checkout and prints the compiler's register, spill
-and shared-memory report.  Each kernel has two variants: "wgmma"
-(tensor cores and TMA, for bfloat16) and "simt" (IEEE float32 FMA, for
-float32 and for bfloat16 matmul shapes TMA cannot take).  It holds each
-against its plain PyTorch version on the card, checking from the
-per-variant launch counts which variant each case ran, and drives the
-port's three paths through the entry points a user calls, each with
-the launch counts set to 0 just before it and read just after:
+(the matmul, the flash attention and its backward, one nvcc each, in
+parallel) from the sources in the checkout and prints the compiler's
+register, spill and shared-memory report.  The matmul and the flash
+forward have two variants each: "wgmma" (tensor cores and TMA, for
+bfloat16) and "simt" (IEEE float32 FMA, for float32 and for bfloat16
+matmul shapes TMA cannot take); the flash backward is SIMT with float32
+accumulation for both types.  It holds each against its plain PyTorch
+version on the card (the backward: dq, dk, dv of the differentiable
+entry against autograd through the plain forward, and the forward's
+log-sum-exp), checking from the per-variant launch counts which
+variant each case ran, and drives the port's paths through the entry
+points a user calls, each with the launch counts set to 0 just before
+it and read just after:
 
 - the DOSA-tuned matmul at Qwen3-0.6B's FFN up-projection width, then
   the DOSA co-search at the paper's protocol on ResNet-50;
@@ -22,10 +26,22 @@ the launch counts set to 0 just before it and read just after:
 - the serve loop (`launch.serve`) at full width: 4 requests, prompt
   128, 32 generated tokens, greedy.
 
-Then it profiles a prefill call, decode steps and GD steps, checks the
-card against the CPU (a small search; the reduced LM) and
-teacher-forced decode against prefill at full width.  The paper's
-Sec. 6 experiments come next, with the counts again set to 0:
+Then it profiles a prefill call and decode steps, checks the card
+against the CPU (the reduced LM) and teacher-forced decode against
+prefill at full width.  The training path comes next, counts set to 0:
+
+- `lm_train_qwen3_0_6b`: `launch.train` at its defaults on Qwen3-0.6B
+  at full width and depth (batch 8 x seq 512, bf16 compute, AdamW,
+  remat), 6 steps through `train_with_recovery` with a checkpoint every
+  2 and a RuntimeError injected at step 3, then the same 6 steps
+  uninterrupted: one restart, finite losses, the steps after the
+  rollback equal to the uninterrupted run's, and 56 forward and 28
+  backward flash launches a step; a profiled step; the reduced LM's
+  training on the card against the CPU.
+
+Then GD steps are profiled and a small search compared card to CPU.
+The paper's Sec. 6 experiments come next, with the counts again set to
+0:
 
 - `calibration_train`: the Fig. 10 training set (AlexNet, ResNeXt-50,
   VGG-16, DeepBench; 31 random mappings a layer) labelled by the RTL
@@ -57,12 +73,13 @@ Then the co-search service, counts again set to 0:
   requests (a same-spec batch padded to member bucket 4, a mixed-spec
   group, a duplicate, a ResNet-50 request, a malformed one), each
   answer against a direct search on the card; kill/resume from a
-  checkpoint; a seeded chaos schedule; the reference's metric families
-  and span names.
+  checkpoint; a seeded chaos schedule that injects transient faults
+  (rolled back and retried) and torn checkpoints, each gated on its
+  own; the reference's metric families and span names.
 
-Last, it times both kernels (the wgmma variants of the main path, and
-the float32 flash on its simt kernel) beside their bounds, plain
-versions and library calls.
+Last, it times the three kernels (the wgmma variants of the main path,
+the float32 flash on its simt kernel, and the backward at the flash
+shape) beside their bounds, plain versions and library calls.
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The second-to-last lines are the kernel summary and the card's name and
 power limit (from nvidia-smi); the last line is
@@ -116,9 +133,37 @@ FLASH_CASES = [
     (1, 16, 8, 130, 4133, 128, True, 4003),
 ]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# The flash backward against autograd through the plain version: (b, hq,
+# hkv, sq, sk, d, causal, q_offset).  Every head dim, query groups of 1
+# and 2, causal and full, sequences that are no multiple of the 64-row
+# tiles, a causal query block after a prefix, and the training shape of
+# Qwen3-0.6B's attention at batch 2.  Tolerance: the largest error of
+# each gradient within this share of the plain gradient's largest
+# magnitude.
+FLASH_BWD_CASES = [
+    (1, 2, 2, 77, 77, 32, True, 0), (1, 4, 2, 200, 200, 64, False, 0),
+    (2, 4, 2, 300, 300, 128, True, 0), (1, 2, 1, 130, 130, 128, False, 0),
+    (1, 4, 4, 100, 300, 64, True, 200), (1, 2, 1, 333, 333, 32, False, 0),
+    (2, 16, 8, 512, 512, 128, True, 0),
+]
+FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# The forward's log-sum-exp against the plain one (either type: the
+# scores are float32 sums of exact products).
+FLASH_LSE_TOL = 1e-4
 
 # Qwen3-0.6B prefill: 4 prompts x 4096 tokens.
 PREFILL_B, PREFILL_S = 4, 4096
+# Qwen3-0.6B training through `launch.train` at its defaults (batch 8 x
+# seq 512, bf16 compute, f32 params, AdamW, remat, seed 0): 6 steps,
+# a checkpoint every 2, one injected RuntimeError at step 3; then the
+# same 6 steps uninterrupted (one checkpoint, at the end), whose losses
+# the steps after the rollback must match within TRAIN_ROLLBACK_RTOL.
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAULT_STEP = 6, 2, 3
+TRAIN_ROLLBACK_RTOL = 1e-3
+# The reduced config in f32, 3 steps, card against CPU: the CPU parity
+# tolerances of tests/test_torch_train.py (losses rtol 1e-5, parameters
+# rtol and atol 1e-4).
+TRAIN_CARD_CPU = dict(loss_rtol=1e-5, param_tol=1e-4)
 # Teacher-forced decode against prefill at full width, float32 compute:
 # logits and K/V stacks within this (rtol and atol).
 DECODE_TOL_F32 = 1e-3
@@ -155,6 +200,8 @@ DEVICE_SEEDED_CUT = ("500 GD steps rounded every 250, not the paper's "
 FLEET = dict(steps=500, round_every=250, n_start_points=2, seed=0)
 SMALL = dict(steps=20, round_every=10)
 SERVE_RESNET50 = dict(steps=250, round_every=125, n_start_points=2, seed=0)
+# The chaos schedule's seed: 2 transient faults and 2 torn checkpoints.
+CHAOS_SEED = 8
 # The reference service's metric families (`repro.serve.cosearch_service`,
 # `repro.obs.telemetry`, `repro.runtime.search_checkpoint`) and its
 # request-lifecycle span and event names.
@@ -865,12 +912,17 @@ def phase_service_http(torch, search, api, service_mod, server_mod, chaos,
                                      resumed.history)
           == (direct.best_edp, direct.n_evals, direct.history),
           "kill/resume outcome != direct")
-    # A seeded chaos schedule: healthy requests answer unchanged.
+    # A seeded chaos schedule: healthy requests answer unchanged.  The
+    # schedule depends only on the seed and the order of the service's
+    # hook calls, not on the device: seed 8 injects 2 transient faults
+    # (rollback to the checkpoint, then retry) and 2 torn checkpoints,
+    # as it does on the CPU.
     svc = service_mod.CoSearchService(service_mod.ServiceConfig(
         bucket_workloads=False, checkpoint_dir=str(ckpt / "chaos"),
         max_restarts=8, backoff_base_s=0.0))
     monkey = chaos.ChaosMonkey(chaos.ChaosConfig(
-        seed=11, p_transient=0.4, p_torn_checkpoint=0.5, max_faults=4))
+        seed=CHAOS_SEED, p_transient=0.4, p_torn_checkpoint=0.5,
+        max_faults=4))
     monkey.attach(svc)
     chaos_reqs = [api.SearchRequest(
         workload=small, config=search.SearchConfig(n_start_points=2,
@@ -887,8 +939,10 @@ def phase_service_http(torch, search, api, service_mod, server_mod, chaos,
               == (d.best_edp, d.n_evals, d.history),
               "chaos changed a healthy request's answer")
     injected = monkey.stats()
-    check(injected["transient"] + injected["torn_checkpoint"] > 0,
-          "chaos injected nothing")
+    check(injected["transient"] >= 1,
+          f"chaos injected no transient fault: {injected}")
+    check(injected["torn_checkpoint"] >= 1,
+          f"chaos tore no checkpoint: {injected}")
     # The reference's metric families and span names.
     families = {line.split()[2] for line in metrics.splitlines()
                 if line.startswith("# TYPE ")}
@@ -992,6 +1046,130 @@ def phase_flash_vs_plain(torch, attend, attention_ref, flash):
           "cases_b_hq_hkv_sq_sk_d_causal_qoffset": FLASH_CASES,
           "variants": {"float32": "simt", "bfloat16": "wgmma"},
           "max_abs_err": worst, "tolerance": FLASH_TOL})
+
+
+def phase_flash_bwd_vs_plain(torch, fa_mod, attention_ref,
+                             attention_lse_ref):
+    """Every FLASH_BWD_CASES shape, f32 and bf16: dq, dk and dv of the
+    differentiable entry (`attention`: the forward kernel with its LSE,
+    then the backward kernel) against autograd through the plain
+    version on the same inputs and output gradient; the forward's LSE
+    against the plain one."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst, worst_lse = {}, {}
+    for case in FLASH_BWD_CASES:
+        b, hq, hkv, sq, sk, d, causal, off = case
+        for dt in (torch.float32, torch.bfloat16):
+            key = str(dt).split(".")[-1]
+
+            def randn(*shape):
+                return torch.randn(shape, generator=gen,
+                                   device="cuda").to(dt)
+
+            q, k, v = randn(b, hq, sq, d), randn(b, hkv, sk, d), \
+                randn(b, hkv, sk, d)
+            do = randn(b, hq, sq, d)
+            before = fa_mod.attend_backward.launches
+            fwd_before = dict(fa_mod.flash_attention.launches_by_variant)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            fa_mod.attention(*leaves, causal=causal,
+                             q_offset=off).backward(do)
+            torch.cuda.synchronize()
+            ran_on(fa_mod.flash_attention.launches_by_variant, fwd_before,
+                   fa_mod.variant(dt), f"flash bwd forward {case} {dt}")
+            check(fa_mod.attend_backward.launches == before + 1,
+                  f"flash bwd {case} {dt}: backward launches "
+                  f"{fa_mod.attend_backward.launches - before}")
+            refs = [t.clone().requires_grad_() for t in (q, k, v)]
+            plain_attention(attention_ref, *refs, causal,
+                            off).backward(do)
+            for name, got, want in zip("qkv", leaves, refs):
+                err = (got.grad.float() - want.grad.float()).abs().max()
+                scale = want.grad.float().abs().max()
+                rel = (err / scale).item()
+                check(rel <= FLASH_BWD_TOL[key],
+                      f"flash bwd {case} {dt} d{name}: max err {err.item()}"
+                      f" = {rel} of max |plain| {scale.item()}")
+                worst[key] = max(worst.get(key, 0.0), rel)
+            _, lse = fa_mod.attend(q, k, v, causal=causal, q_offset=off,
+                                   return_lse=True)
+            _, lse_ref = attention_lse_ref(q, k, v, causal=causal,
+                                           q_offset=off)
+            err = (lse - lse_ref).abs().max().item()
+            check(err <= FLASH_LSE_TOL,
+                  f"flash LSE {case} {dt}: max abs err {err}")
+            worst_lse[key] = max(worst_lse.get(key, 0.0), err)
+    emit({"phase": "flash_bwd_vs_plain",
+          "cases_b_hq_hkv_sq_sk_d_causal_qoffset": FLASH_BWD_CASES,
+          "max_err_share_of_max_abs_grad": worst,
+          "tolerance_share": FLASH_BWD_TOL, "lse_max_abs_err": worst_lse,
+          "lse_tolerance": FLASH_LSE_TOL})
+
+
+def phase_flash_bwd_timing(torch, fa_mod, attention_bwd_ref, launches):
+    """The backward kernel at PERF.md's flash shape (q (4, 16, 4096,
+    128), k, v (4, 8, 4096, 128), bf16, causal) beside its bound, the
+    plain backward and SDPA's backward (autograd of
+    `scaled_dot_product_attention` with `enable_gqa`, backward only)."""
+    import torch.nn.functional as F
+
+    b, hq, hkv, s, d = PREFILL_B, 16, 8, PREFILL_S, 128
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+
+    q, k, v, do = randn(b, hq, s, d), randn(b, hkv, s, d), \
+        randn(b, hkv, s, d), randn(b, hq, s, d)
+    o, lse = fa_mod.attend(q, k, v, causal=True, return_lse=True)
+    args = (q, k, v, o, do, lse)
+    before = fa_mod.attend_backward.launches
+    got = fa_mod.attend_backward(*args, causal=True)
+    check(fa_mod.attend_backward.launches == before + 1,
+          "flash bwd timing: no backward launch")
+    want = attention_bwd_ref(*args, causal=True)
+    errs = [(g.float() - w.float()).abs().max().item()
+            for g, w in zip(got, want)]
+    shares = [e / w.float().abs().max().item() for e, w in zip(errs, want)]
+    check(max(shares) <= FLASH_BWD_TOL["bfloat16"],
+          f"flash bwd timing shape: errors {errs}, shares {shares}")
+    del got, want
+    ms = cuda_ms(lambda: fa_mod.attend_backward(*args, causal=True),
+                 warmup=2, iters=10)
+    plain_ms = cuda_ms(lambda: attention_bwd_ref(*args, causal=True),
+                       warmup=1, iters=3)
+    ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                         enable_gqa=True)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (ql, kl, vl), do, retain_graph=True), iters=10)
+    del out, ql, kl, vl
+    pairs = b * hq * s * (s + 1) // 2
+    flops = 2.5 * 4.0 * d * pairs
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+        + 2 * lse.numel() * 4
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"name": "flash_attention_bwd", "variant": "simt",
+           "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+           "replaces": "src/repro/models/layers.py:74",
+           "replaces_note": "no Pallas backward: the reference "
+                            "differentiates this jnp flash loop",
+           "launches": launches, "max_abs_err": max(errs), "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": library_ms, "held_against_plain": True}
+    emit({"phase": "flash_bwd_timing",
+          "shape_b_hq_hkv_s_d": [b, hq, hkv, s, d], "dtype": "bfloat16",
+          "causal": True, "flops": flops, "bytes": nbytes,
+          "tflops": flops / (ms * 1e-3) / 1e12,
+          "tc_share": flops / (ms * 1e-3) / PEAK_BF16_FLOPS,
+          "max_err_share": max(shares),
+          "library": "scaled_dot_product_attention(enable_gqa=True) "
+                     "backward", **row})
+    return row
 
 
 def phase_lm_prefill(torch, lm_mod, configs, flash):
@@ -1192,6 +1370,232 @@ def phase_lm_card_vs_cpu(torch, lm_mod, configs, serve_step):
           "greedy_tokens_equal": True})
 
 
+def _train_hook(torch, fa_mod, fault_step=None):
+    """A `fault_hook` for `train_with_recovery` that records, at the
+    start of every attempt, (step, clock, forward and backward flash
+    launches so far) after a device sync, and raises a RuntimeError
+    once at `fault_step`."""
+    marks, fired = [], []
+
+    def hook(step):
+        torch.cuda.synchronize()
+        marks.append((step, now(), fa_mod.flash_attention.launches,
+                      fa_mod.attend_backward.launches))
+        if step == fault_step and not fired:
+            fired.append(step)
+            raise RuntimeError("chip_smoke: injected node failure")
+
+    return hook, marks, fired
+
+
+def _per_attempt(torch, fa_mod, marks):
+    """[(step, seconds, forward launches, backward launches)] of every
+    attempt, from consecutive marks (the last one to now)."""
+    torch.cuda.synchronize()
+    end = (None, now(), fa_mod.flash_attention.launches,
+           fa_mod.attend_backward.launches)
+    return [(a[0], b[1] - a[1], b[2] - a[2], b[3] - a[3])
+            for a, b in zip(marks, marks[1:] + [end])]
+
+
+def phase_lm_train(torch, train_mod, fa_mod, configs):
+    """The training path at full width: `launch.train.run` with its
+    defaults on the card for TRAIN_STEPS steps, a checkpoint every
+    TRAIN_CKPT_EVERY and an injected RuntimeError at TRAIN_FAULT_STEP
+    (rolled back to the last checkpoint and retried); then the same
+    steps uninterrupted, timed.  Gates: finite losses, one restart,
+    the steps after the rollback equal to the uninterrupted run's, and
+    every step launching 2 forward flash kernels a layer (remat runs
+    each period again in the backward pass) and 1 backward kernel."""
+    import shutil
+
+    cfg = configs.get_config("qwen3_0_6b")
+    ckpt = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--steps", str(TRAIN_STEPS), "--device", "cuda", "--seed", "0"]
+    args = train_mod.parse_args(argv + [
+        "--ckpt-every", str(TRAIN_CKPT_EVERY), "--ckpt-dir",
+        str(ckpt / "faulty")])
+    defaults = train_mod.parse_args([])
+    hook, marks, fired = _train_hook(torch, fa_mod, TRAIN_FAULT_STEP)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = now()
+    model, faulty = train_mod.run(args, fault_hook=hook, log=lambda m: None)
+    faulty_s = now() - t0
+    attempts = _per_attempt(torch, fa_mod, marks)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    torch.cuda.empty_cache()
+
+    clean_args = train_mod.parse_args(argv + [
+        "--ckpt-every", str(TRAIN_STEPS), "--ckpt-dir",
+        str(ckpt / "clean")])
+    hook, clean_marks, _ = _train_hook(torch, fa_mod)
+    model, clean = train_mod.run(clean_args, fault_hook=hook,
+                                 log=lambda m: None)
+    clean_attempts = _per_attempt(torch, fa_mod, clean_marks)
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    losses = faulty.losses + clean.losses
+    check(all(x == x and abs(x) < float("inf") for x in losses),
+          f"non-finite training losses {losses}")
+    check(fired == [TRAIN_FAULT_STEP] and faulty.restarts == 1
+          and faulty.steps_run == TRAIN_STEPS
+          and clean.restarts == 0 and len(clean.losses) == TRAIN_STEPS,
+          f"restarts {faulty.restarts}, steps {faulty.steps_run}, "
+          f"clean {clean.restarts} / {len(clean.losses)}")
+    # Steps 0..2 ran, step 3 failed, the rollback went to step 2.
+    rollback = TRAIN_FAULT_STEP - TRAIN_FAULT_STEP % TRAIN_CKPT_EVERY
+    after = faulty.losses[TRAIN_FAULT_STEP:]
+    check(len(after) == TRAIN_STEPS - rollback,
+          f"{len(after)} steps after the rollback, losses {faulty.losses}")
+    rel = [abs(a - b) / abs(b) for a, b in
+           zip(faulty.losses[:TRAIN_FAULT_STEP] + after,
+               clean.losses[:TRAIN_FAULT_STEP] + clean.losses[rollback:])]
+    check(max(rel) <= TRAIN_ROLLBACK_RTOL,
+          f"losses after the rollback {after} != uninterrupted "
+          f"{clean.losses[rollback:]} (rel {rel})")
+    ran = [a for a in attempts + clean_attempts if a[2] or a[3]]
+    check(len(ran) == len(faulty.losses) + len(clean.losses)
+          and all((f, b) == (2 * cfg.n_layers, cfg.n_layers)
+                  for _, _, f, b in ran),
+          f"flash launches per step (step, s, forward, backward): "
+          f"{attempts + clean_attempts}")
+    # Steps 1-4: step 0 includes first-call set-up, step 5 the save.
+    step_s = statistics.median(a[1] for a in clean_attempts[1:-1])
+    tokens = defaults.batch * defaults.seq
+    d, hq, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    layer_mm = d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d \
+        + 3 * d * cfg.d_ff
+    mm_params = cfg.n_layers * layer_mm + d * cfg.vocab_size
+    s = defaults.seq
+    attn_fwd = cfg.n_layers * 4.0 * hd * defaults.batch * hq * s * (s + 1) / 2
+    flops = 6.0 * mm_params * tokens + 3.5 * attn_fwd
+    emit({"phase": "lm_train_qwen3_0_6b", "argv": argv,
+          "defaults": {"batch": defaults.batch, "seq": defaults.seq,
+                       "lr": defaults.lr, "microbatches":
+                           defaults.microbatches},
+          "compute_dtype": cfg.compute_dtype, "param_dtype": cfg.param_dtype,
+          "optimizer": cfg.optimizer, "remat": cfg.remat,
+          "params": n_params, "matmul_params": mm_params,
+          "ckpt_every": TRAIN_CKPT_EVERY, "fault_step": TRAIN_FAULT_STEP,
+          "losses_with_fault": faulty.losses,
+          "losses_uninterrupted": clean.losses,
+          "rollback_max_rel_diff": max(rel),
+          "rollback_rtol": TRAIN_ROLLBACK_RTOL,
+          "restarts": faulty.restarts,
+          "stragglers": faulty.straggler_steps + clean.straggler_steps,
+          "attempts_step_s_fwd_bwd": attempts,
+          "uninterrupted_step_s_fwd_bwd": clean_attempts,
+          "flash_fwd_launches_per_step": 2 * cfg.n_layers,
+          "flash_bwd_launches_per_step": cfg.n_layers,
+          "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+          "step_flops": flops, "step_flops_matmul_6nt":
+              6.0 * mm_params * tokens,
+          "bound_ms": flops / PEAK_BF16_FLOPS * 1e3,
+          "bound_share": flops / PEAK_BF16_FLOPS / step_s,
+          "run_with_fault_seconds": faulty_s,
+          "max_memory_allocated_bytes": peak})
+    return sum(a[3] for a in ran), model
+
+
+def phase_profile_train_step(torch, model, train_step_mod, optimizer,
+                             pipeline, top: int = 14):
+    """Where a warm full-width training step's device time goes: one
+    step of `launch.train`'s configuration (a fresh AdamW state on the
+    trained model) under torch.profiler; device time in the flash
+    forward and backward kernels, in cuBLAS matrix products and in the
+    rest, and the `top` kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tcfg = train_step_mod.TrainConfig(
+        opt=optimizer.OptConfig(lr=3e-4, warmup_steps=20))
+    step_fn, _ = train_step_mod.make_train_step(model, tcfg)
+    params, opt = train_step_mod.init_train_state(model, tcfg)
+    data = pipeline.DataConfig(seed=0, vocab_size=model.cfg.vocab_size,
+                               seq_len=512, global_batch=8)
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in pipeline.make_batch(data, 0).items()}
+    params, opt, _ = step_fn(params, opt, batch)            # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = now()
+        params, opt, met = step_fn(params, opt, batch)
+        float(met["loss"])
+        wall_ms = (now() - t0) * 1e3
+    by_name: dict = {}
+    n_ops = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n_ops += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    fwd = sum(t for n, t in by_name.items() if "flash_fwd" in n)
+    bwd = sum(t for n, t in by_name.items()
+              if any(w in n for w in ("bwd_dkdv", "bwd_dq", "bwd_delta")))
+    gemm = sum(t for n, t in by_name.items()
+               if any(w in n for w in ("gemm", "nvjet", "xmma", "cutlass")))
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    del opt
+    emit({"phase": "profile_train_step", "batch": 8, "seq": 512,
+          "wall_ms_profiled": wall_ms, "device_ops": n_ops,
+          "device_busy_ms": busy if n_ops else "not measured",
+          "device_idle_share": 1.0 - busy / wall_ms if n_ops else None,
+          "flash_fwd_ms": fwd, "flash_bwd_ms": bwd, "cublas_gemm_ms": gemm,
+          "other_ms": busy - fwd - bwd - gemm,
+          "top_kernels_ms": {n[:100]: t for n, t in ranked}})
+
+
+def phase_lm_train_card_vs_cpu(torch, lm_mod, configs, train_step_mod,
+                               optimizer, pipeline):
+    """The reduced config in float32, the same parameters on the CPU and
+    on the card, 3 steps of `make_train_step` on the same batches:
+    losses and parameters within the CPU parity tolerances."""
+    import dataclasses
+
+    cfg = dataclasses.replace(configs.get_config("qwen3_0_6b", reduced=True),
+                              compute_dtype="float32")
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    cpu = lm_mod.build_model(cfg, device="cpu", generator=gen)
+    card = lm_mod.build_model(
+        cfg, device="cuda",
+        params=lm_mod._tree_map(lambda t: t.detach().to("cuda"),
+                                cpu.params))
+    tcfg = train_step_mod.TrainConfig(
+        opt=optimizer.OptConfig(lr=1e-3, warmup_steps=2))
+    data = pipeline.DataConfig(seed=0, vocab_size=cfg.vocab_size,
+                               seq_len=64, global_batch=4)
+    runs = {}
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        step_fn, _ = train_step_mod.make_train_step(model, tcfg)
+        params, opt = train_step_mod.init_train_state(model, tcfg)
+        losses = []
+        for step in range(3):
+            batch = {k: torch.from_numpy(v).to(name) for k, v in
+                     pipeline.make_batch(data, step).items()}
+            params, opt, met = step_fn(params, opt, batch)
+            losses.append(float(met["loss"]))
+        runs[name] = (losses, [t.detach().cpu() for t in
+                               optimizer.tree_leaves(params)])
+    (lc, pc), (lg, pg) = runs["cpu"], runs["cuda"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    check(loss_rel <= TRAIN_CARD_CPU["loss_rtol"],
+          f"training losses card {lg} != cpu {lc}")
+    tol = TRAIN_CARD_CPU["param_tol"]
+    err = 0.0
+    for a, b in zip(pg, pc):
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+        err = max(err, (a - b).abs().max().item())
+    emit({"phase": "lm_train_card_vs_cpu",
+          "config": "qwen3_0_6b reduced f32, 3 steps, 4 x 64 tokens",
+          "losses_cpu": lc, "losses_cuda": lg, "loss_max_rel_diff": loss_rel,
+          "param_max_abs_diff": err, "tolerances": TRAIN_CARD_CPU})
+
+
 def phase_flash_timing(torch, attend, attention_ref, flash, launches):
     """Kernel (the wgmma variant), plain version and SDPA at the prefill
     shape, bf16 causal (10 back-to-back kernel and SDPA calls per timed
@@ -1317,20 +1721,27 @@ def main() -> int:
                                   surrogate)
     from repro_torch.core.arch import GEMMINI_DEFAULT
     from repro_torch.core.baselines import random_search
+    from repro_torch.data import pipeline
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
     from repro_torch.kernels.flash_attention.flash_attention import (
         attend, flash_attention)
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_lse_ref,
+                                                         attention_ref)
     from repro_torch.kernels.matmul.matmul import matmul
     from repro_torch.kernels.matmul.ops import tuned_blocks, tuned_matmul
     from repro_torch.kernels.matmul.ref import matmul_ref
     from repro_torch.launch import serve
+    from repro_torch.launch import train as train_mod
     from repro_torch.models import lm as lm_mod
     from repro_torch.obs import telemetry as obs
     from repro_torch.runtime import chaos
     from repro_torch.serve import cosearch_service as service_mod
     from repro_torch.serve import serve_step
     from repro_torch.serve import server as server_mod
+    from repro_torch.train import optimizer
+    from repro_torch.train import train_step as train_step_mod
     from repro_torch.workloads import dnn_zoo
 
     smi = smi_line()
@@ -1341,14 +1752,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    build_all(build, ["matmul", "flash_attention"])
+    build_all(build, ["matmul", "flash_attention", "flash_attention_bwd"])
     phase_kernel_vs_plain(torch, matmul, matmul_ref)
     phase_flash_vs_plain(torch, attend, attention_ref, flash_attention)
+    phase_flash_bwd_vs_plain(torch, fa_mod, attention_ref, attention_lse_ref)
 
     # ---- main path 1: tuned matmul + co-search, counts from 0.
     matmul.launches = 0
     matmul.launches_by_variant.update(wgmma=0, simt=0)
     flash_attention.launches = 0
+    fa_mod.attend_backward.launches = 0
     x, y = phase_tuned_matmul(torch, tuned_matmul, tuned_blocks, matmul_ref,
                               matmul)
     wl, cfg, res = phase_cosearch(torch, search, oracle, dnn_zoo)
@@ -1358,7 +1771,8 @@ def main() -> int:
     emit({"phase": "main_path_launches", "path": "tuned_matmul+cosearch",
           "matmul": mm_launches,
           "matmul_by_variant": dict(matmul.launches_by_variant),
-          "flash_attention": flash_attention.launches})
+          "flash_attention": flash_attention.launches,
+          "flash_attention_bwd": fa_mod.attend_backward.launches})
 
     # ---- main path 2: LM prefill at full width, counts from 0 per call.
     matmul.launches = 0
@@ -1369,7 +1783,8 @@ def main() -> int:
     emit({"phase": "main_path_launches", "path": "lm_prefill",
           "matmul": matmul.launches, "flash_attention": fa_launches,
           "flash_attention_by_variant":
-              dict(flash_attention.launches_by_variant)})
+              dict(flash_attention.launches_by_variant),
+          "flash_attention_bwd": fa_mod.attend_backward.launches})
 
     # ---- main path 3: the serve loop at full width.
     phase_lm_serve(torch, serve, configs, flash_attention)
@@ -1380,6 +1795,31 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     phase_lm_card_vs_cpu(torch, lm_mod, configs, serve_step)
+
+    # ---- main path 4: training at full width through launch.train,
+    # counts from 0.
+    matmul.launches = 0
+    matmul.launches_by_variant.update(wgmma=0, simt=0)
+    flash_attention.launches = 0
+    flash_attention.launches_by_variant.update(wgmma=0, simt=0)
+    fa_mod.attend_backward.launches = 0
+    bwd_launches, model = phase_lm_train(torch, train_mod, fa_mod, configs)
+    check(bwd_launches > 0 and fa_mod.attend_backward.launches
+          == bwd_launches, "training never launched the backward kernel")
+    check(flash_attention.launches_by_variant["wgmma"] > 0,
+          "training never launched the wgmma forward kernel")
+    emit({"phase": "main_path_launches", "path": "lm_train",
+          "matmul": matmul.launches,
+          "flash_attention": flash_attention.launches,
+          "flash_attention_by_variant":
+              dict(flash_attention.launches_by_variant),
+          "flash_attention_bwd": fa_mod.attend_backward.launches})
+    phase_profile_train_step(torch, model, train_step_mod, optimizer,
+                             pipeline)
+    del model
+    torch.cuda.empty_cache()
+    phase_lm_train_card_vs_cpu(torch, lm_mod, configs, train_step_mod,
+                               optimizer, pipeline)
     phase_chunk_sync_free(torch, search, wl, cfg, res)
     gd_resnet50 = phase_profile_gd(torch, search, wl, cfg)
     phase_card_vs_cpu(search, problem)
@@ -1389,6 +1829,7 @@ def main() -> int:
     matmul.launches = 0
     matmul.launches_by_variant.update(wgmma=0, simt=0)
     flash_attention.launches = 0
+    fa_mod.attend_backward.launches = 0
     models = phase_calibration_train(torch, np, surrogate, rtl_sim, dnn_zoo,
                                      GEMMINI_DEFAULT)
     unet, short_cfg, short_res = phase_calibrated_search_unet(
@@ -1405,7 +1846,8 @@ def main() -> int:
     emit({"phase": "main_path_launches",
           "path": "calibration+calibrated_search+baselines",
           "matmul": matmul.launches,
-          "flash_attention": flash_attention.launches})
+          "flash_attention": flash_attention.launches,
+          "flash_attention_bwd": fa_mod.attend_backward.launches})
 
     # ---- the co-search service slice, counts from 0 (no kernel of this
     # repo is on these paths): device seeding, the device-seeded search,
@@ -1413,6 +1855,7 @@ def main() -> int:
     matmul.launches = 0
     matmul.launches_by_variant.update(wgmma=0, simt=0)
     flash_attention.launches = 0
+    fa_mod.attend_backward.launches = 0
     phase_device_seed(torch, np, mapping, dnn_zoo)
     phase_device_seeded_search(torch, search, mapping, oracle, wl, res,
                                gd_resnet50)
@@ -1422,14 +1865,17 @@ def main() -> int:
     emit({"phase": "main_path_launches",
           "path": "device_seed+fleet+service",
           "matmul": matmul.launches,
-          "flash_attention": flash_attention.launches})
+          "flash_attention": flash_attention.launches,
+          "flash_attention_bwd": fa_mod.attend_backward.launches})
     mm_row = phase_matmul_timing(torch, matmul, matmul_ref, x, y,
                                  mm_launches)
     fa_row = phase_flash_timing(torch, attend, attention_ref,
                                 flash_attention, fa_launches)
+    bwd_row = phase_flash_bwd_timing(torch, fa_mod, attention_bwd_ref,
+                                     bwd_launches)
 
     emit({"phase": "total", "seconds": now() - t_start})
-    emit({"kernels": [mm_row, fa_row]})
+    emit({"kernels": [mm_row, fa_row, bwd_row]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

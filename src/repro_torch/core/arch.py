@@ -94,6 +94,34 @@ class GemminiHW:
 # single-buffered accounting).
 GEMMINI_DEFAULT = GemminiHW(pe_dim=16, acc_kb=32.0, sp_kb=128.0)
 
+# Expert-designed baseline accelerators for Fig. 8, expressed as
+# Gemmini-class configs (Gemmini-class proxies with published PE counts
+# / on-chip SRAM budgets).
+BASELINE_ACCELS = {
+    "eyeriss": GemminiHW(pe_dim=13, acc_kb=24.0, sp_kb=108.0),
+    "nvdla_small": GemminiHW(pe_dim=8, acc_kb=32.0, sp_kb=128.0),
+    "nvdla_large": GemminiHW(pe_dim=32, acc_kb=128.0, sp_kb=512.0),
+    "gemmini_default": GEMMINI_DEFAULT,
+}
+
+
+def bandwidth_words_per_cycle(c_pe):
+    """Per-level bandwidth in words/cycle [REG, ACC, SP, DRAM] (Table 2)
+    for Python scalars, numpy arrays or torch tensors `c_pe`, from the
+    compiled `GEMMINI_SPEC` (archspec.py), the single source of the
+    per-level bandwidth models."""
+    from .archspec import GEMMINI_SPEC, compile_spec
+    return compile_spec(GEMMINI_SPEC).bandwidth(c_pe)
+
+
+def epa_per_level(c_pe, acc_words, sp_words):
+    """Per-level energy/access [REG, ACC, SP, DRAM] given hardware params
+    (capacity-dependent SRAM EPA, Table 2), from the compiled
+    `GEMMINI_SPEC`, the single source of the EPA models."""
+    from .archspec import GEMMINI_SPEC, compile_spec
+    return compile_spec(GEMMINI_SPEC).epa(
+        c_pe, [0.0, acc_words, sp_words, 0.0])
+
 # ---------------------------------------------------------------------------
 # TPU v5e adaptation target (DESIGN.md Sec. 5)
 # ---------------------------------------------------------------------------

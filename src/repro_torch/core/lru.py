@@ -13,6 +13,7 @@ The PyTorch port's copy of the reference's `repro.core.lru`.
 from __future__ import annotations
 
 from collections import OrderedDict
+from typing import Callable
 
 
 class LRUCache:
@@ -58,6 +59,15 @@ class LRUCache:
             self._data.popitem(last=False)
             self.evictions += 1
         self._data[key] = value
+
+    def get_or_build(self, key, build: Callable):
+        """The engine-cache idiom: return the cached value (hit) or
+        build, insert and return it (miss + possible eviction)."""
+        hit = self.get(key, None)
+        if hit is None:
+            hit = build()
+            self.put(key, hit)
+        return hit
 
     def pop_lru(self):
         """Remove and return the least-recently-used ``(key, value)``

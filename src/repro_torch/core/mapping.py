@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE
-from .arch import ACC, SP
+from .arch import ACC, DRAM, NLEVELS, SP
 from .archspec import resolve_spec, sites_per_dim
 from .problem import C, K, N, NDIMS, P, Q, R, S
 
@@ -88,6 +88,13 @@ class Mapping:
         if not np.allclose(self.f[SPATIAL][mask], 1.0):
             raise ValueError(
                 f"spatial factor outside {cspec.spec.name} dataflow sites")
+
+
+def identity_mapping(dims: np.ndarray) -> Mapping:
+    """Everything at DRAM — the trivially valid (and slow) mapping."""
+    f = np.ones((2, NLEVELS, NDIMS), dtype=float)
+    f[TEMPORAL, DRAM, :] = np.asarray(dims, dtype=float)
+    return Mapping(f=f, order=np.zeros(NLEVELS, dtype=np.int64))
 
 
 def random_mapping(dims: np.ndarray, rng: np.random.Generator,

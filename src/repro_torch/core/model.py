@@ -20,7 +20,11 @@ call, and autograd differentiates it with respect to the factors.
 Every function is parameterized by a `CompiledSpec` (`archspec.py`)
 carrying the memory-level chains, tensor bindings, EPA/bandwidth
 models and ordering tables of the target.  See the reference module's
-docstring for the exact semantics of each term.
+docstring for the exact semantics of each term.  The reference's
+Gemmini-fixed entry points (`layer_metrics`, `infer_hw`,
+`workload_eval`, ..., with hardware as `HWParams`) remain as thin
+wrappers over the generic `*_spec` functions specialized to
+`GEMMINI_SPEC`.
 
 Two rules keep the model usable inside a fused search chunk, where no
 value may travel back to the host: products are written as explicit
@@ -35,11 +39,22 @@ from typing import NamedTuple
 
 import torch
 
-from .archspec import CompiledSpec
+from .arch import ACC, NLEVELS, SP
+from .archspec import (CompiledSpec, GEMMINI_SPEC, compile_spec,
+                       ordering_combos_for)
 from .mapping import SPATIAL, TEMPORAL
 from .problem import C, K, N, NDIMS, P, Q, R, S, REL, I_T, O_T, W_T
 
 _EPS = 1e-6
+
+
+def _gemmini() -> CompiledSpec:
+    return compile_spec(GEMMINI_SPEC)
+
+
+# Tensor -> storage levels (from Table 4's B matrix), innermost first.
+# Legacy constant; the generic path reads `cspec.tensor_levels`.
+TENSOR_LEVELS = {W_T: (0, 2, 3), I_T: (2, 3), O_T: (1, 3)}
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
@@ -194,6 +209,13 @@ def fills_spec(cspec: CompiledSpec, f: torch.Tensor, order: torch.Tensor,
     return torch.stack(rows, dim=-2)
 
 
+def fills(f: torch.Tensor, order: torch.Tensor, strides: torch.Tensor,
+          caps: torch.Tensor) -> torch.Tensor:
+    """Legacy Gemmini entry point (`strides` kept for signature
+    compat)."""
+    return fills_spec(_gemmini(), f, order, caps)
+
+
 class Traffic(NamedTuple):
     reads: torch.Tensor      # (..., n_levels) word reads per level
     writes: torch.Tensor     # (..., n_levels) word writes
@@ -240,6 +262,13 @@ def traffic_spec(cspec: CompiledSpec, f: torch.Tensor, order: torch.Tensor,
     return Traffic(reads=reads, writes=writes, accesses=reads + writes)
 
 
+def traffic(f: torch.Tensor, order: torch.Tensor, strides: torch.Tensor,
+            caps: torch.Tensor, macs: torch.Tensor) -> Traffic:
+    """Legacy Gemmini entry point (`strides` kept for signature
+    compat)."""
+    return traffic_spec(_gemmini(), f, order, caps, macs)
+
+
 # ---------------------------------------------------------------------------
 # Latency / energy / EDP
 # ---------------------------------------------------------------------------
@@ -257,6 +286,10 @@ def layer_c_pe_spec(cspec: CompiledSpec, f: torch.Tensor) -> torch.Tensor:
     for (lvl, d) in cspec.spatial_sites[1:]:
         side = torch.maximum(side, f[..., SPATIAL, lvl, d])
     return side ** 2
+
+
+def layer_c_pe(f: torch.Tensor) -> torch.Tensor:
+    return layer_c_pe_spec(_gemmini(), f)
 
 
 def _epa(cspec: CompiledSpec, c_pe, cap_words) -> list:
@@ -302,6 +335,53 @@ def layer_metrics_spec(cspec: CompiledSpec, f: torch.Tensor,
                         compute_latency=compute_lat, mem_latency=mem_lat)
 
 
+def _as_tensor(x, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+
+
+def _gemmini_cap_words(acc_words, sp_words, like: torch.Tensor,
+                       outer: float) -> torch.Tensor:
+    """(..., 4) Gemmini capacity words [REG, ACC, SP, DRAM], `outer` at
+    REG and DRAM (the reference uses 0 or +inf there; their EPA slope
+    is zero, so the value is never read)."""
+    acc = _as_tensor(acc_words, like)
+    sp = _as_tensor(sp_words, like)
+    acc, sp = torch.broadcast_tensors(acc, sp)
+    edge = torch.full_like(acc, outer)
+    return torch.stack([edge, acc, sp, edge], dim=-1)
+
+
+def layer_metrics(f: torch.Tensor, order: torch.Tensor,
+                  strides: torch.Tensor, c_pe, acc_words,
+                  sp_words) -> LayerMetrics:
+    """Legacy Gemmini entry point."""
+    return layer_metrics_spec(_gemmini(), f, order, strides,
+                              _as_tensor(c_pe, f),
+                              _gemmini_cap_words(acc_words, sp_words, f,
+                                                 0.0))
+
+
+class HWParams(NamedTuple):
+    """Legacy Gemmini hardware parameters (see `SpecHW` for the
+    spec-generic form)."""
+
+    c_pe: torch.Tensor       # total PEs (pe_dim^2)
+    acc_words: torch.Tensor  # accumulator capacity requirement, words
+    sp_words: torch.Tensor   # scratchpad capacity requirement, words
+
+
+def _spec_hw_from_params(hw: HWParams) -> SpecHW:
+    acc = torch.as_tensor(hw.acc_words, dtype=torch.float32)
+    return SpecHW(c_pe=_as_tensor(hw.c_pe, acc),
+                  cap_words=_gemmini_cap_words(acc, hw.sp_words, acc,
+                                               float("inf")))
+
+
+def _params_from_spec_hw(hw: SpecHW) -> HWParams:
+    return HWParams(c_pe=hw.c_pe, acc_words=hw.cap_words[..., ACC],
+                    sp_words=hw.cap_words[..., SP])
+
+
 def infer_hw_spec(cspec: CompiledSpec, fs: torch.Tensor,
                   strides: torch.Tensor) -> SpecHW:
     """Mapping-first minimal hardware (Fig. 3): per-parameter max over
@@ -333,6 +413,16 @@ def infer_hw_spec(cspec: CompiledSpec, fs: torch.Tensor,
 infer_hw_population_spec = infer_hw_spec
 
 
+def infer_hw(fs: torch.Tensor, strides: torch.Tensor) -> HWParams:
+    """Legacy Gemmini entry point; fs (..., L, 2, 4, 7) gives HWParams
+    with (...) leaves."""
+    return _params_from_spec_hw(infer_hw_spec(_gemmini(), fs, strides))
+
+
+# Batched like the generic form: (P, L, 2, 4, 7) gives (P,) leaves.
+infer_hw_population = infer_hw
+
+
 def workload_eval_spec(cspec: CompiledSpec, fs: torch.Tensor,
                        orders: torch.Tensor, strides: torch.Tensor,
                        repeats: torch.Tensor, hw: SpecHW | None = None):
@@ -355,6 +445,27 @@ def workload_eval_spec(cspec: CompiledSpec, fs: torch.Tensor,
 
 
 population_eval_spec = workload_eval_spec
+
+
+def workload_eval(fs: torch.Tensor, orders: torch.Tensor,
+                  strides: torch.Tensor, repeats: torch.Tensor,
+                  hw: HWParams | None = None):
+    """Legacy Gemmini entry point (hardware in and out as `HWParams`);
+    batched over leading dims like `workload_eval_spec`."""
+    shw = _spec_hw_from_params(hw) if hw is not None else None
+    edp, (en, lat, shw) = workload_eval_spec(_gemmini(), fs, orders,
+                                             strides, repeats, hw=shw)
+    return edp, (en, lat, _params_from_spec_hw(shw))
+
+
+def workload_edp(fs, orders, strides, repeats, hw: HWParams | None = None):
+    return workload_eval(fs, orders, strides, repeats, hw)[0]
+
+
+# The population forms are the same batched functions: fs (P, L, 2, 4,
+# 7) gives (P,) EDPs, (P, L) energies and latencies, (P,) hw leaves.
+population_eval = workload_eval
+population_edp = workload_edp
 
 
 def population_edp_spec(cspec, fs, orders, strides, repeats,
@@ -423,9 +534,23 @@ def capacity_penalty_spec(cspec: CompiledSpec, fs: torch.Tensor,
     return over.sum(dim=-1)
 
 
+def capacity_penalty(fs: torch.Tensor, strides: torch.Tensor,
+                     hw: HWParams) -> torch.Tensor:
+    """Legacy Gemmini entry point."""
+    return capacity_penalty_spec(_gemmini(), fs, strides,
+                                 _spec_hw_from_params(hw))
+
+
 # ---------------------------------------------------------------------------
 # Loop-ordering enumeration helpers (Sec. 5.2)
 # ---------------------------------------------------------------------------
+
+def ordering_combos():
+    """(27, 4) all per-level ordering choices for levels ACC/SP/DRAM
+    (the register level's ordering never affects traffic).  The array
+    is cached and READ-ONLY — copy before mutating."""
+    return ordering_combos_for(NLEVELS)
+
 
 def layer_el_all_orderings_spec(cspec: CompiledSpec, f, strides, c_pe,
                                 cap_words):
@@ -440,6 +565,13 @@ def layer_el_all_orderings_spec(cspec: CompiledSpec, f, strides, c_pe,
     return m.energy, m.latency
 
 
+def layer_el_all_orderings(f, strides, c_pe, acc_words, sp_words):
+    """Legacy Gemmini entry point: all 27 combos."""
+    return layer_el_all_orderings_spec(
+        _gemmini(), f, strides, _as_tensor(c_pe, f),
+        _gemmini_cap_words(acc_words, sp_words, f, 0.0))
+
+
 def layer_el_all_orderings_population_spec(cspec: CompiledSpec,
                                            fs_pop: torch.Tensor,
                                            strides: torch.Tensor,
@@ -451,3 +583,11 @@ def layer_el_all_orderings_population_spec(cspec: CompiledSpec,
     return layer_el_all_orderings_spec(cspec, fs_pop, strides,
                                        hws.c_pe[..., None],
                                        hws.cap_words[..., None, :])
+
+
+def layer_el_all_orderings_population(fs_pop: torch.Tensor,
+                                      strides: torch.Tensor, hws: HWParams):
+    """Legacy Gemmini entry point.  hws: HWParams with (P,) leaves.
+    Returns (energies, latencies), each (P, L, 27)."""
+    return layer_el_all_orderings_population_spec(
+        _gemmini(), fs_pop, strides, _spec_hw_from_params(hws))

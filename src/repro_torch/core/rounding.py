@@ -41,6 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve_device
 from .archspec import padded_divisor_tables
 from .archspec import sites_per_dim as _sites_per_dim
 from .archspec import resolve_spec
@@ -210,6 +211,33 @@ def _round_population_core(cspec, tables: RoundingTables, f, pe_cap):
     out = torch.stack(out_cells, dim=-1).reshape(shape)
     theta = torch.stack(theta_cells, dim=-1).reshape(shape)
     return out, theta
+
+
+def round_population_device(fs, dims, pe_cap: int | None = None,
+                            spec=None, device=DEFAULT_DEVICE) -> np.ndarray:
+    """Device counterpart of `round_population`: project a whole
+    population of continuous factors (P, L, 2, n_levels, 7) onto the
+    divisor grid on `device` in one pass.  Returns the rounded factor
+    tensor as numpy (orders are untouched by rounding — pair the result
+    with the caller's orders).  The fused search engines call
+    `_round_population_core` directly instead."""
+    cspec = resolve_spec(spec)
+    if pe_cap is None:
+        pe_cap = cspec.pe_cap
+    dims_key = tuple(tuple(int(x) for x in row) for row in np.asarray(dims))
+    dev = resolve_device(device)
+    fn = _round_device_fn(cspec, dims_key, int(pe_cap), dev)
+    out, _ = fn(torch.as_tensor(np.asarray(fs), dtype=torch.float32,
+                                device=dev))
+    return out.cpu().numpy().astype(float)
+
+
+@functools.lru_cache(maxsize=64)
+def _round_device_fn(cspec, dims_key: tuple, pe_cap: int, device):
+    """One projection per (spec, dims, cap, device), its divisor tables
+    already on the device."""
+    tables = rounding_tables_cached(dims_key, device)
+    return lambda f: _round_population_core(cspec, tables, f, pe_cap)
 
 
 def _seed_population_core(cspec, tables: RoundingTables, u_f, u_o,

@@ -74,13 +74,13 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..obs import telemetry as _obs
 from .arch import GemminiHW
 from .archspec import (ArchSpec, CompiledSpec, GEMMINI_SPEC, HWConfig,
-                       resolve_spec)
+                       compile_spec, resolve_spec)
 from .cosa import cosa_map_workload
 from .hw_infer import minimal_hw_for, random_hw_for
 from .lru import LRUCache
 from .mapping import TEMPORAL, SPATIAL, Mapping, stack_mappings
 from .mapping import unstack_mappings
-from .model import (SpecHW, capacities,
+from .model import (SpecHW, _spec_hw_from_params, capacities,
                     capacity_penalty_spec, infer_hw_spec,
                     layer_el_all_orderings_spec,
                     layer_el_all_orderings_population_spec,
@@ -458,6 +458,21 @@ def _adam_segment(grad_fn, lr: float, theta, orders, n_steps: int):
     return theta
 
 
+def make_segment_runner(pop_grad, lr: float):
+    """GD-segment executor shared by the batched population engine's
+    API and the fleet's: advance a whole population of log-factor
+    tensors by `n_steps` Adam steps (fresh momentum) through
+    `pop_grad(theta, *args) -> (value, grad)`.  Extra positional `args`
+    are carried through to `pop_grad` unchanged; `n_steps` is
+    keyword-only.  (The reference also donates the incoming buffer;
+    here each step makes new tensors, with the same result.)"""
+    def run_segment(theta, *args, n_steps: int):
+        return _adam_segment(lambda th, _: pop_grad(th, *args)[1], lr,
+                             theta, None, n_steps)
+
+    return run_segment
+
+
 def _segment_lengths(steps: int, round_every: int) -> list[int]:
     """GD-step counts between consecutive rounding points: the sequential
     driver rounds at every multiple of `round_every` and at `steps`."""
@@ -519,6 +534,15 @@ def select_orderings_spec(cspec: CompiledSpec, fs: torch.Tensor,
     return cspec.combos[choice.cpu().numpy()]
 
 
+def select_orderings(fs: torch.Tensor, strides: torch.Tensor,
+                     repeats: torch.Tensor, hw, n_passes: int = 2
+                     ) -> np.ndarray:
+    """Legacy Gemmini entry point (`hw`: model.HWParams)."""
+    return select_orderings_spec(compile_spec(GEMMINI_SPEC), fs, strides,
+                                 repeats, _spec_hw_from_params(hw),
+                                 n_passes)
+
+
 def _population_hw(cspec: CompiledSpec, fs: torch.Tensor,
                    strides: torch.Tensor, hw_fixed: SpecHW | None) -> SpecHW:
     """One hardware point per member of a (P, L, 2, n_levels, 7)
@@ -554,6 +578,16 @@ def select_orderings_population_spec(cspec: CompiledSpec,
     choice = _population_choice(cspec, fs_pop, strides, repeats, hws,
                                 n_passes)
     return cspec.combos[choice.cpu().numpy()]
+
+
+def select_orderings_population(fs_pop: torch.Tensor, strides: torch.Tensor,
+                                repeats: torch.Tensor, hws,
+                                n_passes: int = 2) -> np.ndarray:
+    """Legacy Gemmini entry point (`hws`: model.HWParams, (P,)
+    leaves)."""
+    return select_orderings_population_spec(
+        compile_spec(GEMMINI_SPEC), fs_pop, strides, repeats,
+        _spec_hw_from_params(hws), n_passes)
 
 
 # ---------------------------------------------------------------------------

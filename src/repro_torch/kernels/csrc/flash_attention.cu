@@ -77,6 +77,12 @@
 // Registers move from the producer warpgroup to the consumers
 // (setmaxnreg 24 / 240).  The epilogue writes O / l in bf16 over the
 // warpgroup's own Q rows in shared memory and stores it with TMA.
+//
+// Both kernels can also write each query row's log-sum-exp of its
+// scaled scores, LSE = m + log(l) in natural units (float32, (B, Hq,
+// Sq)), for the backward kernels (flash_attention_bwd.cu), which
+// recompute P = exp(S * scale - LSE) from it.  A null `lse` pointer
+// skips it: the serving path passes none.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,9 +128,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int hq,
-                     int hkv, int sq, int sk, int causal, int q_offset,
-                     float scale) {
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int hq, int hkv, int sq,
+                     int sk, int causal, int q_offset, float scale) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int CPT = D / 16;  // output columns per thread
 
@@ -241,6 +247,8 @@ __global__ void __launch_bounds__(THREADS)
     const int row = q0 + ty * 4 + i;
     if (row >= sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[(size_t)bh * sq + row] = m[i] + logf(den);
 #pragma unroll
     for (int c = 0; c < CPT; ++c)
       store_out(&ob[(size_t)row * D + c * 16 + tx], acc[i][c] / den);
@@ -248,8 +256,8 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int hq, int hkv, int sq, int sk, int causal, int q_offset,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int hq, int hkv, int sq, int sk, int causal, int q_offset,
            float scale, void* stream) {
   constexpr size_t bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -260,24 +268,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   flash_fwd_kernel<T, D>
       <<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(o), hq, hkv, sq, sk,
-          causal, q_offset, scale);
+          static_cast<const T*>(v), static_cast<T*>(o), lse, hq, hkv, sq,
+          sk, causal, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int b,
-             int hq, int hkv, int sq, int sk, int d, int causal,
-             int q_offset, float scale, void* stream) {
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int b, int hq, int hkv, int sq, int sk, int d,
+             int causal, int q_offset, float scale, void* stream) {
   switch (d) {
     case 32:
-      return launch<T, 32>(q, k, v, o, b, hq, hkv, sq, sk, causal, q_offset,
-                           scale, stream);
+      return launch<T, 32>(q, k, v, o, lse, b, hq, hkv, sq, sk, causal,
+                           q_offset, scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, b, hq, hkv, sq, sk, causal, q_offset,
-                           scale, stream);
+      return launch<T, 64>(q, k, v, o, lse, b, hq, hkv, sq, sk, causal,
+                           q_offset, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, b, hq, hkv, sq, sk, causal,
+      return launch<T, 128>(q, k, v, o, lse, b, hq, hkv, sq, sk, causal,
                             q_offset, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -315,9 +323,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap,
-                    const __grid_constant__ CUtensorMap omap, int hq,
-                    int hkv, int sq, int sk, int causal, int q_offset,
-                    float scale_log2) {
+                    const __grid_constant__ CUtensorMap omap,
+                    float* __restrict__ lse, int hq, int hkv, int sq,
+                    int sk, int causal, int q_offset, float scale_log2) {
   using namespace hopper;
   using T = Tile<D>;
   extern __shared__ uint8_t smem_raw[];
@@ -528,6 +536,17 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     const float inv0 = 1.0f / fmaxf(l0, 1e-30f);
     const float inv1 = 1.0f / fmaxf(l1, 1e-30f);
+    if (lse != nullptr && lane % 4 == 0) {
+      // m is in log2 units with the scale folded in: LSE = ln 2 (m +
+      // log2 l).
+      const int row0 = q0 + row_wg + r;
+      if (row0 < sq)
+        lse[(size_t)bh * sq + row0] =
+            (m0 + log2f(fmaxf(l0, 1e-30f))) * 0.6931471805599453f;
+      if (row0 + 8 < sq)
+        lse[(size_t)bh * sq + row0 + 8] =
+            (m1 + log2f(fmaxf(l1, 1e-30f))) * 0.6931471805599453f;
+    }
     // Epilogue: O / l in bf16 over this warpgroup's own Q rows in shared
     // memory (no other warpgroup reads them), in the swizzled layout of
     // the Q boxes; one thread stores the boxes, and TMA drops rows past
@@ -558,8 +577,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int hq, int hkv, int sq, int sk, int causal, int q_offset,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int hq, int hkv, int sq, int sk, int causal, int q_offset,
            float scale, void* stream) {
   using T = Tile<D>;
   CUtensorMap qmap, kmap, vmap, omap;
@@ -585,24 +604,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid(b * hq, (sq + BQ - 1) / BQ);
   flash_fwd_wgmma<D><<<grid, THREADS, T::SMEM,
                        static_cast<cudaStream_t>(stream)>>>(
-      qmap, kmap, vmap, omap, hq, hkv, sq, sk, causal, q_offset,
+      qmap, kmap, vmap, omap, lse, hq, hkv, sq, sk, causal, q_offset,
       scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* o, int b,
-             int hq, int hkv, int sq, int sk, int d, int causal, int q_offset,
-             float scale, void* stream) {
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int b, int hq, int hkv, int sq, int sk, int d,
+             int causal, int q_offset, float scale, void* stream) {
   switch (d) {
     case 32:
-      return launch<32>(q, k, v, o, b, hq, hkv, sq, sk, causal, q_offset,
-                        scale, stream);
+      return launch<32>(q, k, v, o, lse, b, hq, hkv, sq, sk, causal,
+                        q_offset, scale, stream);
     case 64:
-      return launch<64>(q, k, v, o, b, hq, hkv, sq, sk, causal, q_offset,
-                        scale, stream);
+      return launch<64>(q, k, v, o, lse, b, hq, hkv, sq, sk, causal,
+                        q_offset, scale, stream);
     case 128:
-      return launch<128>(q, k, v, o, b, hq, hkv, sq, sk, causal, q_offset,
-                         scale, stream);
+      return launch<128>(q, k, v, o, lse, b, hq, hkv, sq, sk, causal,
+                         q_offset, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -614,23 +633,25 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b,
 
 // Plain C interface for ctypes: pointers and the stream are void*, the
 // return value is the first CUDA error of the launch (0 on success).
+// `lse` is a float32 (B, Hq, Sq) output, or null.
 extern "C" int repro_flash_attention_f32(const void* q, const void* k,
-                                         const void* v, void* o, int b,
-                                         int hq, int hkv, int sq, int sk,
-                                         int d, int causal, int q_offset,
-                                         float scale, void* stream) {
-  return dispatch<float>(q, k, v, o, b, hq, hkv, sq, sk, d, causal, q_offset,
-                         scale, stream);
+                                         const void* v, void* o, void* lse,
+                                         int b, int hq, int hkv, int sq,
+                                         int sk, int d, int causal,
+                                         int q_offset, float scale,
+                                         void* stream) {
+  return dispatch<float>(q, k, v, o, static_cast<float*>(lse), b, hq, hkv,
+                         sq, sk, d, causal, q_offset, scale, stream);
 }
 
 // bfloat16 on the tensor cores; q, k, v 16-byte aligned (the wrapper
 // checks).
 extern "C" int repro_flash_attention_bf16_wgmma(
-    const void* q, const void* k, const void* v, void* o, int b, int hq,
-    int hkv, int sq, int sk, int d, int causal, int q_offset, float scale,
-    void* stream) {
-  return tc::dispatch(q, k, v, o, b, hq, hkv, sq, sk, d, causal, q_offset,
-                      scale, stream);
+    const void* q, const void* k, const void* v, void* o, void* lse, int b,
+    int hq, int hkv, int sq, int sk, int d, int causal, int q_offset,
+    float scale, void* stream) {
+  return tc::dispatch(q, k, v, o, static_cast<float*>(lse), b, hq, hkv, sq,
+                      sk, d, causal, q_offset, scale, stream);
 }
 
 extern "C" const char* repro_flash_error_string(int code) {

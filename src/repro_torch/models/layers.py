@@ -10,8 +10,10 @@ counterpart here.  Parameter init draws from an explicit
 than the reference's `jax.random` keys (`convert.lm_params_from_numpy`
 carries the reference's parameters over).
 
-`flash_attention` runs the Hopper flash kernel on CUDA tensors and the
-plain chunked streaming softmax on CPU tensors.
+`flash_attention` runs the Hopper flash kernel on CUDA tensors and its
+plain version on CPU tensors; where q, k or v needs a gradient it goes
+through the kernels' `torch.autograd.Function`
+(`kernels.flash_attention.attention`) on either device.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from ..kernels.flash_attention.flash_attention import attend
+from ..kernels.flash_attention.flash_attention import attend, attention
+from ..kernels.flash_attention.ref import attention_lse_ref
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -86,48 +89,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Flash attention: the Hopper kernel on the card, chunked softmax on CPU
+# Flash attention: the Hopper kernels on the card, their plain versions on CPU
 # ---------------------------------------------------------------------------
-
-def _flash_attention_plain(q, k, v, *, causal: bool, chunk: int,
-                           q_offset: int) -> torch.Tensor:
-    """Blockwise streaming softmax over K/V chunks (the reference's
-    pure-jnp flash algorithm, chunk by chunk)."""
-    b, hq, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    group = hq // hkv
-    qg = q.reshape(b, hkv, group, sq, d).float()
-    scale = 1.0 / math.sqrt(d)
-    n_chunks = sk // chunk
-    q_pos = q_offset + torch.arange(sq, device=q.device)
-
-    acc = torch.zeros((b, hkv, group, sq, d), dtype=torch.float32,
-                      device=q.device)
-    m = torch.full((b, hkv, group, sq), -torch.inf, dtype=torch.float32,
-                   device=q.device)
-    lse = torch.zeros((b, hkv, group, sq), dtype=torch.float32,
-                      device=q.device)
-    for c in range(n_chunks):
-        kb = k[:, :, c * chunk:(c + 1) * chunk].float()
-        vb = v[:, :, c * chunk:(c + 1) * chunk].float()
-        s = torch.einsum("bhgqd,bhcd->bhgqc", qg, kb) * scale
-        if causal:
-            k_pos = c * chunk + torch.arange(chunk, device=q.device)
-            mask = q_pos[:, None] >= k_pos[None, :]
-            s = torch.where(mask[None, None, None], s, -torch.inf)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        # guard fully-masked rows
-        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
-        p = torch.exp(s - m_safe[..., None])
-        p = torch.where(torch.isfinite(s), p, 0.0)
-        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
-        lse = lse * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum("bhgqc,bhcd->bhgqd",
-                                                    p, vb)
-        m = m_safe
-    out = acc / torch.clamp(lse[..., None], min=1e-20)
-    return out.reshape(b, hq, sq, d).to(q.dtype)
-
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, chunk: int = 1024,
@@ -137,11 +100,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q[0] for causal masking.
 
     On a CUDA tensor this launches the Hopper flash kernel
-    (`kernels.flash_attention.attend`), which tiles by its own 64-key
-    tile; on a CPU tensor it runs the reference's blockwise streaming
-    softmax over `chunk`-key chunks.  Both take the same shapes: the
-    chunk count max(Sk // chunk, 1) must divide Sk, as the reference's
-    reshape requires."""
+    (`kernels.flash_attention.attend`), which tiles by its own tiles;
+    on a CPU tensor it runs the kernel's plain version
+    (`attention_lse_ref`, the materialized softmax in float32).  Both
+    take the reference's shapes: the chunk count max(Sk // chunk, 1) of
+    its blockwise loop must divide Sk, as its reshape requires.
+
+    When autograd is on and q, k or v requires a gradient, the call
+    goes through `kernels.flash_attention.attention` instead: on the
+    card the forward kernel with its log-sum-exp and the backward
+    kernel, on the CPU their plain versions.  `attend` alone returns a
+    tensor with no gradient, so it never serves such a call."""
     hq, hkv, sk = q.shape[1], k.shape[1], k.shape[2]
     if hq % hkv:
         raise ValueError(f"query heads {hq} not a multiple of KV heads "
@@ -150,10 +119,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if sk % n_chunks:
         raise ValueError(f"{n_chunks} chunks do not divide Sk={sk} "
                          f"(chunk={chunk})")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                         causal=causal, q_offset=q_offset)
     if q.device.type == "cpu":
-        return _flash_attention_plain(q, k, v, causal=causal,
-                                      chunk=sk // n_chunks,
-                                      q_offset=q_offset)
+        return attention_lse_ref(q, k, v, causal=causal,
+                                 q_offset=q_offset)[0]
     return attend(q.contiguous(), k.contiguous(), v.contiguous(),
                   causal=causal, q_offset=q_offset)
 

@@ -5,21 +5,27 @@ The reference stacks each slot's parameters over a leading `n_periods`
 axis and scans over it; the port keeps that parameter tree (same names,
 shapes and types, so `convert.lm_params_from_numpy` carries the
 reference's parameters over leaf for leaf) and loops over the periods
-in Python.  Two serving entry points:
+in Python.  Three entry points:
 
+  * `train_loss(batch)` — causal LM loss (differentiable: the
+    parameters require gradients; with `cfg.remat` each period is
+    recomputed in the backward pass, `jax.checkpoint`'s counterpart),
   * `prefill(batch)` — forward + KV cache build,
   * `decode_step(cache, tokens, position)` — one-token serve step.
+The serving entry points run under `torch.no_grad`.
 
 Only attention slots of the dense family are built here.  MoE, SSM and
-cross-attention slots, the audio and vision+text modalities, and
-`train_loss` wait for later slices (ROADMAP queue 1 item 8).
+cross-attention slots, and the audio and vision+text modalities wait
+for later slices (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import DEFAULT_DEVICE, resolve_device
@@ -140,8 +146,9 @@ def _tree_map(fn, tree):
 
 
 class _ParamTree(nn.Module):
-    """A nested dict of tensors held as module parameters (no
-    gradients: the serving path), one submodule per inner dict."""
+    """A nested dict of tensors held as module parameters, one
+    submodule per inner dict.  Floating-point leaves require gradients
+    (training); the serving entry points run under `torch.no_grad`."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -149,8 +156,8 @@ class _ParamTree(nn.Module):
             if isinstance(value, dict):
                 self.add_module(name, _ParamTree(value))
             else:
-                self.register_parameter(
-                    name, nn.Parameter(value, requires_grad=False))
+                self.register_parameter(name, nn.Parameter(
+                    value, requires_grad=value.is_floating_point()))
 
     def tree(self) -> dict:
         out = {name: p for name, p in self._parameters.items()}
@@ -204,19 +211,70 @@ class LM(nn.Module):
         return L.embed(params["embed"], self.cfg, batch["tokens"])
 
     # ---- forward over the stack -------------------------------------------
+    def _period(self, period: dict, j: int, x: torch.Tensor,
+                positions: torch.Tensor, causal: bool,
+                kv_stacks=None) -> torch.Tensor:
+        """Period `j`'s layers; `period` holds each slot's parameters of
+        this period (`_periods`)."""
+        for si in range(len(self.slots)):
+            kv = None
+            if kv_stacks is not None:
+                kv = (kv_stacks[si][0][j], kv_stacks[si][1][j])
+            x = _slot_apply(period[f"slot{si}"], self.cfg, x, positions,
+                            causal, kv)
+        return x
+
+    def _periods(self, params: dict) -> list[dict]:
+        """Per-period parameter trees.  Each stacked leaf is unbound
+        once along its period axis, so the backward pass stacks the
+        periods' gradients once; indexing `t[j]` per period would build
+        a full-size zero gradient for every period and add them up."""
+        unbound = _tree_map(lambda t: t.unbind(0), params["blocks"])
+        return [_tree_map(lambda u: u[j], unbound)
+                for j in range(self.n_periods)]
+
     def _stack(self, params: dict, x: torch.Tensor, positions: torch.Tensor,
-               causal: bool, kv_stacks=None) -> torch.Tensor:
+               causal: bool, kv_stacks=None,
+               remat: bool = False) -> torch.Tensor:
         """All layers, period by period.  `kv_stacks`: per attention
         slot a (k, v) pair of (n_periods, B, Hkv, S, hd) buffers that
-        collect each layer's K and V."""
-        for j in range(self.n_periods):
-            for si in range(len(self.slots)):
-                p = _tree_map(lambda t: t[j], params["blocks"][f"slot{si}"])
-                kv = None
-                if kv_stacks is not None:
-                    kv = (kv_stacks[si][0][j], kv_stacks[si][1][j])
-                x = _slot_apply(p, self.cfg, x, positions, causal, kv)
+        collect each layer's K and V.  `remat`: keep only each period's
+        input for the backward pass and run the period again there."""
+        for j, period in enumerate(self._periods(params)):
+            if remat:
+                x = checkpoint(self._period, period, j, x, positions, causal,
+                               use_reentrant=False)
+            else:
+                x = self._period(period, j, x, positions, causal, kv_stacks)
         return x
+
+    # ---- training loss ----------------------------------------------------
+    def train_loss(self, batch: dict, params: dict | None = None):
+        """Causal LM loss of `batch["tokens"]` (B, S) on the model's
+        device: next-token NLL, plus 0.01 * aux / n_layers (aux is 0 for
+        the dense family: no router).  `params` defaults to the model's
+        own (which require gradients).  Returns (loss, {"nll", "aux"}),
+        differentiable; with `cfg.remat` each period runs again in the
+        backward pass."""
+        cfg = self.cfg
+        if not cfg.causal:
+            raise NotImplementedError(
+                f"{cfg.name}: the encoder loss (batch['labels']) waits "
+                "for a later slice of the port (ROADMAP queue 1 item 8.5)")
+        params = self.params if params is None else params
+        x = self._embed_inputs(params, batch)
+        b, s = x.shape[0], x.shape[1]
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device).expand(b, s)
+        x = self._stack(params, x, positions, cfg.causal, remat=cfg.remat)
+        aux = 0.0
+        x = L.rmsnorm(params["final_norm"], x)
+        logits = L.unembed(params["embed"], cfg, x)[:, :-1]
+        targets = batch["tokens"][:, 1:].long()
+        logp = F.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+        loss = nll.mean() + 0.01 * aux / max(cfg.n_layers, 1)
+        return loss, {"nll": nll.mean(), "aux": aux}
 
     # ---- prefill ------------------------------------------------------------
     @torch.no_grad()

@@ -1,0 +1,55 @@
+"""Tests of the port that need an NVIDIA GPU (marker `cuda`): they skip
+without one.  They import torch and the port only, so they also run on
+a machine without jax:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+
+The CPU guard of the same path is in tests/test_torch_train.py; the
+kernels' full checks on the card are chip_smoke.py's phases."""
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention as T_fa
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_lse_ref)
+from repro_torch.models import layers as T_L
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run on the card")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_never_returns_a_detached_result(dtype):
+    """On the card, q, k, v that need a gradient give an output that
+    records the backward kernel."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((1, 4, 70, 64), generator=gen, device="cuda")
+               .to(dtype).requires_grad_() for _ in range(3))
+    before = T_fa.attend_backward.launches
+    out = T_L.flash_attention(q, k, v, causal=True)
+    assert out.requires_grad
+    out.float().sum().backward()
+    assert T_fa.attend_backward.launches == before + 1
+    assert all(t.grad is not None for t in (q, k, v))
+
+
+@pytest.mark.cuda
+def test_cuda_backward_kernel_matches_the_plain_backward():
+    """float32, GQA, ragged, causal: within 1e-4 of the plain
+    gradient's largest magnitude (chip_smoke's float32 bound)."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, do = (torch.randn((2, 4, 77, 32), generator=gen, device="cuda")
+             for _ in range(2))
+    k, v = (torch.randn((2, 2, 77, 32), generator=gen, device="cuda")
+            for _ in range(2))
+    o, lse = T_fa.attend(q, k, v, causal=True, return_lse=True)
+    got = T_fa.attend_backward(q, k, v, o, do, lse, causal=True)
+    o_ref, lse_ref = attention_lse_ref(q, k, v, causal=True)
+    want = attention_bwd_ref(q, k, v, o_ref, do, lse_ref, causal=True)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max()

@@ -78,9 +78,12 @@ def test_port_imports_with_jax_and_reference_blocked():
     "repro_torch.checkpoint.checkpoint", "repro_torch.runtime.faults",
     "repro_torch.runtime.search_checkpoint", "repro_torch.runtime.chaos",
     "repro_torch.core.fleet", "repro_torch.serve.cosearch_service",
-    "repro_torch.serve.server"])
+    "repro_torch.serve.server", "repro_torch.runtime.fault_tolerance",
+    "repro_torch.launch.train", "repro_torch.train.train_step",
+    "repro_torch.train.optimizer", "repro_torch.data.pipeline",
+    "repro_torch.workloads.lm_extract"])
 def test_serving_slice_modules_are_held_to_the_rules(module):
-    """The serving slice's subpackages are among the modules the
+    """The serving and training slices' modules are among the modules the
     blocked-import run above imports, and none calls a clock itself:
     `time.monotonic` appears only as a reference (a default to inject),
     never called."""
