@@ -7,11 +7,10 @@ NVIDIA GPU.
 Run from the root of a checkout.  It builds the port's CUDA kernels
 (the matmul, the flash attention and its backward, one nvcc each, in
 parallel) from the sources in the checkout and prints the compiler's
-register, spill and shared-memory report.  The matmul and the flash
-forward have two variants each: "wgmma" (tensor cores and TMA, for
-bfloat16) and "simt" (IEEE float32 FMA, for float32 and for bfloat16
-matmul shapes TMA cannot take); the flash backward is SIMT with float32
-accumulation for both types.  It holds each against its plain PyTorch
+register, spill and shared-memory report.  Each kernel has two
+variants: "wgmma" (tensor cores and TMA, for bfloat16) and "simt" (IEEE
+float32 FMA, for float32 and for bfloat16 matmul shapes TMA cannot
+take).  It holds each against its plain PyTorch
 version on the card (the backward: dq, dk, dv of the differentiable
 entry against autograd through the plain forward, and the forward's
 log-sum-exp), checking from the per-variant launch counts which
@@ -36,8 +35,9 @@ prefill at full width.  The training path comes next, counts set to 0:
   2 and a RuntimeError injected at step 3, then the same 6 steps
   uninterrupted: one restart, finite losses, the steps after the
   rollback equal to the uninterrupted run's, and 56 forward and 28
-  backward flash launches a step; a profiled step; the reduced LM's
-  training on the card against the CPU.
+  backward flash launches a step, every bf16 backward on its wgmma
+  kernel; a profiled step; the reduced LM's training on the card
+  against the CPU.
 
 Then GD steps are profiled and a small search compared card to CPU.
 The paper's Sec. 6 experiments come next, with the counts again set to
@@ -79,7 +79,8 @@ Then the co-search service, counts again set to 0:
 
 Last, it times the three kernels (the wgmma variants of the main path,
 the float32 flash on its simt kernel, and the backward at the flash
-shape) beside their bounds, plain versions and library calls.
+shape and at the training shape) beside their bounds, plain versions
+and library calls.
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The second-to-last lines are the kernel summary and the card's name and
 power limit (from nvidia-smi); the last line is
@@ -136,15 +137,17 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # The flash backward against autograd through the plain version: (b, hq,
 # hkv, sq, sk, d, causal, q_offset).  Every head dim, query groups of 1
 # and 2, causal and full, sequences that are no multiple of the 64-row
-# tiles, a causal query block after a prefix, and the training shape of
-# Qwen3-0.6B's attention at batch 2.  Tolerance: the largest error of
-# each gradient within this share of the plain gradient's largest
-# magnitude.
+# tiles, a causal query block after a prefix, the training shape of
+# Qwen3-0.6B's attention at batch 2, and the forward's long ragged case
+# (Sk = 4133 no multiple of a 64- or 128-key tile, after a prefix).
+# Tolerance: the largest error of each gradient within this share of
+# the plain gradient's largest magnitude.
 FLASH_BWD_CASES = [
     (1, 2, 2, 77, 77, 32, True, 0), (1, 4, 2, 200, 200, 64, False, 0),
     (2, 4, 2, 300, 300, 128, True, 0), (1, 2, 1, 130, 130, 128, False, 0),
     (1, 4, 4, 100, 300, 64, True, 200), (1, 2, 1, 333, 333, 32, False, 0),
     (2, 16, 8, 512, 512, 128, True, 0),
+    (1, 16, 8, 130, 4133, 128, True, 4003),
 ]
 FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # The forward's log-sum-exp against the plain one (either type: the
@@ -1053,8 +1056,9 @@ def phase_flash_bwd_vs_plain(torch, fa_mod, attention_ref,
     """Every FLASH_BWD_CASES shape, f32 and bf16: dq, dk and dv of the
     differentiable entry (`attention`: the forward kernel with its LSE,
     then the backward kernel) against autograd through the plain
-    version on the same inputs and output gradient; the forward's LSE
-    against the plain one."""
+    version on the same inputs and output gradient, each case on its
+    asserted variant (bf16 wgmma, f32 simt); the forward's LSE against
+    the plain one."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst, worst_lse = {}, {}
     for case in FLASH_BWD_CASES:
@@ -1071,12 +1075,15 @@ def phase_flash_bwd_vs_plain(torch, fa_mod, attention_ref,
             do = randn(b, hq, sq, d)
             before = fa_mod.attend_backward.launches
             fwd_before = dict(fa_mod.flash_attention.launches_by_variant)
+            bwd_before = dict(fa_mod.attend_backward.launches_by_variant)
             leaves = [t.clone().requires_grad_() for t in (q, k, v)]
             fa_mod.attention(*leaves, causal=causal,
                              q_offset=off).backward(do)
             torch.cuda.synchronize()
             ran_on(fa_mod.flash_attention.launches_by_variant, fwd_before,
                    fa_mod.variant(dt), f"flash bwd forward {case} {dt}")
+            ran_on(fa_mod.attend_backward.launches_by_variant, bwd_before,
+                   fa_mod.variant(dt), f"flash bwd {case} {dt}")
             check(fa_mod.attend_backward.launches == before + 1,
                   f"flash bwd {case} {dt}: backward launches "
                   f"{fa_mod.attend_backward.launches - before}")
@@ -1101,20 +1108,22 @@ def phase_flash_bwd_vs_plain(torch, fa_mod, attention_ref,
             worst_lse[key] = max(worst_lse.get(key, 0.0), err)
     emit({"phase": "flash_bwd_vs_plain",
           "cases_b_hq_hkv_sq_sk_d_causal_qoffset": FLASH_BWD_CASES,
+          "variants": {"float32": "simt", "bfloat16": "wgmma"},
           "max_err_share_of_max_abs_grad": worst,
           "tolerance_share": FLASH_BWD_TOL, "lse_max_abs_err": worst_lse,
           "lse_tolerance": FLASH_LSE_TOL})
 
 
-def phase_flash_bwd_timing(torch, fa_mod, attention_bwd_ref, launches):
-    """The backward kernel at PERF.md's flash shape (q (4, 16, 4096,
-    128), k, v (4, 8, 4096, 128), bf16, causal) beside its bound, the
-    plain backward and SDPA's backward (autograd of
-    `scaled_dot_product_attention` with `enable_gqa`, backward only)."""
+def _flash_bwd_time(torch, fa_mod, attention_bwd_ref, shape, seed):
+    """The backward kernel at one shape (b, hq, hkv, s, d), bf16,
+    causal: held against the plain backward, timed beside it and beside
+    SDPA's backward (autograd of `scaled_dot_product_attention` with
+    `enable_gqa`, backward only); its bound.  Returns the numbers and
+    the variant the kernel ran on."""
     import torch.nn.functional as F
 
-    b, hq, hkv, s, d = PREFILL_B, 16, 8, PREFILL_S, 128
-    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, hq, hkv, s, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen,
@@ -1124,26 +1133,29 @@ def phase_flash_bwd_timing(torch, fa_mod, attention_bwd_ref, launches):
         randn(b, hkv, s, d), randn(b, hq, s, d)
     o, lse = fa_mod.attend(q, k, v, causal=True, return_lse=True)
     args = (q, k, v, o, do, lse)
-    before = fa_mod.attend_backward.launches
+    before = dict(fa_mod.attend_backward.launches_by_variant)
     got = fa_mod.attend_backward(*args, causal=True)
-    check(fa_mod.attend_backward.launches == before + 1,
-          "flash bwd timing: no backward launch")
+    ran = [var for var, n in fa_mod.attend_backward.launches_by_variant
+           .items() if n != before[var]]
+    check(len(ran) == 1, f"flash bwd timing {shape}: launches {ran}")
     want = attention_bwd_ref(*args, causal=True)
     errs = [(g.float() - w.float()).abs().max().item()
             for g, w in zip(got, want)]
     shares = [e / w.float().abs().max().item() for e, w in zip(errs, want)]
     check(max(shares) <= FLASH_BWD_TOL["bfloat16"],
-          f"flash bwd timing shape: errors {errs}, shares {shares}")
+          f"flash bwd timing shape {shape}: errors {errs}, shares {shares}")
     del got, want
+    small = s <= 1024    # short calls: 10 back-to-back per timed run
     ms = cuda_ms(lambda: fa_mod.attend_backward(*args, causal=True),
-                 warmup=2, iters=10)
+                 warmup=3, iters=20 if small else 10, reps=10 if small else 1)
     plain_ms = cuda_ms(lambda: attention_bwd_ref(*args, causal=True),
-                       warmup=1, iters=3)
+                       warmup=1, iters=10 if small else 3)
     ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
     out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
                                          enable_gqa=True)
     library_ms = cuda_ms(lambda: torch.autograd.grad(
-        out, (ql, kl, vl), do, retain_graph=True), iters=10)
+        out, (ql, kl, vl), do, retain_graph=True), iters=10,
+        reps=10 if small else 1)
     del out, ql, kl, vl
     pairs = b * hq * s * (s + 1) // 2
     flops = 2.5 * 4.0 * d * pairs
@@ -1151,24 +1163,45 @@ def phase_flash_bwd_timing(torch, fa_mod, attention_bwd_ref, launches):
         + 2 * lse.numel() * 4
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    row = {"name": "flash_attention_bwd", "variant": "simt",
+    return ran[0], {
+        "shape_b_hq_hkv_s_d": list(shape), "ms": ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "flops": flops, "bytes": nbytes,
+        "tflops": flops / (ms * 1e-3) / 1e12,
+        "tc_share": flops / (ms * 1e-3) / PEAK_BF16_FLOPS,
+        "max_abs_err": max(errs), "max_err_share": max(shares)}
+
+
+def phase_flash_bwd_timing(torch, fa_mod, attention_bwd_ref, launches):
+    """The backward kernel at PERF.md's flash shape (q (4, 16, 4096,
+    128), k, v (4, 8, 4096, 128)) and at the training shape of
+    Qwen3-0.6B (q (8, 16, 512, 128)), bf16, causal, each beside its
+    bound, the plain backward and SDPA's backward.  The kernel row is
+    the flash shape's, with the training shape's numbers beside it."""
+    var, flash = _flash_bwd_time(torch, fa_mod, attention_bwd_ref,
+                                 (PREFILL_B, 16, 8, PREFILL_S, 128), 5)
+    train_var, train = _flash_bwd_time(torch, fa_mod, attention_bwd_ref,
+                                       (8, 16, 8, 512, 128), 6)
+    check(var == train_var == fa_mod.variant(torch.bfloat16),
+          f"flash bwd timing ran on {var}, {train_var}")
+    row = {"name": "flash_attention_bwd", "variant": var,
            "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
            "replaces": "src/repro/models/layers.py:74",
            "replaces_note": "no Pallas backward: the reference "
                             "differentiates this jnp flash loop",
-           "launches": launches, "max_abs_err": max(errs), "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "library_ms": library_ms, "held_against_plain": True}
-    emit({"phase": "flash_bwd_timing",
-          "shape_b_hq_hkv_s_d": [b, hq, hkv, s, d], "dtype": "bfloat16",
-          "causal": True, "flops": flops, "bytes": nbytes,
-          "tflops": flops / (ms * 1e-3) / 1e12,
-          "tc_share": flops / (ms * 1e-3) / PEAK_BF16_FLOPS,
-          "max_err_share": max(shares),
+           "launches": launches, "max_abs_err": flash["max_abs_err"],
+           "ms": flash["ms"], "plain_ms": flash["plain_ms"],
+           "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+           "library_ms": flash["library_ms"], "held_against_plain": True,
+           "at_train_shape": {key: train[key] for key in (
+               "shape_b_hq_hkv_s_d", "ms", "plain_ms", "library_ms",
+               "bound_ms", "bound_by", "max_abs_err")}}
+    emit({"phase": "flash_bwd_timing", "dtype": "bfloat16", "causal": True,
           "library": "scaled_dot_product_attention(enable_gqa=True) "
-                     "backward", **row})
+                     "backward", "flash_shape": flash, "train_shape": train,
+          **row})
     return row
 
 
@@ -1406,7 +1439,8 @@ def phase_lm_train(torch, train_mod, fa_mod, configs):
     steps uninterrupted, timed.  Gates: finite losses, one restart,
     the steps after the rollback equal to the uninterrupted run's, and
     every step launching 2 forward flash kernels a layer (remat runs
-    each period again in the backward pass) and 1 backward kernel."""
+    each period again in the backward pass) and 1 backward kernel, every
+    backward on the wgmma variant (bf16 compute)."""
     import shutil
 
     cfg = configs.get_config("qwen3_0_6b")
@@ -1417,6 +1451,7 @@ def phase_lm_train(torch, train_mod, fa_mod, configs):
         "--ckpt-every", str(TRAIN_CKPT_EVERY), "--ckpt-dir",
         str(ckpt / "faulty")])
     defaults = train_mod.parse_args([])
+    bwd_before = dict(fa_mod.attend_backward.launches_by_variant)
     hook, marks, fired = _train_hook(torch, fa_mod, TRAIN_FAULT_STEP)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1463,6 +1498,13 @@ def phase_lm_train(torch, train_mod, fa_mod, configs):
                   for _, _, f, b in ran),
           f"flash launches per step (step, s, forward, backward): "
           f"{attempts + clean_attempts}")
+    bwd_by_variant = {var: n - bwd_before[var] for var, n in
+                      fa_mod.attend_backward.launches_by_variant.items()}
+    expected = fa_mod.variant(torch.bfloat16)
+    check(bwd_by_variant == {var: sum(a[3] for a in ran) * (var == expected)
+                             for var in bwd_by_variant},
+          f"training's backward launches by variant {bwd_by_variant}, "
+          f"expected all on {expected}")
     # Steps 1-4: step 0 includes first-call set-up, step 5 the save.
     step_s = statistics.median(a[1] for a in clean_attempts[1:-1])
     tokens = defaults.batch * defaults.seq
@@ -1491,6 +1533,7 @@ def phase_lm_train(torch, train_mod, fa_mod, configs):
           "uninterrupted_step_s_fwd_bwd": clean_attempts,
           "flash_fwd_launches_per_step": 2 * cfg.n_layers,
           "flash_bwd_launches_per_step": cfg.n_layers,
+          "flash_bwd_launches_by_variant": bwd_by_variant,
           "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
           "step_flops": flops, "step_flops_matmul_6nt":
               6.0 * mm_params * tokens,
@@ -1507,7 +1550,8 @@ def phase_profile_train_step(torch, model, train_step_mod, optimizer,
     step of `launch.train`'s configuration (a fresh AdamW state on the
     trained model) under torch.profiler; device time in the flash
     forward and backward kernels, in cuBLAS matrix products and in the
-    rest, and the `top` kernels by device time."""
+    rest (the flash backward also by its kernels: Delta, dK/dV, dQ), and
+    the `top` kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
     tcfg = train_step_mod.TrainConfig(
@@ -1535,8 +1579,9 @@ def phase_profile_train_step(torch, model, train_step_mod, optimizer,
                 + e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
     fwd = sum(t for n, t in by_name.items() if "flash_fwd" in n)
-    bwd = sum(t for n, t in by_name.items()
-              if any(w in n for w in ("bwd_dkdv", "bwd_dq", "bwd_delta")))
+    bwd_parts = {part: sum(t for n, t in by_name.items() if part in n)
+                 for part in ("bwd_delta", "bwd_dkdv", "bwd_dq")}
+    bwd = sum(bwd_parts.values())
     gemm = sum(t for n, t in by_name.items()
                if any(w in n for w in ("gemm", "nvjet", "xmma", "cutlass")))
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
@@ -1545,7 +1590,8 @@ def phase_profile_train_step(torch, model, train_step_mod, optimizer,
           "wall_ms_profiled": wall_ms, "device_ops": n_ops,
           "device_busy_ms": busy if n_ops else "not measured",
           "device_idle_share": 1.0 - busy / wall_ms if n_ops else None,
-          "flash_fwd_ms": fwd, "flash_bwd_ms": bwd, "cublas_gemm_ms": gemm,
+          "flash_fwd_ms": fwd, "flash_bwd_ms": bwd,
+          "flash_bwd_ms_by_kernel": bwd_parts, "cublas_gemm_ms": gemm,
           "other_ms": busy - fwd - bwd - gemm,
           "top_kernels_ms": {n[:100]: t for n, t in ranked}})
 
@@ -1690,7 +1736,8 @@ def build_all(build, names):
     """Build every kernel library at once, one nvcc each; print each
     kernel's registers, spills and static shared memory (the wgmma
     kernels' shared memory is dynamic: 197,696 B for the matmul,
-    164,904 B for flash at D 128) and the full compiler report."""
+    164,904 B for flash at D 128, 133,160 B for each backward kernel at
+    D 128) and the full compiler report."""
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = now()
@@ -1803,17 +1850,22 @@ def main() -> int:
     flash_attention.launches = 0
     flash_attention.launches_by_variant.update(wgmma=0, simt=0)
     fa_mod.attend_backward.launches = 0
+    fa_mod.attend_backward.launches_by_variant.update(wgmma=0, simt=0)
     bwd_launches, model = phase_lm_train(torch, train_mod, fa_mod, configs)
     check(bwd_launches > 0 and fa_mod.attend_backward.launches
           == bwd_launches, "training never launched the backward kernel")
     check(flash_attention.launches_by_variant["wgmma"] > 0,
           "training never launched the wgmma forward kernel")
+    check(fa_mod.attend_backward.launches_by_variant["wgmma"]
+          == bwd_launches, "training's backward did not run on wgmma")
     emit({"phase": "main_path_launches", "path": "lm_train",
           "matmul": matmul.launches,
           "flash_attention": flash_attention.launches,
           "flash_attention_by_variant":
               dict(flash_attention.launches_by_variant),
-          "flash_attention_bwd": fa_mod.attend_backward.launches})
+          "flash_attention_bwd": fa_mod.attend_backward.launches,
+          "flash_attention_bwd_by_variant":
+              dict(fa_mod.attend_backward.launches_by_variant)})
     phase_profile_train_step(torch, model, train_step_mod, optimizer,
                              pipeline)
     del model

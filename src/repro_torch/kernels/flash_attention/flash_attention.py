@@ -24,10 +24,13 @@ supports head dims 32, 64 and 128.
 
 `attend(..., return_lse=True)` also returns each query row's
 log-sum-exp (float32, (B, Hq, Sq)), which `attend_backward` takes to
-compute dq, dk and dv without the (Sq, Sk) probabilities (SIMT, float32
-accumulation, for float32 and bfloat16).  `attention` is the
-differentiable entry: `FlashAttention.apply`, whose forward is `attend`
-with the LSE and whose backward is `attend_backward`.
+compute dq, dk and dv without the (Sq, Sk) probabilities, on the
+variant `variant(dtype)` names: every bfloat16 call on "wgmma" (tensor
+cores and TMA, P and dS rounded to bfloat16 before the products that
+take them, float32 accumulation), every float32 call on "simt" (IEEE
+float32 FMA).  `attention` is the differentiable entry:
+`FlashAttention.apply`, whose forward is `attend` with the LSE and
+whose backward is `attend_backward`.
 
 A CPU tensor goes through the plain versions (`ref.attention_ref`,
 `ref.attention_lse_ref`, `ref.attention_bwd_ref`); a CUDA tensor always
@@ -35,8 +38,9 @@ launches its variant's kernel or raises.  `flash_attention.launches`
 counts the forward kernel's launches, and
 `flash_attention.launches_by_variant` counts them per variant;
 `attend_backward.launches` counts the backward kernel's (one a call, of
-its three passes); `attention.calls` counts calls of the differentiable
-entry on either device.
+its three passes), and `attend_backward.launches_by_variant` per
+variant; `attention.calls` counts calls of the differentiable entry on
+either device.
 """
 from __future__ import annotations
 
@@ -138,6 +142,16 @@ def _check_kernel_operands(q: torch.Tensor, k: torch.Tensor,
         raise ValueError("the flash kernel takes contiguous q, k, v")
 
 
+def _check_aligned(var: str, **tensors: torch.Tensor) -> None:
+    """The wgmma kernels load through TMA, which takes 16-byte aligned
+    tensors."""
+    if var == "wgmma":
+        off = [name for name, t in tensors.items() if t.data_ptr() % 16]
+        if off:
+            raise ValueError(f"the wgmma flash kernels take 16-byte "
+                             f"aligned {', '.join(tensors)}; not {off}")
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool, q_offset: int = 0, return_lse: bool = False):
     """Launch the kernel: q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D),
@@ -151,9 +165,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     var = variant(q.dtype)
-    if var == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("the wgmma flash kernel takes 16-byte aligned "
-                         "q, k, v")
+    _check_aligned(var, q=q, k=k, v=v)
     lib = _library()
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) \
@@ -180,8 +192,9 @@ def attend_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the backward kernel: the gradients (dq, dk, dv) of
     `attend`'s output `o` for the output gradient `do` (both shaped and
     typed like q), from the forward's `lse` ((B, Hq, Sq) float32).  All
-    contiguous CUDA tensors.  dk and dv are summed over each KV head's
-    query group; each gradient comes back in its input's type."""
+    contiguous CUDA tensors, and 16-byte aligned for the wgmma variant.
+    dk and dv are summed over each KV head's query group; each gradient
+    comes back in its input's type."""
     _check_kernel_operands(q, k, v, q_offset)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -196,6 +209,8 @@ def attend_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"lse must be contiguous float32 {(b, hq, sq)} "
                          f"on {q.device}, got {lse.dtype} "
                          f"{tuple(lse.shape)}")
+    var = variant(q.dtype)
+    _check_aligned(var, q=q, k=k, v=v, o=o, do=do)
     lib = _bwd_library()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
@@ -208,13 +223,15 @@ def attend_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(causal), q_offset, 1.0 / math.sqrt(d), stream)
     if rc != 0:
         msg = lib.repro_flash_bwd_error_string(rc).decode()
-        raise RuntimeError(f"flash attention backward kernel launch "
-                           f"failed: {msg} ({rc})")
+        raise RuntimeError(f"flash attention backward {var} kernel "
+                           f"launch failed: {msg} ({rc})")
     attend_backward.launches += 1
+    attend_backward.launches_by_variant[var] += 1
     return dq, dk, dv
 
 
 attend_backward.launches = 0
+attend_backward.launches_by_variant = dict.fromkeys(_ENTRY, 0)
 
 
 class FlashAttention(torch.autograd.Function):

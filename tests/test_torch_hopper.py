@@ -12,6 +12,12 @@ against their plain versions there).  What the CPU can check:
   128-key tiles, P rounded to bf16 before P @ V, float32 accumulation,
   the output rounded to bf16) against the reference's Pallas kernel in
   interpret mode, within the bf16 tolerance chip_smoke enforces (2e-2);
+- the numerics contract of the bf16 flash backward: an emulation of
+  its arithmetic (float32 dots of bf16 inputs, P and dS rounded to bf16
+  before the dV, dK and dQ products, float32 accumulation over the
+  kernel's 64-row tiles, gradients rounded to bf16) against `jax.grad`
+  of the reference's jnp flash loop, within the same 2e-2 of the
+  largest gradient; and which backward kernel each type reaches;
 - that the build hashes the shared header, so a changed `hopper.cuh`
   rebuilds every library that includes it.
 
@@ -21,14 +27,17 @@ import math
 import re
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels.flash_attention import ops as R_ops
+from repro.models import layers as R_L
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_attention as T_flash
+from repro_torch.kernels.flash_attention.ref import attention_lse_ref
 from repro_torch.kernels.matmul import matmul as T_matmul
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -144,6 +153,121 @@ def test_bf16_flash_numerics_within_reference_tolerance(d):
     # Rounding P is a real departure from float32 P, not a no-op.
     exact_p = tc_flash_emulation(tq, tk, tv, causal=True, round_p=False)
     assert not torch.equal(got, exact_p)
+
+
+def tc_flash_bwd_emulation(q, k, v, o, do, lse, *, causal, q_offset=0,
+                           tile=64, round_p=True, round_ds=True):
+    """The bf16 wgmma backward's arithmetic in plain PyTorch: q, o, do
+    (B, Hq, S, D), k, v (B, Hkv, Sk, D) in bf16, lse (B, Hq, S) float32
+    in natural units.  Scores and dP are float32 dots of the bf16
+    inputs; P = exp2(S * scale * log2 e - LSE * log2 e), masked keys
+    exactly 0; dS = P (dP - Delta) with Delta = rowsum(dO * O) in
+    float32.  P (unless `round_p` is False) and dS (unless `round_ds` is
+    False) are rounded to bf16 before the products that take them;
+    dV and dK accumulate in float32 over the query group's heads and
+    their `tile`-query tiles in the kernel's order, dQ over `tile`-key
+    tiles; the gradients are rounded to bf16 (dQ and dK after the
+    scale)."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    log2e = math.log2(math.e)
+    qf, dof = q.float(), do.float()
+    kf = k.repeat_interleave(group, 1).float()
+    vf = v.repeat_interleave(group, 1).float()
+    delta = (dof * o.float()).sum(-1)
+    s = qf @ kf.transpose(-1, -2)
+    p = torch.exp2(s * (scale * log2e) - (lse * log2e)[..., None])
+    if causal:
+        rows = torch.arange(sq)[:, None] + q_offset
+        p = torch.where(torch.arange(sk)[None, :] <= rows, p, 0.0)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
+    if round_p:
+        p = p.bfloat16().float()
+    if round_ds:
+        ds = ds.bfloat16().float()
+    dk = torch.zeros((b, hkv, sk, d))
+    dv = torch.zeros((b, hkv, sk, d))
+    for g in range(group):
+        heads = slice(g, hq, group)   # query head h * group + g of KV head h
+        for q0 in range(0, sq, tile):
+            rows = slice(q0, q0 + tile)
+            dv += p[:, heads, rows].transpose(-1, -2) @ dof[:, heads, rows]
+            dk += ds[:, heads, rows].transpose(-1, -2) @ qf[:, heads, rows]
+    dq = torch.zeros((b, hq, sq, d))
+    for k0 in range(0, sk, tile):
+        keys = slice(k0, k0 + tile)
+        dq += ds[..., keys] @ kf[:, :, keys]
+    return ((dq * scale).bfloat16(), (dk * scale).bfloat16(),
+            dv.bfloat16())
+
+
+def _reference_flash_grads(q, k, v, do, *, causal, chunk):
+    """`jax.grad` of the reference's jnp flash loop
+    (`repro.models.layers.flash_attention`) in float32."""
+    def loss(q, k, v):
+        out = R_L.flash_attention(q, k, v, causal=causal, chunk=chunk)
+        return jnp.sum(out * do)
+
+    return [np.asarray(g) for g in jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))]
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_bf16_flash_backward_numerics_within_reference_tolerance(d):
+    """Rounding P and dS to bf16 before the products keeps the wgmma
+    backward within the bf16 tolerance of `jax.grad` of the reference's
+    jnp flash loop: GQA 4 over 2, causal, S 256 (four 64-row tiles).
+    The reference runs in float32 on the bf16-rounded inputs."""
+    b, hq, hkv, s = 1, 4, 2, 256
+    rng = np.random.default_rng(100 + d)
+    arrs = [rng.standard_normal(shape).astype(np.float32)
+            for shape in [(b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d),
+                          (b, hq, s, d)]]
+    tq, tk, tv, tdo = (torch.from_numpy(a).bfloat16() for a in arrs)
+    o = tc_flash_emulation(tq, tk, tv, causal=True)
+    _, lse = attention_lse_ref(tq.float(), tk.float(), tv.float(),
+                               causal=True)
+    got = tc_flash_bwd_emulation(tq, tk, tv, o, tdo, lse, causal=True)
+    # The gradient of sum(out * do) at the bf16 kernel's own output o:
+    # Delta uses o, as the kernel does; the reference's output differs
+    # from o by the forward's rounding only.
+    refs = _reference_flash_grads(*(t.float().numpy()
+                                    for t in (tq, tk, tv, tdo)),
+                                  causal=True, chunk=64)
+    for name, g, r in zip(("dq", "dk", "dv"), got, refs):
+        share = float(np.abs(g.float().numpy() - r).max()
+                      / np.abs(r).max())
+        print(f"bf16 wgmma backward emulation, d={d}, {name}: max |err| "
+              f"{share:.3g} of max |grad| (tolerance {BF16_TOL})")
+        assert share <= BF16_TOL
+    # Rounding dS, and P, is a real departure, not a no-op.
+    exact_ds = tc_flash_bwd_emulation(tq, tk, tv, o, tdo, lse,
+                                      causal=True, round_ds=False)
+    exact_p = tc_flash_bwd_emulation(tq, tk, tv, o, tdo, lse, causal=True,
+                                     round_p=False)
+    assert not torch.equal(got[0], exact_ds[0])
+    assert not torch.equal(got[1], exact_ds[1])
+    assert not torch.equal(got[2], exact_p[2])
+
+
+def test_flash_backward_variant_by_type():
+    """The backward counts launches per variant, and each type's C
+    entry reaches its variant's kernels: bf16 the tensor-core
+    `tc::dispatch`, float32 the SIMT `dispatch`."""
+    assert set(T_flash.attend_backward.launches_by_variant) == \
+        {"wgmma", "simt"}
+    text = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    for dtype, var in ((torch.bfloat16, "wgmma"), (torch.float32, "simt")):
+        assert T_flash.variant(dtype) == var
+        entry = T_flash._BWD_ENTRY[dtype]
+        body = text.split(f'extern "C" int {entry}(')[1].split("}")[0]
+        assert ("tc::dispatch(" in body) == (var == "wgmma")
+        assert "dispatch(" in body
+    cases = CHIP_SMOKE.FLASH_BWD_CASES
+    assert (1, 16, 8, 130, 4133, 128, True, 4003) in cases
+    assert {c[5] for c in cases} == set(T_flash.HEAD_DIMS)
 
 
 def test_library_path_hashes_shared_headers(tmp_path, monkeypatch):
