@@ -36,8 +36,31 @@ prefill at full width.  The training path comes next, counts set to 0:
   uninterrupted: one restart, finite losses, the steps after the
   rollback equal to the uninterrupted run's, and 56 forward and 28
   backward flash launches a step, every bf16 backward on its wgmma
-  kernel; a profiled step; the reduced LM's training on the card
-  against the CPU.
+  kernel; `lm_serve_ckpt`: the serve CLI's `run` with `--ckpt-dir` on
+  the uninterrupted run's checkpoint, whose tokens must equal serving
+  the trained model directly; a profiled step; the reduced LM's
+  training on the card against the CPU.
+
+The other families' serving paths come next, counts set to 0 before
+each, each at its config's full width (one period where the whole
+model does not fit the card), prefill of 4 x 4096 and the serve loop
+of 4 requests (prompt 128, 32 generated) through `serve_step`, with
+every attention call's shape gated:
+
+- `lm_prefill_jamba_period` / `lm_serve_jamba_period`: Jamba-v0.1, 8
+  of its 32 layers (1 attention, 7 SSD, 4 MoE of 16 experts top-2, 4
+  dense FFN); one causal flash launch a prefill;
+- `lm_prefill_mamba2_1_3b` / `lm_serve_mamba2_1_3b`: Mamba-2 1.3B,
+  whole; no flash launch; prefill's last logits against stepping
+  `decode_step` through a 512-token prompt;
+- `lm_prefill_llama_vision_period` / `lm_serve_llama_vision_period`:
+  Llama-3.2-Vision-90B, 5 of its 100 layers, 4096 image embeddings a
+  row; 5 causal and 1 cross launch a prefill, one cross launch with
+  Sq = 1 a decode step;
+- `lm_encode_hubert_xlarge`: HuBERT-XLarge, whole, on 4 x 4096 frames;
+  48 full-attention launches at head dim 80;
+- `lm_families_card_vs_cpu`: the six families' reduced configs in
+  float32, prefill and 3 decode steps on the card against the CPU.
 
 Then GD steps are profiled and a small search compared card to CPU.
 The paper's Sec. 6 experiments come next, with the counts again set to
@@ -78,7 +101,8 @@ Then the co-search service, counts again set to 0:
   own; the reference's metric families and span names.
 
 Last, it times the three kernels (the wgmma variants of the main path,
-the float32 flash on its simt kernel, and the backward at the flash
+the float32 flash on its simt kernel, the flash forward also at
+HuBERT's head dim 80 and Gemma's 256, and the backward at the flash
 shape and at the training shape) beside their bounds, plain versions
 and library calls.
 Each phase prints one JSON line; any failure raises and exits non-zero.
@@ -121,7 +145,12 @@ FFN_M, FFN_K, FFN_N = 4096, 1024, 3072
 # Qwen3-0.6B's heads (16 over 8, d 128), a ragged S=1000, 100 queries
 # after a 900-token prefix, the reduced config's d 32, GQA at d 64 with
 # a ragged causal S=300, and 130 queries after a 4003-token prefix
-# (Sk = 4133 not a multiple of the 128-key tile).
+# (Sk = 4133 not a multiple of the 128-key tile).  Then the other head
+# dims of the model configs: HuBERT-XLarge's 80 (its 16 heads, full
+# attention), Kimi K2's 112 (GQA 8 over 1, after a prefix), Nemotron-4's
+# 192 and Gemma-7B's 256 (64-key tiles on wgmma), ragged and causal or
+# full; and the cross-attention shapes of Llama-3.2-Vision: 128 text
+# queries over 4096 image keys, and one decode query over them.
 FLASH_CASES = [
     (1, 3, 3, 128, 128, 64, True, 0), (1, 3, 3, 128, 128, 64, False, 0),
     (1, 3, 3, 256, 128, 64, False, 0), (1, 3, 3, 128, 256, 64, False, 0),
@@ -132,8 +161,28 @@ FLASH_CASES = [
     (2, 4, 2, 77, 333, 32, True, 256),
     (1, 4, 2, 300, 300, 64, True, 0),
     (1, 16, 8, 130, 4133, 128, True, 4003),
+    (2, 16, 16, 512, 512, 80, False, 0), (1, 4, 2, 300, 300, 80, True, 0),
+    (1, 8, 1, 200, 333, 112, True, 133), (1, 4, 4, 257, 257, 112, False, 0),
+    (1, 4, 2, 300, 300, 192, True, 0), (1, 4, 4, 200, 333, 192, False, 0),
+    (1, 4, 4, 300, 300, 256, True, 0), (2, 4, 2, 100, 1000, 256, True, 900),
+    (1, 4, 4, 1, 700, 256, False, 0),
+    (2, 8, 2, 128, 4096, 128, False, 0), (4, 8, 2, 1, 4096, 128, False, 0),
 ]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# A bf16 case's absolute bound shrinks with its plain output: 2e-2 times
+# the output's largest magnitude where that is below 1.  Full attention
+# over thousands of random keys averages them down to outputs of about
+# 0.03 (largest about 0.13), where a flat 2e-2 would pass a kernel that
+# skips a whole key tile; the kernel's error there is one bf16 step of
+# the output, 2**-10.  Every full-attention case with two or more key
+# tiles is also held to the other side: the plain output without keys
+# MISSING_TILE (one 128-key tile) must fail the bound.
+MISSING_TILE = (128, 256)
+# The flash kernel timed beyond the Qwen3 prefill shape: HuBERT-XLarge's
+# encoder (16 heads of 80, full attention) and Gemma-7B's prefill (16
+# heads of 256, causal), 4 x 4096 tokens each; (shape, causal, seed).
+FLASH_TIMING_SHAPES = [((4, 16, 16, 4096, 80), False, 7),
+                       ((4, 16, 16, 4096, 256), True, 8)]
 # The flash backward against autograd through the plain version: (b, hq,
 # hkv, sq, sk, d, causal, q_offset).  Every head dim, query groups of 1
 # and 2, causal and full, sequences that are no multiple of the 64-row
@@ -154,8 +203,10 @@ FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # scores are float32 sums of exact products).
 FLASH_LSE_TOL = 1e-4
 
-# Qwen3-0.6B prefill: 4 prompts x 4096 tokens.
+# Qwen3-0.6B prefill: 4 prompts x 4096 tokens; one cold call, then
+# PREFILL_WARM warm ones.
 PREFILL_B, PREFILL_S = 4, 4096
+PREFILL_WARM = 5
 # Qwen3-0.6B training through `launch.train` at its defaults (batch 8 x
 # seq 512, bf16 compute, f32 params, AdamW, remat, seed 0): 6 steps,
 # a checkpoint every 2, one injected RuntimeError at step 3; then the
@@ -170,6 +221,35 @@ TRAIN_CARD_CPU = dict(loss_rtol=1e-5, param_tol=1e-4)
 # Teacher-forced decode against prefill at full width, float32 compute:
 # logits and K/V stacks within this (rtol and atol).
 DECODE_TOL_F32 = 1e-3
+
+# The other families' serving paths (ROADMAP queue 1 item 8), each at
+# its config's full width: prefill of FAMILY_B prompts x FAMILY_S tokens
+# (HuBERT: frames), then the serve loop of FAMILY_B requests, prompt
+# FAMILY_PROMPT, FAMILY_GEN tokens generated.  Jamba-v0.1 (52B) and
+# Llama-3.2-Vision-90B do not fit one card: each runs one period of its
+# layer pattern at full width (FAMILY_DEPTH layers).
+FAMILIES = ("jamba_v0_1_52b", "mamba2_1_3b", "llama_3_2_vision_90b",
+            "hubert_xlarge", "phi3_5_moe_42b", "kimi_k2_1t")
+FAMILY_B, FAMILY_S = 4, 4096
+FAMILY_PROMPT, FAMILY_GEN = 128, 32
+FAMILY_DEPTH = {"jamba_v0_1_52b": 8, "llama_3_2_vision_90b": 5}
+# Mamba-2: prefill's last logits against stepping `decode_step` through
+# the same MAMBA_STEP_PROMPT tokens (the chunked SSD against the exact
+# recurrence), in float32 compute within DECODE_TOL_F32, and in bfloat16
+# compute within MAMBA_BF16_GAP.  The two bf16 orders round apart at
+# every layer, in the reference as in the port:
+# `tests/torch_drift_mamba2.py` reads both packages on the same
+# parameters and tokens (CPU, 2 x 512 tokens; 48 layers at width 512,
+# 12 parameter seeds; 8 layers at the full width 2048, 2 seeds).  The
+# reference's gap ranges 0.035-0.340, the port's is 0.50-1.64x the
+# reference's on the same parameters.  The bound is twice the
+# reference's largest gap, MAMBA_REF_GAP.
+MAMBA_STEP_PROMPT = 512
+MAMBA_REF_GAP = 0.33984375
+MAMBA_BF16_GAP = 2 * MAMBA_REF_GAP
+# The reduced configs of the six families in float32, card against CPU:
+# prefill (2 x 128 tokens) and 3 decode steps, logits within this.
+FAMILY_CARD_CPU_TOL = 1e-4
 
 # Fig. 10's training set (benchmarks/fig10_11_pred_accuracy.py): the
 # training networks' 50 layers at published dims, 1567 // 50 = 31
@@ -1019,11 +1099,47 @@ def plain_attention(attention_ref, q, k, v, causal, q_offset):
                          q_offset=q_offset).reshape(q.shape)
 
 
+def flash_close(torch, out, ref, key, what):
+    """Holds a flash output to its plain version: rtol FLASH_TOL[key]
+    and, for bf16, an atol of FLASH_TOL times min(1, max|ref|).
+    Returns (largest error, the atol)."""
+    tol = FLASH_TOL[key]
+    atol = tol
+    if key == "bfloat16":
+        atol = tol * min(1.0, ref.float().abs().max().item())
+    err = (out.float() - ref.float()).abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
+                               atol=atol, msg=lambda m: f"{what}: {m}")
+    return err, atol
+
+
+def missing_tile_excess(torch, attention_ref, q, k, v, ref, atol):
+    """How far the plain full-attention output without the keys of
+    MISSING_TILE misses `ref` under flash_close's bf16 bound: the largest
+    |dropped - ref| / (atol + rtol |ref|).  Fails unless above 1, i.e.
+    unless a kernel that skipped that tile would fail the bound.
+    Returns it beside the same measure under a flat atol of 2e-2."""
+    lo, hi = MISSING_TILE
+    keep = torch.cat([torch.arange(lo), torch.arange(hi, k.shape[2])]) \
+        .to(k.device)
+    dropped = plain_attention(attention_ref, q, k[:, :, keep], v[:, :, keep],
+                              False, 0).float()
+    r = ref.float()
+    rtol = FLASH_TOL["bfloat16"]
+    miss = (dropped - r).abs()
+    excess = (miss / (atol + rtol * r.abs())).max().item()
+    flat = (miss / (rtol + rtol * r.abs())).max().item()
+    check(excess > 1.0, f"bound {atol} passes a missing key tile "
+          f"{MISSING_TILE} (excess {excess}) at {tuple(q.shape)} x "
+          f"{tuple(k.shape)}")
+    return {"scaled": excess, "flat": flat}
+
+
 def phase_flash_vs_plain(torch, attend, attention_ref, flash):
     """Every FLASH_CASES shape, f32 and bf16, on the card against the
     plain version; bf16 always on wgmma, f32 always on simt."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    worst = {}
+    worst, excess = {}, {}
     for (b, hq, hkv, sq, sk, d, causal, off) in FLASH_CASES:
         for dt in (torch.float32, torch.bfloat16):
             q = torch.randn((b, hq, sq, d), generator=gen,
@@ -1040,15 +1156,18 @@ def phase_flash_vs_plain(torch, attend, attention_ref, flash):
             ref = plain_attention(attention_ref, q, k, v, causal, off)
             torch.cuda.synchronize()
             key = str(dt).split(".")[-1]
-            tol = FLASH_TOL[key]
-            torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
-                                       atol=tol)
-            err = (out.float() - ref.float()).abs().max().item()
+            err, atol = flash_close(torch, out, ref, key, "flash "
+                                    f"{(b, hq, hkv, sq, sk, d, causal, off)}")
             worst[key] = max(worst.get(key, 0.0), err)
+            if key == "bfloat16" and not causal and sk >= MISSING_TILE[1]:
+                excess[str((b, hq, hkv, sq, sk, d))] = missing_tile_excess(
+                    torch, attention_ref, q, k, v, ref, atol)
     emit({"phase": "flash_vs_plain",
           "cases_b_hq_hkv_sq_sk_d_causal_qoffset": FLASH_CASES,
           "variants": {"float32": "simt", "bfloat16": "wgmma"},
-          "max_abs_err": worst, "tolerance": FLASH_TOL})
+          "max_abs_err": worst, "tolerance": FLASH_TOL,
+          "bf16_atol": "2e-2 * min(1, max|plain|)",
+          "missing_tile_excess": excess})
 
 
 def phase_flash_bwd_vs_plain(torch, fa_mod, attention_ref,
@@ -1208,7 +1327,10 @@ def phase_flash_bwd_timing(torch, fa_mod, attention_bwd_ref, launches):
 def phase_lm_prefill(torch, lm_mod, configs, flash):
     """The LM main path: Qwen3-0.6B at full width, initialised on the
     card from seed 0, `prefill` of 4 prompts x 4096 tokens — a cold
-    call, then a warm one, the flash launches counted in each."""
+    call, then PREFILL_WARM warm ones (their median is the warm time),
+    the flash launches counted in each.  Each call's host time to
+    enqueue its work is read too: where it nears the call's wall time,
+    host dispatch bounds the call."""
     cfg = configs.get_config("qwen3_0_6b")
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = lm_mod.build_model(cfg, device="cuda", generator=gen)
@@ -1216,17 +1338,18 @@ def phase_lm_prefill(torch, lm_mod, configs, flash):
                            generator=gen, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    secs, launches, on_wgmma = [], [], []
-    for _ in range(2):
+    secs, enqueued, launches, on_wgmma = [], [], [], []
+    for _ in range(1 + PREFILL_WARM):
         flash.launches = 0
         flash.launches_by_variant.update(wgmma=0, simt=0)
         t0 = now()
         logits, cache = model.prefill({"tokens": tokens})
+        enqueued.append(now() - t0)
         torch.cuda.synchronize()
         secs.append(now() - t0)
         launches.append(flash.launches)
         on_wgmma.append(flash.launches_by_variant["wgmma"])
-    check(launches == [cfg.n_layers] * 2 and on_wgmma == launches,
+    check(launches == [cfg.n_layers] * len(secs) and on_wgmma == launches,
           f"flash launches per prefill call {launches}, {on_wgmma} on "
           f"wgmma; expected {cfg.n_layers}, all on wgmma")
     finite = bool(torch.isfinite(logits).all())
@@ -1238,10 +1361,13 @@ def phase_lm_prefill(torch, lm_mod, configs, flash):
                                    PREFILL_S, cfg.head_dim),
           f"KV stack shape {tuple(k_stack.shape)}")
     tokens_n = PREFILL_B * PREFILL_S
+    warm = sorted(secs[1:])[PREFILL_WARM // 2]
     emit({"phase": "lm_prefill_qwen3_0_6b", "batch": PREFILL_B,
           "prompt_len": PREFILL_S, "compute_dtype": cfg.compute_dtype,
-          "seconds_cold": secs[0], "seconds_warm": secs[1],
-          "tokens_per_s_warm": tokens_n / secs[1],
+          "seconds_cold": secs[0], "seconds_warm": warm,
+          "seconds_warm_each": secs[1:],
+          "seconds_enqueued_each": enqueued,
+          "tokens_per_s_warm": tokens_n / warm,
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
           "flash_launches_per_call": launches,
           "flash_wgmma_launches_per_call": on_wgmma,
@@ -1440,7 +1566,9 @@ def phase_lm_train(torch, train_mod, fa_mod, configs):
     the steps after the rollback equal to the uninterrupted run's, and
     every step launching 2 forward flash kernels a layer (remat runs
     each period again in the backward pass) and 1 backward kernel, every
-    backward on the wgmma variant (bf16 compute)."""
+    backward on the wgmma variant (bf16 compute).  Returns (backward
+    launches, the trained model, the checkpoint directory, which holds
+    the uninterrupted run's last checkpoint)."""
     import shutil
 
     cfg = configs.get_config("qwen3_0_6b")
@@ -1471,7 +1599,8 @@ def phase_lm_train(torch, train_mod, fa_mod, configs):
     model, clean = train_mod.run(clean_args, fault_hook=hook,
                                  log=lambda m: None)
     clean_attempts = _per_attempt(torch, fa_mod, clean_marks)
-    shutil.rmtree(ckpt, ignore_errors=True)
+    # The uninterrupted run's last checkpoint stays for lm_serve_ckpt.
+    shutil.rmtree(ckpt / "faulty", ignore_errors=True)
 
     losses = faulty.losses + clean.losses
     check(all(x == x and abs(x) < float("inf") for x in losses),
@@ -1541,7 +1670,7 @@ def phase_lm_train(torch, train_mod, fa_mod, configs):
           "bound_share": flops / PEAK_BF16_FLOPS / step_s,
           "run_with_fault_seconds": faulty_s,
           "max_memory_allocated_bytes": peak})
-    return sum(a[3] for a in ran), model
+    return sum(a[3] for a in ran), model, ckpt
 
 
 def phase_profile_train_step(torch, model, train_step_mod, optimizer,
@@ -1642,6 +1771,325 @@ def phase_lm_train_card_vs_cpu(torch, lm_mod, configs, train_step_mod,
           "param_max_abs_diff": err, "tolerances": TRAIN_CARD_CPU})
 
 
+def reset_counts(matmul, flash, fa_mod) -> None:
+    """Every kernel's launch counts to 0."""
+    matmul.launches = 0
+    matmul.launches_by_variant.update(wgmma=0, simt=0)
+    flash.launches = 0
+    flash.launches_by_variant.update(wgmma=0, simt=0)
+    fa_mod.attend_backward.launches = 0
+    fa_mod.attend_backward.launches_by_variant.update(wgmma=0, simt=0)
+
+
+class flash_calls:
+    """While active, records (Sq, Sk, D, causal) of every call of the
+    LM's attention entry (`models.layers.flash_attention`, which the LM
+    reaches through its module) in `self.calls`."""
+
+    def __init__(self, layers):
+        self.layers, self.calls = layers, []
+
+    def __enter__(self):
+        self.orig = self.layers.flash_attention
+
+        def record(q, k, v, *, causal, **kw):
+            self.calls.append((q.shape[2], k.shape[2], q.shape[3], causal))
+            return self.orig(q, k, v, causal=causal, **kw)
+
+        self.layers.flash_attention = record
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.flash_attention = self.orig
+
+
+def runs_of(items: list) -> list:
+    """[[*item, n], ...]: each run of equal consecutive items, counted."""
+    out = []
+    for item in items:
+        if out and tuple(out[-1][:-1]) == tuple(item):
+            out[-1][-1] += 1
+        else:
+            out.append([*item, 1])
+    return out
+
+
+def family_batch(torch, cfg, b, s, gen, device):
+    """A batch of the family's inputs from `gen`: tokens (B, S), or
+    HuBERT's frames (B, S, D) with labels; the VLM's image embeddings
+    (B, n_image_tokens, D) in the compute type."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    if cfg.modality == "audio":
+        return {"frames": torch.randn((b, s, cfg.d_model), generator=gen,
+                                      device=device).to(cdt),
+                "labels": torch.randint(0, cfg.vocab_size, (b, s),
+                                        generator=gen, device=device)}
+    batch = {"tokens": torch.randint(1, cfg.vocab_size, (b, s),
+                                     generator=gen, device=device)}
+    if cfg.modality == "vision+text":
+        batch["image_embeds"] = torch.randn(
+            (b, cfg.n_image_tokens, cfg.d_model), generator=gen,
+            device=device).to(cdt)
+    return batch
+
+
+def phase_lm_family_prefill(torch, lm_mod, configs, flash, arch, phase,
+                            expected_calls):
+    """`LM.prefill` of FAMILY_B x FAMILY_S at the config's full width
+    (depth FAMILY_DEPTH where the whole model does not fit the card),
+    parameters drawn on the card from seed 0: a cold call, then a warm
+    one.  Gates: the attention calls of each prefill are
+    `expected_calls` ((Sq, Sk, D, causal) in order), each one flash
+    launch on wgmma; the last logits finite.  Returns (model, batch)."""
+    import dataclasses
+
+    cfg = configs.get_config(arch)
+    if arch in FAMILY_DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=FAMILY_DEPTH[arch])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = now()
+    model = lm_mod.build_model(cfg, device="cuda", generator=gen)
+    batch = family_batch(torch, cfg, FAMILY_B, FAMILY_S, gen, "cuda")
+    torch.cuda.synchronize()
+    init_s = now() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    secs, launches, on_wgmma, calls = [], [], [], []
+    for _ in range(2):
+        before, wgmma_before = flash.launches, \
+            flash.launches_by_variant["wgmma"]
+        with flash_calls(lm_mod.L) as rec:
+            t0 = now()
+            logits, cache = model.prefill(batch)
+            torch.cuda.synchronize()
+            secs.append(now() - t0)
+        launches.append(flash.launches - before)
+        on_wgmma.append(flash.launches_by_variant["wgmma"] - wgmma_before)
+        calls.append(rec.calls)
+        del cache
+    n = len(expected_calls)
+    check(calls == [list(expected_calls)] * 2 and launches == [n, n]
+          and on_wgmma == launches,
+          f"{phase}: attention calls {calls[0]}, flash launches {launches} "
+          f"({on_wgmma} on wgmma); expected {expected_calls}, all on wgmma")
+    finite = bool(torch.isfinite(logits).all())
+    check(finite and tuple(logits.shape) == (FAMILY_B, 1, cfg.vocab_size),
+          f"{phase}: logits {tuple(logits.shape)}, finite {finite}")
+    tokens_n = FAMILY_B * FAMILY_S
+    emit({"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
+          "depth_cut": arch in FAMILY_DEPTH, "params": n_params,
+          "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
+          "batch": FAMILY_B, "seq": FAMILY_S, "init_seconds": init_s,
+          "seconds_cold": secs[0], "seconds_warm": secs[1],
+          "tokens_per_s_warm": tokens_n / secs[1],
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "attention_calls_sq_sk_d_causal_count": runs_of(calls[0]),
+          "flash_launches_per_call": launches,
+          "flash_wgmma_launches_per_call": on_wgmma,
+          "logits_finite": finite})
+    return model, batch
+
+
+def phase_lm_family_serve(torch, serve, lm_mod, flash, model, phase,
+                          image_embeds=None):
+    """The serve loop at full width through `serve_step`: FAMILY_B
+    requests, prompt FAMILY_PROMPT, FAMILY_GEN generated greedily (the
+    serve CLI's prompts from seed 0; the VLM with `image_embeds`).
+    Gates: tokens in range; the attention calls are the cross slots'
+    (one a decode step, Sq = 1 over the image keys, on wgmma) and no
+    other."""
+    cfg = model.cfg
+    args = serve.parse_args(["--batch", str(FAMILY_B), "--prompt-len",
+                             str(FAMILY_PROMPT), "--gen", str(FAMILY_GEN),
+                             "--seed", "0"])
+    prompts = serve.prompts_for(args, cfg.vocab_size).to("cuda")
+    before, wgmma_before = flash.launches, flash.launches_by_variant["wgmma"]
+    with flash_calls(lm_mod.L) as rec:
+        seq, secs = serve.decode(model, prompts, FAMILY_GEN, now,
+                                 image_embeds=image_embeds)
+    launches = flash.launches - before
+    on_wgmma = flash.launches_by_variant["wgmma"] - wgmma_before
+    steps = FAMILY_PROMPT + FAMILY_GEN - 1
+    n_cross = sum(s.cross for s in model.slots) * model.n_periods
+    expected = [(1, cfg.n_image_tokens, cfg.head_dim, False)] \
+        * (steps * n_cross)
+    check(tuple(seq.shape) == (FAMILY_B, FAMILY_PROMPT + FAMILY_GEN)
+          and bool(((seq >= 0) & (seq < cfg.vocab_size)).all()),
+          f"{phase}: served tokens {tuple(seq.shape)}")
+    check(rec.calls == expected and launches == on_wgmma == len(expected),
+          f"{phase}: {len(rec.calls)} attention calls "
+          f"({rec.calls[:2]}...), {launches} flash launches; "
+          f"expected {len(expected)} cross calls on wgmma")
+    emit({"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
+          "batch": FAMILY_B, "prompt_len": FAMILY_PROMPT, "gen": FAMILY_GEN,
+          "seconds": secs, "tok_per_s": seq.numel() / secs,
+          "decode_steps": steps, "flash_launches": launches,
+          "sample": seq[0, FAMILY_PROMPT - 8:FAMILY_PROMPT + 12].tolist()})
+
+
+def phase_lm_mamba_prefill_vs_decode(torch, lm_mod, model):
+    """Mamba-2 at full width: `prefill` of MAMBA_STEP_PROMPT tokens (2
+    prompts) against stepping `decode_step` through them (the chunked
+    SSD against the exact recurrence): the last logits, in float32
+    compute within DECODE_TOL_F32, in bfloat16 compute within
+    MAMBA_BF16_GAP (absolute)."""
+    import dataclasses
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(1, model.cfg.vocab_size, (2, MAMBA_STEP_PROMPT),
+                           generator=gen, device="cuda")
+    out = {}
+    for cdt, tol in (("float32", DECODE_TOL_F32),
+                     ("bfloat16", MAMBA_BF16_GAP)):
+        cfg = dataclasses.replace(model.cfg, compute_dtype=cdt)
+        m = lm_mod.build_model(cfg, device="cuda", params=model.params)
+        logits_p, _ = m.prefill({"tokens": tokens})
+        cache = m.init_cache(2, MAMBA_STEP_PROMPT)
+        t0 = now()
+        for pos in range(MAMBA_STEP_PROMPT):
+            logits_d, cache = m.decode_step(cache, tokens[:, pos:pos + 1],
+                                            pos)
+        torch.cuda.synchronize()
+        step_ms = (now() - t0) * 1e3 / MAMBA_STEP_PROMPT
+        rtol = tol if cdt == "float32" else 0.0
+        torch.testing.assert_close(logits_d.float(), logits_p.float(),
+                                   rtol=rtol, atol=tol,
+                                   msg=lambda m: f"Mamba-2 {cdt}: {m}")
+        out[cdt] = {"max_abs_err": (logits_d - logits_p).abs().max().item(),
+                    "max_abs_logit": logits_p.abs().max().item(),
+                    "tolerance": tol, "decode_ms_per_step": step_ms}
+    emit({"phase": "lm_mamba2_prefill_vs_decode",
+          "prompt_len": MAMBA_STEP_PROMPT, "batch": 2,
+          "reference_bf16_gap_cpu": MAMBA_REF_GAP, **out})
+
+
+def named_leaves(tree, prefix: str = "") -> dict:
+    """{"a/b/c": leaf} of a nested dict of tensors."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    return {name: leaf for k in sorted(tree)
+            for name, leaf in named_leaves(tree[k], f"{prefix}/{k}").items()}
+
+
+def phase_lm_serve_ckpt(torch, serve, model, ckpt_dir):
+    """The serve CLI's two halves, `load_model` then `decode`, with
+    `--ckpt-dir` on the checkpoint the uninterrupted training run wrote
+    (Qwen3-0.6B at full width, step TRAIN_STEPS): every restored
+    parameter is the trained model's, bit for bit (name, shape, type and
+    values), and the served tokens equal serving the trained model
+    directly.  Removes the checkpoint after."""
+    import shutil
+
+    ckpt = ckpt_dir / "clean"
+    argv = ["--arch", "qwen3_0_6b", "--batch", "4", "--prompt-len",
+            str(FAMILY_PROMPT), "--gen", str(FAMILY_GEN), "--device", "cuda",
+            "--seed", "0"]
+    args = serve.parse_args(argv + ["--ckpt-dir", str(ckpt)])
+    logs = []
+    t0 = now()
+    restored = serve.load_model(args, log=logs.append)
+    torch.cuda.synchronize()
+    restore_s = now() - t0
+    check(logs == [f"[serve] restored step {TRAIN_STEPS} from {ckpt}"],
+          f"serve --ckpt-dir logged {logs}")
+    got, want = named_leaves(restored.params), named_leaves(model.params)
+    check(list(got) == list(want),
+          f"restored leaves {sorted(set(got) ^ set(want))} differ in name")
+    unequal = [n for n in want if got[n].device != want[n].device
+               or got[n].dtype != want[n].dtype
+               or not torch.equal(got[n], want[n])]
+    check(not unequal, f"restored leaves not the trained ones: {unequal}")
+    prompts = serve.prompts_for(args, restored.cfg.vocab_size).to("cuda")
+    seq, secs = serve.decode(restored, prompts, args.gen, now)
+    del restored
+    direct, _ = serve.decode(model, prompts, FAMILY_GEN, now)
+    equal = torch.equal(seq, direct)
+    check(equal, "tokens served from the checkpoint != served directly")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    emit({"phase": "lm_serve_ckpt", "argv": argv + ["--ckpt-dir", "..."],
+          "log": logs, "restore_seconds": restore_s,
+          "leaves_equal": len(want), "serve_seconds": secs,
+          "tokens_equal_direct": equal,
+          "sample": seq[0, FAMILY_PROMPT - 8:FAMILY_PROMPT + 12].tolist()})
+
+
+def phase_lm_families_card_vs_cpu(torch, lm_mod, configs):
+    """Each family's reduced config in float32: parameters drawn on the
+    CPU, the same tree on the card; prefill of 2 x 128 (two SSD chunks)
+    and 3 decode steps, logits within FAMILY_CARD_CPU_TOL."""
+    import dataclasses
+
+    errs = {}
+    for arch in FAMILIES:
+        cfg = dataclasses.replace(configs.get_config(arch, reduced=True),
+                                  compute_dtype="float32")
+        gen = torch.Generator(device="cpu").manual_seed(0)
+        cpu = lm_mod.build_model(cfg, device="cpu", generator=gen)
+        card = lm_mod.build_model(
+            cfg, device="cuda",
+            params=lm_mod._tree_map(lambda t: t.detach().to("cuda"),
+                                    cpu.params))
+        batch = family_batch(torch, cfg, 2, 128, gen, "cpu")
+        img = batch.get("image_embeds")
+        pairs = [(cpu.prefill(batch)[0], card.prefill(
+            {k: v.cuda() for k, v in batch.items()})[0])]
+        cc, cg = cpu.init_cache(2, 4, torch.float32), \
+            card.init_cache(2, 4, torch.float32)
+        for pos in range(3):
+            tok = torch.full((2, 1), 7 + pos)
+            lc, cc = cpu.decode_step(cc, tok, pos, image_embeds=img)
+            lg, cg = card.decode_step(
+                cg, tok.cuda(), pos,
+                image_embeds=None if img is None else img.cuda())
+            pairs.append((lc, lg))
+        for c, g in pairs:
+            torch.testing.assert_close(g.cpu(), c, rtol=FAMILY_CARD_CPU_TOL,
+                                       atol=FAMILY_CARD_CPU_TOL)
+        errs[arch] = max((g.cpu() - c).abs().max().item() for c, g in pairs)
+    emit({"phase": "lm_families_card_vs_cpu",
+          "config": "reduced, float32: prefill 2 x 128, 3 decode steps",
+          "logits_max_abs_err": errs, "tolerance": FAMILY_CARD_CPU_TOL})
+
+
+def flash_shape_timing(torch, attend, attention_ref, flash, shape, causal,
+                       seed):
+    """The bf16 wgmma kernel at `shape` (b, hq, hkv, s, d) against the
+    plain version (its error and time) and SDPA, with the bound from
+    the visible (q, k) pairs' FLOPs and q, k, v, o's bytes."""
+    import torch.nn.functional as F
+
+    b, hq, hkv, s, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda")
+               .to(torch.bfloat16) for h in (hq, hkv, hkv))
+    before = dict(flash.launches_by_variant)
+    out = attend(q, k, v, causal=causal)
+    ran_on(flash.launches_by_variant, before, "wgmma", f"flash {shape}")
+    ref = plain_attention(attention_ref, q, k, v, causal, 0)
+    err, atol = flash_close(torch, out, ref, "bfloat16", f"flash {shape}")
+    excess = (None if causal else
+              missing_tile_excess(torch, attention_ref, q, k, v, ref, atol))
+    del out, ref
+    ms = cuda_ms(lambda: attend(q, k, v, causal=causal), reps=10)
+    plain_ms = cuda_ms(lambda: plain_attention(attention_ref, q, k, v,
+                                               causal, 0),
+                       warmup=1, iters=5)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=True), reps=10)
+    pairs = b * hq * (s * (s + 1) // 2 if causal else s * s)
+    flops = 4.0 * d * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"shape_b_hq_hkv_s_d": list(shape), "causal": causal,
+            "max_abs_err": err, "atol": atol, "missing_tile_excess": excess,
+            "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "tflops": flops / (ms * 1e-3) / 1e12}
+
+
 def phase_flash_timing(torch, attend, attention_ref, flash, launches):
     """Kernel (the wgmma variant), plain version and SDPA at the prefill
     shape, bf16 causal (10 back-to-back kernel and SDPA calls per timed
@@ -1660,10 +2108,7 @@ def phase_flash_timing(torch, attend, attention_ref, flash, launches):
     kern = attend(q, k, v, causal=True)
     ran_on(flash.launches_by_variant, before, "wgmma", "flash timing")
     ref = plain_attention(attention_ref, q, k, v, True, 0)
-    err = (kern.float() - ref.float()).abs().max().item()
-    torch.testing.assert_close(kern.float(), ref.float(),
-                               rtol=FLASH_TOL["bfloat16"],
-                               atol=FLASH_TOL["bfloat16"])
+    err, _ = flash_close(torch, kern, ref, "bfloat16", "flash timing")
     del ref
     group = hq // hkv
     qf = q.reshape(b * hq, s, d)
@@ -1694,7 +2139,11 @@ def phase_flash_timing(torch, attend, attention_ref, flash, launches):
            "launches": launches, "max_abs_err": err, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "library_ms": library_ms, "held_against_plain": True}
+           "library_ms": library_ms, "held_against_plain": True,
+           "other_head_dims": [
+               flash_shape_timing(torch, attend, attention_ref, flash,
+                                  shape, causal, seed)
+               for shape, causal, seed in FLASH_TIMING_SHAPES]}
     emit({"phase": "flash_timing", "shape_b_hq_hkv_s_d": [b, hq, hkv, s, d],
           "dtype": "bfloat16", "causal": True, "flops": flops,
           "bytes": nbytes, "tflops": flops / (ms * 1e-3) / 1e12,
@@ -1805,10 +2254,7 @@ def main() -> int:
     phase_flash_bwd_vs_plain(torch, fa_mod, attention_ref, attention_lse_ref)
 
     # ---- main path 1: tuned matmul + co-search, counts from 0.
-    matmul.launches = 0
-    matmul.launches_by_variant.update(wgmma=0, simt=0)
-    flash_attention.launches = 0
-    fa_mod.attend_backward.launches = 0
+    reset_counts(matmul, flash_attention, fa_mod)
     x, y = phase_tuned_matmul(torch, tuned_matmul, tuned_blocks, matmul_ref,
                               matmul)
     wl, cfg, res = phase_cosearch(torch, search, oracle, dnn_zoo)
@@ -1822,8 +2268,7 @@ def main() -> int:
           "flash_attention_bwd": fa_mod.attend_backward.launches})
 
     # ---- main path 2: LM prefill at full width, counts from 0 per call.
-    matmul.launches = 0
-    matmul.launches_by_variant.update(wgmma=0, simt=0)
+    reset_counts(matmul, flash_attention, fa_mod)
     model, fa_launches = phase_lm_prefill(torch, lm_mod, configs,
                                           flash_attention)
     check(fa_launches > 0, "prefill never launched the flash kernel")
@@ -1845,13 +2290,9 @@ def main() -> int:
 
     # ---- main path 4: training at full width through launch.train,
     # counts from 0.
-    matmul.launches = 0
-    matmul.launches_by_variant.update(wgmma=0, simt=0)
-    flash_attention.launches = 0
-    flash_attention.launches_by_variant.update(wgmma=0, simt=0)
-    fa_mod.attend_backward.launches = 0
-    fa_mod.attend_backward.launches_by_variant.update(wgmma=0, simt=0)
-    bwd_launches, model = phase_lm_train(torch, train_mod, fa_mod, configs)
+    reset_counts(matmul, flash_attention, fa_mod)
+    bwd_launches, model, train_ckpt = phase_lm_train(torch, train_mod,
+                                                     fa_mod, configs)
     check(bwd_launches > 0 and fa_mod.attend_backward.launches
           == bwd_launches, "training never launched the backward kernel")
     check(flash_attention.launches_by_variant["wgmma"] > 0,
@@ -1866,22 +2307,63 @@ def main() -> int:
           "flash_attention_bwd": fa_mod.attend_backward.launches,
           "flash_attention_bwd_by_variant":
               dict(fa_mod.attend_backward.launches_by_variant)})
+    # ---- main path 5: serving the trained checkpoint (--ckpt-dir).
+    reset_counts(matmul, flash_attention, fa_mod)
+    phase_lm_serve_ckpt(torch, serve, model, train_ckpt)
+    emit({"phase": "main_path_launches", "path": "lm_serve_ckpt",
+          "matmul": matmul.launches,
+          "flash_attention": flash_attention.launches,
+          "flash_attention_bwd": fa_mod.attend_backward.launches})
     phase_profile_train_step(torch, model, train_step_mod, optimizer,
                              pipeline)
     del model
     torch.cuda.empty_cache()
     phase_lm_train_card_vs_cpu(torch, lm_mod, configs, train_step_mod,
                                optimizer, pipeline)
+
+    # ---- main paths 6-9: the other families' prefill and serving at
+    # full width, counts from 0 before each path and read after it.
+    s, hd = FAMILY_S, 128
+    for arch, phases, expected_calls in (
+            ("jamba_v0_1_52b",
+             ("lm_prefill_jamba_period", "lm_serve_jamba_period"),
+             [(s, s, hd, True)]),
+            ("mamba2_1_3b",
+             ("lm_prefill_mamba2_1_3b", "lm_serve_mamba2_1_3b"), []),
+            ("llama_3_2_vision_90b",
+             ("lm_prefill_llama_vision_period",
+              "lm_serve_llama_vision_period"),
+             [(s, s, hd, True)] * 5 + [(s, s, hd, False)]),
+            ("hubert_xlarge", ("lm_encode_hubert_xlarge", None),
+             [(s, s, 80, False)] * 48)):
+        reset_counts(matmul, flash_attention, fa_mod)
+        fam, batch = phase_lm_family_prefill(
+            torch, lm_mod, configs, flash_attention, arch, phases[0],
+            expected_calls)
+        if phases[1]:
+            phase_lm_family_serve(torch, serve, lm_mod, flash_attention, fam,
+                                  phases[1], batch.get("image_embeds"))
+        check((flash_attention.launches > 0) == bool(expected_calls),
+              f"{arch}: {flash_attention.launches} flash launches on its "
+              "prefill and serve path")
+        emit({"phase": "main_path_launches", "path": f"lm_{arch}",
+              "matmul": matmul.launches,
+              "flash_attention": flash_attention.launches,
+              "flash_attention_by_variant":
+                  dict(flash_attention.launches_by_variant),
+              "flash_attention_bwd": fa_mod.attend_backward.launches})
+        if arch == "mamba2_1_3b":
+            phase_lm_mamba_prefill_vs_decode(torch, lm_mod, fam)
+        del fam, batch
+        torch.cuda.empty_cache()
+    phase_lm_families_card_vs_cpu(torch, lm_mod, configs)
     phase_chunk_sync_free(torch, search, wl, cfg, res)
     gd_resnet50 = phase_profile_gd(torch, search, wl, cfg)
     phase_card_vs_cpu(search, problem)
 
     # ---- the paper's Sec. 6 experiments, counts from 0 (no kernel of
     # this repo is on these paths).
-    matmul.launches = 0
-    matmul.launches_by_variant.update(wgmma=0, simt=0)
-    flash_attention.launches = 0
-    fa_mod.attend_backward.launches = 0
+    reset_counts(matmul, flash_attention, fa_mod)
     models = phase_calibration_train(torch, np, surrogate, rtl_sim, dnn_zoo,
                                      GEMMINI_DEFAULT)
     unet, short_cfg, short_res = phase_calibrated_search_unet(
@@ -1904,10 +2386,7 @@ def main() -> int:
     # ---- the co-search service slice, counts from 0 (no kernel of this
     # repo is on these paths): device seeding, the device-seeded search,
     # fleet search, the service behind its HTTP front-end.
-    matmul.launches = 0
-    matmul.launches_by_variant.update(wgmma=0, simt=0)
-    flash_attention.launches = 0
-    fa_mod.attend_backward.launches = 0
+    reset_counts(matmul, flash_attention, fa_mod)
     phase_device_seed(torch, np, mapping, dnn_zoo)
     phase_device_seeded_search(torch, search, mapping, oracle, wl, res,
                                gd_resnet50)

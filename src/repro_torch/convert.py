@@ -119,8 +119,9 @@ def lm_params_from_numpy(cfg, params: dict, device=DEFAULT_DEVICE):
     """The port's `LM` of config `cfg` holding the reference's
     parameters: `params` is the tree `repro.models.lm.LM.init` returns
     (`embed/{tok,unembed}`, `final_norm/scale`, `blocks/slot<i>/...`
-    stacked over n_periods), with numpy arrays as leaves.  Every leaf
-    must match the port's init in name, shape and type."""
+    stacked over n_periods), with numpy arrays as leaves (or CPU
+    tensors, as `checkpoint.restore` gives bfloat16 leaves).  Every
+    leaf must match the port's init in name, shape and type."""
     from .models.lm import LM, abstract_params
 
     dev = resolve_device(device)
@@ -134,7 +135,8 @@ def lm_params_from_numpy(cfg, params: dict, device=DEFAULT_DEVICE):
                                  f"expected {sorted(exp)}")
             return {k: carry(ref[k], exp[k], f"{path}/{k}".lstrip("/"))
                     for k in exp}
-        t = _tensor_from_numpy(np.asarray(ref))
+        t = ref.detach().cpu().clone() if isinstance(ref, torch.Tensor) \
+            else _tensor_from_numpy(np.asarray(ref))
         if tuple(t.shape) != tuple(exp.shape) or t.dtype != exp.dtype:
             raise ValueError(f"{path}: {t.dtype} {tuple(t.shape)}, "
                              f"expected {exp.dtype} {tuple(exp.shape)}")

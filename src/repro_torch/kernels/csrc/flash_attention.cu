@@ -41,7 +41,8 @@
 // load); V per tile row-major; the probabilities go through shared
 // memory transposed for P @ V.  Row max and row sum reduce over the 16
 // threads of a row with warp shuffles.  Shared memory: (2 D (64 + 4) +
-// 64 D + 64 (64 + 4)) floats, 119,808 bytes at D = 128, set with
+// 64 D + 64 (64 + 4)) floats, 119,808 bytes at D = 128 (222,208 at
+// D = 256, under a block's 232,448), set with
 // cudaFuncSetAttribute above the default 48 KB.  IEEE float32 FMA
 // cannot use the tensor cores, so its ceiling is the 67 TFLOP/s float32
 // rate: it keeps the reference's numerics (f32 within 2e-5).  Against
@@ -55,13 +56,16 @@
 // 2-stage rings (at D = 128: Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB
 // of dynamic shared memory).  Rows of D are cut into boxes of 64
 // elements with a 128-byte swizzle (two boxes at D = 128; at D = 32 one
-// 32-element box with a 64-byte swizzle).  Per KV tile a consumer
-// warpgroup runs S = Q K^T (wgmma, A = Q and B = the K tile, both
-// K-major in shared memory: bf16 products are exact in float32, so
-// these are the reference's f32 scores summed in another order), the
-// online softmax on the float32 accumulator in registers (row max and
-// row sum over the 4 lanes that share a row; exp2 with the scale folded
-// in), then O += P V (wgmma with A = P from registers -- the score
+// 32-element box with a 64-byte swizzle); at D = 80 and 112 the second
+// box is zero-filled past D by TMA.  Above D = 128 the K/V tiles hold 64
+// keys (at D = 256: Q 64 KB + 2 x (K 32 KB + V 32 KB) = 192 KB), and
+// O += P V runs as two or three narrower products (`Tile`).  Per KV
+// tile a consumer warpgroup runs S = Q K^T (wgmma, A = Q and B = the K
+// tile, both K-major in shared memory: bf16 products are exact in
+// float32, so these are the reference's f32 scores summed in another
+// order), the online softmax on the float32 accumulator in registers
+// (row max and row sum over the 4 lanes that share a row; exp2 with the
+// scale folded in), then O += P V (wgmma with A = P from registers -- the score
 // accumulator's layout is the A fragment's, packed to bf16 pairs -- and
 // B = the V tile, N-major).  Rounding P to bf16 before P V is the one
 // departure from the reference's float32 P; the output is bf16 too.
@@ -90,6 +94,12 @@
 #include <stddef.h>
 
 #include "hopper.cuh"
+
+// The head dims both kernels take: every one the repo's model configs
+// use (32 in the reduced configs, 80 in HuBERT-XLarge, 112 in Kimi K2,
+// 128 in Qwen3 and most others, 192 in Nemotron-4, 256 in Gemma-7B)
+// and 64.  The wrapper's FWD_HEAD_DIMS lists the same.
+#define REPRO_FLASH_HEAD_DIMS(X) X(32) X(64) X(80) X(112) X(128) X(192) X(256)
 
 namespace {
 
@@ -124,6 +134,8 @@ template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (size_t)(D * QLD + D * KLD + BKV * D + BKV * QLD);
 }
+static_assert(smem_bytes<256>() <= 232448,
+              "over a block's 227 KB of shared memory");
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
@@ -278,15 +290,12 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
              float* lse, int b, int hq, int hkv, int sq, int sk, int d,
              int causal, int q_offset, float scale, void* stream) {
   switch (d) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, lse, b, hq, hkv, sq, sk, causal,
-                           q_offset, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, b, hq, hkv, sq, sk, causal,
-                           q_offset, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, b, hq, hkv, sq, sk, causal,
-                            q_offset, scale, stream);
+#define REPRO_FLASH_CASE(DIM)                                              \
+  case DIM:                                                                \
+    return launch<T, DIM>(q, k, v, o, lse, b, hq, hkv, sq, sk, causal,     \
+                          q_offset, scale, stream);
+    REPRO_FLASH_HEAD_DIMS(REPRO_FLASH_CASE)
+#undef REPRO_FLASH_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -297,25 +306,40 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 namespace tc {
 
 constexpr int BQ = 128;       // query rows per block: 2 warpgroups x 64
-constexpr int BKV = 128;      // keys per tile
 constexpr int STAGES = 2;
 constexpr int THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
 constexpr int CONSUMER_WARPS = 8;
 
+// Tiles by head dim.  A row of D is cut into boxes of BOXW elements; a
+// D that is no multiple of BOXW (80, 112) takes one more box, which TMA
+// zero-fills past D: zero columns of Q and K add nothing to a score
+// (the score k-steps stop at D anyway), zero columns of V only feed
+// output columns past D, which the TMA store clips.  Shared memory holds
+// DP = CHUNKS * BOXW columns.  Above D = 128 the K/V tiles shrink to 64
+// keys: at 128 keys D = 192 would need 240 KB of shared memory (over a
+// block's 227 KB), and at D = 256 the O accumulator alone takes 128
+// registers a thread, which leaves no room for a 128-key score tile.
+// O += P V runs as NPV products of width PN (wgmma's N) side by side.
 template <int D>
 struct Tile {
   static constexpr int SWB = D >= 64 ? 128 : 64;  // swizzle bytes = box row
   static constexpr int BOXW = SWB / 2;            // elements per box row
-  static constexpr int CHUNKS = D / BOXW;         // boxes across a row of D
+  static constexpr int CHUNKS = (D + BOXW - 1) / BOXW;  // boxes across D
+  static constexpr int DP = CHUNKS * BOXW;        // columns held per row
+  static constexpr int BKV = D > 128 ? 64 : 128;  // keys per tile
+  static constexpr int PN = DP <= 128 ? DP : (DP % 128 == 0 ? 128 : 64);
+  static constexpr int NPV = DP / PN;
   static constexpr int LAYOUT =
       SWB == 128 ? hopper::kSwizzle128B : hopper::kSwizzle64B;
   static constexpr int ATOM = 8 * SWB;            // 8 swizzled rows: SBO
   static constexpr int Q_BOX = BQ * SWB;          // bytes of one Q box
   static constexpr int KV_BOX = BKV * SWB;        // bytes of one K/V box
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BKV * D * 2;
+  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int KV_BYTES = BKV * DP * 2;
   static constexpr size_t SMEM = 1024 + Q_BYTES + STAGES * 2 * KV_BYTES +
                                  (1 + 4 * STAGES) * sizeof(uint64_t);
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  static_assert(SMEM <= 232448, "over a block's 227 KB of shared memory");
 };
 
 template <int D>
@@ -328,6 +352,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                     int sk, int causal, int q_offset, float scale_log2) {
   using namespace hopper;
   using T = Tile<D>;
+  constexpr int BKV = T::BKV;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
   uint8_t* qs = smem;                    // [CHUNKS][BQ rows][BOXW]
@@ -395,9 +420,15 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int qpos1 = qpos0 + 8;
     const int first_qpos = q_offset + q0 + row_wg;
 
-    float acc[D / 2];
+    float acc[T::NPV][T::PN / 2];  // O: NPV side-by-side accumulators
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+    for (int p = 0; p < T::NPV; ++p)
+#pragma unroll
+      for (int i = 0; i < T::PN / 2; ++i) acc[p][i] = 0.0f;
+    auto fence_acc = [&]() {
+#pragma unroll
+      for (int p = 0; p < T::NPV; ++p) fence_regs(acc[p]);
+    };
     float sc[BKV / 2];         // scores, then probabilities, of a tile
     uint32_t pa[BKV / 16][4];  // the previous tile's P as A fragments
     float m0 = NEG_INF, m1 = NEG_INF;  // running max, in log2 units
@@ -421,14 +452,19 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_commit();
     };
     // O += P V of tile t: V is N-major (D contiguous); LBO = one box.
+    // Product p takes columns p PN .. p PN + PN - 1, which start on a box.
     auto issue_pv = [&](int t) {
       const uint8_t* vt = vs + (t % STAGES) * T::KV_BYTES;
 #pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk) {
-        const uint64_t db = smem_desc(vt + kk * 16 * T::SWB, T::KV_BOX,
-                                      T::ATOM, T::LAYOUT);
-        wgmma_rs<1>(acc, pa[kk], db, 1);
-      }
+      for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+        for (int p = 0; p < T::NPV; ++p) {
+          const uint64_t db =
+              smem_desc(vt + (p * T::PN / T::BOXW) * T::KV_BOX +
+                            kk * 16 * T::SWB,
+                        T::KV_BOX, T::ATOM, T::LAYOUT);
+          wgmma_rs<1>(acc[p], pa[kk], db, 1);
+        }
       wgmma_commit();
     };
     // Mask, then the online softmax of tile t in place in sc; sets the
@@ -501,7 +537,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int s = t % STAGES;
       const int sp = (t - 1) % STAGES;
       mbar_wait(&kfull[s], (t / STAGES) & 1);
-      fence_regs(acc);
+      fence_acc();
       wgmma_fence();
       issue_scores(t);
       mbar_wait(&vfull[sp], ((t - 1) / STAGES) & 1);
@@ -511,21 +547,24 @@ __global__ void __launch_bounds__(THREADS, 1)
       release(&kempty[s]);
       softmax(t);
       wgmma_wait<0>();  // P V of tile t - 1 is in
-      fence_regs(acc);
+      fence_acc();
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk) fence_regs(pa[kk]);
       release(&vempty[sp]);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= (i & 2) ? alpha1 : alpha0;
+      for (int p = 0; p < T::NPV; ++p)
+#pragma unroll
+        for (int i = 0; i < T::PN / 2; ++i)
+          acc[p][i] *= (i & 2) ? alpha1 : alpha0;
       pack_p();
     }
     const int last = n_tiles - 1;
     mbar_wait(&vfull[last % STAGES], (last / STAGES) & 1);
-    fence_regs(acc);
+    fence_acc();
     wgmma_fence();
     issue_pv(last);
     wgmma_wait<0>();
-    fence_regs(acc);
+    fence_acc();
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk) fence_regs(pa[kk]);
 
@@ -550,18 +589,21 @@ __global__ void __launch_bounds__(THREADS, 1)
     // Epilogue: O / l in bf16 over this warpgroup's own Q rows in shared
     // memory (no other warpgroup reads them), in the swizzled layout of
     // the Q boxes; one thread stores the boxes, and TMA drops rows past
-    // Sq.
+    // Sq and columns past D.
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int c = j * 8 / T::BOXW;
       const int within = (j * 8 % T::BOXW) * 2 + (lane % 4) * 4;
+      const int p = j * 8 / T::PN;         // the product holding column 8j
+      const int jj = j - p * (T::PN / 8);  // its 8-column group there
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const uint32_t off =
             c * T::Q_BOX + (row_wg + r + 8 * h) * T::SWB + within;
         const float inv = h ? inv1 : inv0;
-        *reinterpret_cast<uint32_t*>(qs + swizzled(off, T::SWB)) = pack_bf16(
-            acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
+        *reinterpret_cast<uint32_t*>(qs + swizzled(off, T::SWB)) =
+            pack_bf16(acc[p][4 * jj + 2 * h] * inv,
+                      acc[p][4 * jj + 2 * h + 1] * inv);
       }
     }
     fence_proxy_async();
@@ -587,7 +629,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const uint64_t kdims[3] = {D, (uint64_t)sk, (uint64_t)b * hkv};
   const uint64_t kstride[2] = {D * 2, (uint64_t)sk * D * 2};
   const uint32_t qbox[3] = {T::BOXW, BQ, 1};
-  const uint32_t kbox[3] = {T::BOXW, BKV, 1};
+  const uint32_t kbox[3] = {T::BOXW, T::BKV, 1};
   const uint32_t obox[3] = {T::BOXW, 64, 1};  // one warpgroup's rows
   int rc = hopper::encode_bf16_map(&qmap, q, 3, qdims, qstride, qbox, T::SWB);
   if (rc == 0)
@@ -613,15 +655,12 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
              float* lse, int b, int hq, int hkv, int sq, int sk, int d,
              int causal, int q_offset, float scale, void* stream) {
   switch (d) {
-    case 32:
-      return launch<32>(q, k, v, o, lse, b, hq, hkv, sq, sk, causal,
-                        q_offset, scale, stream);
-    case 64:
-      return launch<64>(q, k, v, o, lse, b, hq, hkv, sq, sk, causal,
-                        q_offset, scale, stream);
-    case 128:
-      return launch<128>(q, k, v, o, lse, b, hq, hkv, sq, sk, causal,
-                         q_offset, scale, stream);
+#define REPRO_FLASH_CASE(DIM)                                              \
+  case DIM:                                                                \
+    return launch<DIM>(q, k, v, o, lse, b, hq, hkv, sq, sk, causal,        \
+                       q_offset, scale, stream);
+    REPRO_FLASH_HEAD_DIMS(REPRO_FLASH_CASE)
+#undef REPRO_FLASH_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

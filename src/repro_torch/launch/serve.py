@@ -3,11 +3,15 @@ port's LM (the port of `repro.launch.serve`, same flags, same request
 flow, same output lines).
 
     python -m repro_torch.launch.serve --arch qwen3_0_6b --reduced \
-        --batch 4 --prompt-len 16 --gen 32 [--device cuda]
+        --batch 4 --prompt-len 16 --gen 32 [--ckpt-dir ckpts] \
+        [--device cuda]
 
-It runs on the card unless `--device cpu` is given.  The clock is
-injected: `main` takes it as an argument, and only the `__main__` block
-below names `time.perf_counter`.
+It runs on the card unless `--device cpu` is given.  With `--ckpt-dir`
+the parameters come from the newest checkpoint there (`state["params"]`
+of a training checkpoint of either package, as the reference reads it)
+instead of the seed.  The clock is injected: `main` takes it as an
+argument, and only the `__main__` block below names
+`time.perf_counter`.
 """
 from __future__ import annotations
 
@@ -17,10 +21,12 @@ import time
 import numpy as np
 import torch
 
+from ..checkpoint import checkpoint as ckpt
 from ..configs import get_config
+from ..convert import lm_params_from_numpy
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models.lm import build_model
-from ..serve.serve_step import make_serve_step
+from ..serve.serve_step import greedy_decode
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -36,38 +42,48 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def run(args: argparse.Namespace, clock):
-    """Build the model from `args.seed`, then decode `args.batch`
-    random prompts: step through each prompt, then generate greedily.
-    Returns (tokens (B, prompt_len + gen) on the CPU, seconds of the
-    decode loop by `clock`, the tokens read back included)."""
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir: restoring LM weights from a checkpoint is not "
-            "ported yet (ROADMAP queue 1 item 8.7)")
+def prompts_for(args: argparse.Namespace, vocab_size: int) -> torch.Tensor:
+    """The `args.batch` random prompts of `args.prompt_len` tokens, from
+    `args.seed` (numpy, as the reference draws them), on the CPU."""
+    rng = np.random.default_rng(args.seed)
+    return torch.from_numpy(
+        rng.integers(1, vocab_size, (args.batch, args.prompt_len)))
+
+
+def decode(model, prompts: torch.Tensor, gen: int, clock,
+           image_embeds: torch.Tensor | None = None):
+    """The serve loop: `greedy_decode` of `prompts` (B, P) on the
+    model's device, `gen` tokens generated (with `image_embeds` for the
+    VLM).  Returns (tokens (B, P + gen) on the CPU, seconds of the loop
+    by `clock`, the tokens read back included)."""
+    t0 = clock()
+    seq = greedy_decode(model, prompts, gen, device=model.device,
+                        image_embeds=image_embeds).cpu()
+    return seq, clock() - t0
+
+
+def load_model(args: argparse.Namespace, log=print):
+    """The model `args` name, on `args.device`: built from `args.seed`,
+    or with the parameters of the newest checkpoint in `args.ckpt_dir`
+    (logging the step)."""
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
+    if args.ckpt_dir:
+        step, state = ckpt.restore(args.ckpt_dir)
+        model = lm_params_from_numpy(cfg, state["params"], device=dev)
+        log(f"[serve] restored step {step} from {args.ckpt_dir}")
+        return model
     gen = torch.Generator(dev).manual_seed(args.seed)
-    model = build_model(cfg, device=dev, generator=gen)
+    return build_model(cfg, device=dev, generator=gen)
 
-    rng = np.random.default_rng(args.seed)
-    prompts = torch.from_numpy(
-        rng.integers(1, cfg.vocab_size,
-                     (args.batch, args.prompt_len))).to(dev)
-    max_seq = args.prompt_len + args.gen
-    cache = model.init_cache(args.batch, max_seq)
-    step_fn = make_serve_step(model)
 
-    tok = prompts[:, :1]
-    out = [tok]
-    t0 = clock()
-    for pos in range(max_seq - 1):
-        nxt, cache = step_fn(cache, tok, pos)
-        tok = (prompts[:, pos + 1:pos + 2]
-               if pos + 1 < args.prompt_len else nxt)
-        out.append(tok)
-    seq = torch.cat(out, dim=1).cpu()
-    return seq, clock() - t0
+def run(args: argparse.Namespace, clock, log=print):
+    """`load_model`, then `decode` `args.batch` random prompts.  Returns
+    (tokens (B, prompt_len + gen) on the CPU, seconds of the decode
+    loop by `clock`)."""
+    model = load_model(args, log)
+    prompts = prompts_for(args, model.cfg.vocab_size).to(model.device)
+    return decode(model, prompts, args.gen, clock)
 
 
 def main(argv=None, *, clock) -> None:

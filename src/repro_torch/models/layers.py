@@ -1,5 +1,6 @@
-"""Transformer building blocks of the dense family, on torch: the port
-of `repro.models.layers` (norm, RoPE, attention, MLP, embedding).
+"""Transformer building blocks on torch: the port of
+`repro.models.layers` (norm, RoPE, self- and cross-attention, MLP,
+embedding).
 
 Functions take a nested dict of tensors (the reference's parameter
 tree) and activations.  Parameters live in `param_dtype` and are cast
@@ -131,13 +132,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
-# Attention block (self-attention, GQA, qk-norm, biases, rope)
+# Attention block (self / cross, GQA, qk-norm, biases, rope)
 # ---------------------------------------------------------------------------
 
 def attention_init(gen: torch.Generator, cfg: ArchConfig,
-                   lead: tuple = (), device=None) -> dict:
+                   lead: tuple = (), device=None,
+                   cross: bool = False) -> dict:
     """Attention parameters; `lead` prepends stacking dims (the LM's
-    n_periods) to every leaf."""
+    n_periods) to every leaf.  `cross` changes nothing: a
+    cross-attention block has the same tree, and the flag is there for
+    the reference's signature only."""
     pdt = dtype_of(cfg.param_dtype)
     dev = gen.device if device is None else device
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
@@ -192,13 +196,21 @@ def attention_qkv(params: dict, cfg: ArchConfig, x: torch.Tensor,
 
 
 def attention_apply(params: dict, cfg: ArchConfig, x: torch.Tensor,
-                    positions: torch.Tensor, *, causal: bool | None = None,
+                    positions: torch.Tensor, *,
+                    kv_x: torch.Tensor | None = None,
+                    kv_positions: torch.Tensor | None = None,
+                    causal: bool | None = None,
                     chunk: int = 1024) -> torch.Tensor:
-    """Full self-attention block (no cache): returns (B, S, D).  The
-    reference's cross-attention (`kv_x`) waits for the VLM slice."""
+    """Full attention block (no cache): returns (B, S, D).  With `kv_x`
+    (B, Sk, D) it is cross-attention: keys and values come from `kv_x`,
+    no RoPE, never causal."""
     causal = cfg.causal if causal is None else causal
-    q, k, v = attention_qkv(params, cfg, x, x, positions, positions)
-    out = flash_attention(q, k, v, causal=causal,
+    cross = kv_x is not None
+    kv_x = x if kv_x is None else kv_x
+    kv_positions = positions if kv_positions is None else kv_positions
+    q, k, v = attention_qkv(params, cfg, x, kv_x, positions, kv_positions,
+                            use_rope=not cross)
+    out = flash_attention(q, k, v, causal=causal and not cross,
                           chunk=min(chunk, k.shape[2]))
     b, h, s, hd = out.shape
     out = out.transpose(1, 2).reshape(b, s, h * hd)

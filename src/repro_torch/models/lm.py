@@ -1,22 +1,28 @@
 """Language-model assembly on torch: the port of `repro.models.lm` for
-the dense family.
+every family of the model zoo (dense, MoE, SSM, the Jamba hybrid, the
+vision-language model with cross-attention, and the audio encoder).
 
 The reference stacks each slot's parameters over a leading `n_periods`
 axis and scans over it; the port keeps that parameter tree (same names,
 shapes and types, so `convert.lm_params_from_numpy` carries the
 reference's parameters over leaf for leaf) and loops over the periods
-in Python.  Three entry points:
+in Python.  A period is the smallest repeating block pattern: 1 layer
+for homogeneous stacks, 8 for Jamba's attention:Mamba interleave, 5
+for the VLM's cross-attention cadence.  Three entry points:
 
-  * `train_loss(batch)` — causal LM loss (differentiable: the
-    parameters require gradients; with `cfg.remat` each period is
-    recomputed in the backward pass, `jax.checkpoint`'s counterpart),
+  * `train_loss(batch)` — causal LM loss (or, for the encoder,
+    per-position classification of `batch["labels"]`), plus the MoE
+    auxiliary loss; differentiable: the parameters require gradients;
+    with `cfg.remat` each period is recomputed in the backward pass,
+    `jax.checkpoint`'s counterpart,
   * `prefill(batch)` — forward + KV cache build,
-  * `decode_step(cache, tokens, position)` — one-token serve step.
+  * `decode_step(cache, tokens, position, image_embeds)` — one-token
+    serve step against the KV and SSM caches.
 The serving entry points run under `torch.no_grad`.
 
-Only attention slots of the dense family are built here.  MoE, SSM and
-cross-attention slots, and the audio and vision+text modalities wait
-for later slices (ROADMAP queue 1 item 8).
+Batches hold `tokens` (B, S), or `frames` (B, S, D) for the audio
+encoder (whose front-end is a stub, as in the reference), and
+`image_embeds` (B, n_image_tokens, D) for the vision-language model.
 """
 from __future__ import annotations
 
@@ -30,8 +36,8 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from ..device import DEFAULT_DEVICE, resolve_device
 from . import layers as L
-
-_LATER = "waits for a later slice of the port (ROADMAP queue 1 item 8)"
+from . import moe as M
+from . import ssm as S
 
 
 # ---------------------------------------------------------------------------
@@ -65,22 +71,11 @@ def period_layout(cfg: ArchConfig) -> list[SlotSpec]:
     return slots
 
 
-def _check_ported(cfg: ArchConfig, slots: list[SlotSpec]) -> None:
-    """Raise `NotImplementedError` for what only later slices build."""
-    if cfg.modality != "text":
-        raise NotImplementedError(f"{cfg.name}: the {cfg.modality} "
-                                  f"modality {_LATER}")
-    for slot in slots:
-        if slot.kind != "attn" or slot.moe or slot.cross:
-            raise NotImplementedError(
-                f"{cfg.name}: {slot} (family {cfg.family}) {_LATER}; the "
-                "port builds dense attention slots only")
-
-
-def _slot_init(gen: torch.Generator, cfg: ArchConfig, n_periods: int,
-               device) -> dict:
-    """One attention slot's parameters, each leaf stacked over
-    `n_periods`."""
+def _slot_init(gen: torch.Generator, cfg: ArchConfig, slot: SlotSpec,
+               n_periods: int, device) -> dict:
+    """One slot's parameters, each leaf stacked over `n_periods`: the
+    mixer (attention or SSM), the cross-attention of a cross slot, and
+    the FFN (MoE or dense) of attention slots and of every hybrid slot."""
     lead = (n_periods,)
 
     def norm():
@@ -88,11 +83,21 @@ def _slot_init(gen: torch.Generator, cfg: ArchConfig, n_periods: int,
                                     dtype=L.dtype_of(cfg.param_dtype),
                                     device=device)}
 
-    p = {"ln1": norm(),
-         "attn": L.attention_init(gen, cfg, lead, device=device),
-         "ln2": norm()}
-    if cfg.d_ff > 0:
-        p["mlp"] = L.mlp_init(gen, cfg, lead, device=device)
+    p = {"ln1": norm()}
+    if slot.kind == "attn":
+        p["attn"] = L.attention_init(gen, cfg, lead, device=device)
+    else:
+        p["ssm"] = S.ssm_init(gen, cfg, lead, device=device)
+    if slot.cross:
+        p["lnx"] = norm()
+        p["xattn"] = L.attention_init(gen, cfg, lead, device=device,
+                                      cross=True)
+    if slot.kind == "attn" or cfg.family == "hybrid":
+        p["ln2"] = norm()
+        if slot.moe:
+            p["moe"] = M.moe_init(gen, cfg, lead, device=device)
+        elif cfg.d_ff > 0:
+            p["mlp"] = L.mlp_init(gen, cfg, lead, device=device)
     return p
 
 
@@ -102,14 +107,13 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     (`repro.models.lm.LM.init`), drawn from `gen` on `device` (the
     generator's unless given)."""
     slots = period_layout(cfg)
-    _check_ported(cfg, slots)
     n_periods = cfg.n_layers // len(slots)
     dev = gen.device if device is None else device
     return {
         "embed": L.embedding_init(gen, cfg, device=dev),
         "final_norm": L.rmsnorm_init(cfg, device=dev),
-        "blocks": {f"slot{si}": _slot_init(gen, cfg, n_periods, dev)
-                   for si in range(len(slots))}}
+        "blocks": {f"slot{si}": _slot_init(gen, cfg, slot, n_periods, dev)
+                   for si, slot in enumerate(slots)}}
 
 
 def abstract_params(cfg: ArchConfig) -> dict:
@@ -118,25 +122,60 @@ def abstract_params(cfg: ArchConfig) -> dict:
     return init_params(cfg, torch.Generator("cpu"), device="meta")
 
 
-def _slot_apply(p: dict, cfg: ArchConfig, x: torch.Tensor,
-                positions: torch.Tensor, causal: bool, kv_out=None):
-    """One attention layer's forward (prefill path).  When `kv_out` is
-    a (k, v) pair of (B, Hkv, S, hd) buffers, this layer's K and V are
-    written into them and the kernel reads them from there."""
-    h = L.rmsnorm(p["ln1"], x)
-    q, k, v = L.attention_qkv(p["attn"], cfg, h, h, positions, positions)
-    if kv_out is not None:
-        kv_out[0].copy_(k)
-        kv_out[1].copy_(v)
-        k, v = kv_out
-    out = L.flash_attention(q, k, v, causal=causal,
-                            chunk=min(1024, k.shape[2]))
-    bs, hh, ss, hd = out.shape
-    out = out.transpose(1, 2).reshape(bs, ss, hh * hd)
-    x = x + out @ p["attn"]["wo"].to(h.dtype)
+def _cross_attention(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                     image_embeds) -> torch.Tensor:
+    """A cross slot's residual branch: the text attends to the image
+    embeddings, which sit at position 0 (no RoPE, not causal)."""
+    if image_embeds is None:
+        raise ValueError(f"{cfg.name}: a cross-attention layer needs image "
+                         "embeddings (batch['image_embeds'], or "
+                         "decode_step's image_embeds), and none were given")
+    hx = L.rmsnorm(p["lnx"], x)
+
+    def zeros(n):
+        return torch.zeros((x.shape[0], n), dtype=torch.int32,
+                           device=x.device)
+
+    return L.attention_apply(p["xattn"], cfg, hx, zeros(x.shape[1]),
+                             kv_x=image_embeds,
+                             kv_positions=zeros(image_embeds.shape[1]))
+
+
+def _ffn(p: dict, cfg: ArchConfig, x: torch.Tensor):
+    """The slot's FFN residual branch: (x, aux) with the MoE's
+    load-balance loss, or 0.0 for a dense FFN or none."""
+    if "moe" in p:
+        out, aux = M.moe_apply(p["moe"], cfg, L.rmsnorm(p["ln2"], x))
+        return x + out, aux
     if "mlp" in p:
-        x = x + L.mlp_apply(p["mlp"], cfg, L.rmsnorm(p["ln2"], x))
-    return x
+        return x + L.mlp_apply(p["mlp"], cfg, L.rmsnorm(p["ln2"], x)), 0.0
+    return x, 0.0
+
+
+def _slot_apply(p: dict, cfg: ArchConfig, slot: SlotSpec, x: torch.Tensor,
+                positions: torch.Tensor, image_embeds, causal: bool,
+                kv_out=None):
+    """One layer's forward (training / prefill path).  Returns (x, aux).
+    When `kv_out` is a (k, v) pair of (B, Hkv, S, hd) buffers, this
+    attention layer's K and V are written into them and the kernel
+    reads them from there."""
+    h = L.rmsnorm(p["ln1"], x)
+    if slot.kind == "attn":
+        q, k, v = L.attention_qkv(p["attn"], cfg, h, h, positions, positions)
+        if kv_out is not None:
+            kv_out[0].copy_(k)
+            kv_out[1].copy_(v)
+            k, v = kv_out
+        out = L.flash_attention(q, k, v, causal=causal,
+                                chunk=min(1024, k.shape[2]))
+        bs, hh, ss, hd = out.shape
+        out = out.transpose(1, 2).reshape(bs, ss, hh * hd)
+        x = x + out @ p["attn"]["wo"].to(h.dtype)
+    else:
+        x = x + S.ssd_forward(p["ssm"], cfg, h)
+    if slot.cross:
+        x = x + _cross_attention(p, cfg, x, image_embeds)
+    return _ffn(p, cfg, x)
 
 
 def _tree_map(fn, tree):
@@ -170,10 +209,10 @@ class _ParamTree(nn.Module):
 # ---------------------------------------------------------------------------
 
 class LM(nn.Module):
-    """The dense LM on one device.  Parameters come from `params` (a
-    tree like `init`'s, e.g. from `convert.lm_params_from_numpy`) or
-    else are drawn by `init` from `generator` (seed 0 on `device` when
-    none is given)."""
+    """The LM on one device.  Parameters come from `params` (a tree like
+    `init`'s, e.g. from `convert.lm_params_from_numpy`) or else are
+    drawn by `init` from `generator` (seed 0 on `device` when none is
+    given)."""
 
     def __init__(self, cfg: ArchConfig, device=DEFAULT_DEVICE,
                  generator: torch.Generator | None = None,
@@ -181,7 +220,6 @@ class LM(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.slots = period_layout(cfg)
-        _check_ported(cfg, self.slots)
         self.n_periods = cfg.n_layers // len(self.slots)
         self.device = resolve_device(device)
         if params is None:
@@ -205,24 +243,33 @@ class LM(nn.Module):
         return self.weights.tree()
 
     # ---- embedding of batch inputs ----------------------------------------
-    def _embed_inputs(self, params: dict, batch: dict) -> torch.Tensor:
-        if "image_embeds" in batch:
-            raise NotImplementedError(f"image embeddings {_LATER}")
-        return L.embed(params["embed"], self.cfg, batch["tokens"])
+    def _embed_inputs(self, params: dict, batch: dict):
+        """(x (B, S, D), image embeddings or None), in the compute type:
+        the audio encoder takes `frames` as they are (its front-end is a
+        stub), the others embed `tokens`."""
+        cdt = L.dtype_of(self.cfg.compute_dtype)
+        if self.cfg.modality == "audio":
+            x = batch["frames"].to(cdt)
+        else:
+            x = L.embed(params["embed"], self.cfg, batch["tokens"])
+        img = batch.get("image_embeds")
+        return x, None if img is None else img.to(cdt)
 
     # ---- forward over the stack -------------------------------------------
     def _period(self, period: dict, j: int, x: torch.Tensor,
-                positions: torch.Tensor, causal: bool,
-                kv_stacks=None) -> torch.Tensor:
+                positions: torch.Tensor, image_embeds, causal: bool,
+                kv_stacks=None):
         """Period `j`'s layers; `period` holds each slot's parameters of
-        this period (`_periods`)."""
-        for si in range(len(self.slots)):
+        this period (`_periods`).  Returns (x, the period's aux loss)."""
+        aux = 0.0
+        for si, slot in enumerate(self.slots):
             kv = None
-            if kv_stacks is not None:
+            if kv_stacks is not None and kv_stacks[si] is not None:
                 kv = (kv_stacks[si][0][j], kv_stacks[si][1][j])
-            x = _slot_apply(period[f"slot{si}"], self.cfg, x, positions,
-                            causal, kv)
-        return x
+            x, a = _slot_apply(period[f"slot{si}"], self.cfg, slot, x,
+                               positions, image_embeds, causal, kv)
+            aux = aux + a
+        return x, aux
 
     def _periods(self, params: dict) -> list[dict]:
         """Per-period parameter trees.  Each stacked leaf is unbound
@@ -234,43 +281,49 @@ class LM(nn.Module):
                 for j in range(self.n_periods)]
 
     def _stack(self, params: dict, x: torch.Tensor, positions: torch.Tensor,
-               causal: bool, kv_stacks=None,
-               remat: bool = False) -> torch.Tensor:
-        """All layers, period by period.  `kv_stacks`: per attention
-        slot a (k, v) pair of (n_periods, B, Hkv, S, hd) buffers that
-        collect each layer's K and V.  `remat`: keep only each period's
-        input for the backward pass and run the period again there."""
+               image_embeds, causal: bool, kv_stacks=None,
+               remat: bool = False):
+        """All layers, period by period; returns (x, the summed aux
+        loss).  `kv_stacks`: per slot, a (k, v) pair of (n_periods, B,
+        Hkv, S, hd) buffers that collect an attention slot's K and V, or
+        None.  `remat`: keep only each period's input for the backward
+        pass and run the period again there."""
+        aux = 0.0
         for j, period in enumerate(self._periods(params)):
             if remat:
-                x = checkpoint(self._period, period, j, x, positions, causal,
-                               use_reentrant=False)
+                x, a = checkpoint(self._period, period, j, x, positions,
+                                  image_embeds, causal, use_reentrant=False)
             else:
-                x = self._period(period, j, x, positions, causal, kv_stacks)
-        return x
+                x, a = self._period(period, j, x, positions, image_embeds,
+                                    causal, kv_stacks)
+            aux = aux + a
+        return x, aux
+
+    def _positions(self, x: torch.Tensor) -> torch.Tensor:
+        b, s = x.shape[0], x.shape[1]
+        return torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
 
     # ---- training loss ----------------------------------------------------
     def train_loss(self, batch: dict, params: dict | None = None):
-        """Causal LM loss of `batch["tokens"]` (B, S) on the model's
-        device: next-token NLL, plus 0.01 * aux / n_layers (aux is 0 for
-        the dense family: no router).  `params` defaults to the model's
-        own (which require gradients).  Returns (loss, {"nll", "aux"}),
-        differentiable; with `cfg.remat` each period runs again in the
-        backward pass."""
+        """Loss of `batch` on the model's device: next-token NLL of
+        `tokens` (B, S), or for the encoder (`cfg.causal` False) the NLL
+        of `labels` (B, S) at every position; plus 0.01 * aux / n_layers
+        (aux: the MoE load-balance losses summed over layers, 0 without
+        a router).  `params` defaults to the model's own (which require
+        gradients).  Returns (loss, {"nll", "aux"}), differentiable; with
+        `cfg.remat` each period runs again in the backward pass."""
         cfg = self.cfg
-        if not cfg.causal:
-            raise NotImplementedError(
-                f"{cfg.name}: the encoder loss (batch['labels']) waits "
-                "for a later slice of the port (ROADMAP queue 1 item 8.5)")
         params = self.params if params is None else params
-        x = self._embed_inputs(params, batch)
-        b, s = x.shape[0], x.shape[1]
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=x.device).expand(b, s)
-        x = self._stack(params, x, positions, cfg.causal, remat=cfg.remat)
-        aux = 0.0
+        x, img = self._embed_inputs(params, batch)
+        x, aux = self._stack(params, x, self._positions(x), img, cfg.causal,
+                             remat=cfg.remat)
         x = L.rmsnorm(params["final_norm"], x)
-        logits = L.unembed(params["embed"], cfg, x)[:, :-1]
-        targets = batch["tokens"][:, 1:].long()
+        logits = L.unembed(params["embed"], cfg, x)
+        if cfg.causal:
+            targets = batch["tokens"][:, 1:].long()
+            logits = logits[:, :-1]
+        else:
+            targets = batch["labels"].long()
         logp = F.log_softmax(logits, dim=-1)
         nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
         loss = nll.mean() + 0.01 * aux / max(cfg.n_layers, 1)
@@ -279,60 +332,80 @@ class LM(nn.Module):
     # ---- prefill ------------------------------------------------------------
     @torch.no_grad()
     def prefill(self, batch: dict):
-        """Forward pass building the serve cache.  `batch["tokens"]`:
-        (B, S) integer tokens on the model's device.  Returns
+        """Forward pass building the serve cache.  `batch`: `tokens`
+        (B, S) integers (or the encoder's `frames` (B, S, D)) on the
+        model's device, and `image_embeds` for the VLM.  Returns
         (last_logits (B, 1, V) float32, cache) with cache["kv"] one
-        (k, v) pair per attention slot, each (n_periods, B, Hkv, S, hd)
-        in the compute type."""
+        (k, v) pair per attention slot in slot order, each (n_periods,
+        B, Hkv, S, hd) in the compute type, and cache["ssm"] None: as
+        in the reference, prefill hands back no SSM state."""
         cfg = self.cfg
         params = self.params
-        x = self._embed_inputs(params, batch)
+        x, img = self._embed_inputs(params, batch)
         b, s = x.shape[0], x.shape[1]
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=x.device).expand(b, s)
         shape = (self.n_periods, b, cfg.n_kv_heads, s, cfg.head_dim)
-        kv_stacks = tuple(
+        kv_stacks = [
             (torch.empty(shape, dtype=x.dtype, device=x.device),
              torch.empty(shape, dtype=x.dtype, device=x.device))
-            for _ in self.slots)
-        x = self._stack(params, x, positions, cfg.causal, kv_stacks)
+            if slot.kind == "attn" else None for slot in self.slots]
+        x, _ = self._stack(params, x, self._positions(x), img, cfg.causal,
+                           kv_stacks)
         x = L.rmsnorm(params["final_norm"], x)
         logits = L.unembed(params["embed"], cfg, x[:, -1:])
-        return logits, {"kv": kv_stacks, "ssm": None}
+        return logits, {"kv": tuple(kv for kv in kv_stacks
+                                    if kv is not None), "ssm": None}
 
     # ---- serve cache --------------------------------------------------------
     def init_cache(self, batch_size: int, max_seq: int,
                    dtype: torch.dtype = torch.bfloat16) -> dict:
         """Zeroed decode cache: per attention slot a stacked
-        (n_periods, B, Hkv, S_max, hd) K/V pair."""
+        (n_periods, B, Hkv, S_max, hd) K/V pair in `dtype`; per SSM slot
+        a stacked (n_periods, B, nh, ds, hd) float32 state `h`."""
         cfg = self.cfg
-        shape = (self.n_periods, batch_size, cfg.n_kv_heads, max_seq,
-                 cfg.head_dim)
-        return {f"slot{si}": {
-            "k": torch.zeros(shape, dtype=dtype, device=self.device),
-            "v": torch.zeros(shape, dtype=dtype, device=self.device)}
-            for si in range(len(self.slots))}
+        cache = {}
+        for si, slot in enumerate(self.slots):
+            if slot.kind == "attn":
+                shape = (self.n_periods, batch_size, cfg.n_kv_heads,
+                         max_seq, cfg.head_dim)
+                cache[f"slot{si}"] = {
+                    "k": torch.zeros(shape, dtype=dtype, device=self.device),
+                    "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+            else:
+                cache[f"slot{si}"] = {"h": torch.zeros(
+                    (self.n_periods, batch_size, cfg.ssm_heads,
+                     cfg.ssm_state, cfg.ssm_head_dim),
+                    dtype=torch.float32, device=self.device)}
+        return cache
 
     # ---- decode step --------------------------------------------------------
     @torch.no_grad()
-    def decode_step(self, cache: dict, tokens: torch.Tensor, position: int):
-        """tokens: (B, 1) integer; position: int.  Returns (logits
-        (B, 1, V) float32, cache).  The cache is updated in place (the
-        reference returns a new one) and returned."""
+    def decode_step(self, cache: dict, tokens: torch.Tensor, position: int,
+                    image_embeds: torch.Tensor | None = None):
+        """tokens: (B, 1) integer; position: int; `image_embeds` (B,
+        n_image_tokens, D) for the VLM, whose cross slots recompute their
+        K/V from them each step.  Returns (logits (B, 1, V) float32,
+        cache).  The cache is updated in place (the reference returns a
+        new one) and returned."""
         cfg = self.cfg
         params = self.params
+        cdt = L.dtype_of(cfg.compute_dtype)
         x = L.embed(params["embed"], cfg, tokens)
+        img = None if image_embeds is None else image_embeds.to(cdt)
         for j in range(self.n_periods):
-            for si in range(len(self.slots)):
+            for si, slot in enumerate(self.slots):
                 p = _tree_map(lambda t: t[j], params["blocks"][f"slot{si}"])
                 c = cache[f"slot{si}"]
                 h = L.rmsnorm(p["ln1"], x)
-                out, _, _ = L.attention_decode(p["attn"], cfg, h, c["k"][j],
-                                               c["v"][j], position)
+                if slot.kind == "attn":
+                    out, _, _ = L.attention_decode(
+                        p["attn"], cfg, h, c["k"][j], c["v"][j], position)
+                else:
+                    out, nh = S.ssd_decode(p["ssm"], cfg, h, c["h"][j])
+                    c["h"][j].copy_(nh)
                 x = x + out
-                if "mlp" in p:
-                    x = x + L.mlp_apply(p["mlp"], cfg,
-                                        L.rmsnorm(p["ln2"], x))
+                if slot.cross:
+                    x = x + _cross_attention(p, cfg, x, img)
+                x, _ = _ffn(p, cfg, x)
         x = L.rmsnorm(params["final_norm"], x)
         return L.unembed(params["embed"], cfg, x), cache
 

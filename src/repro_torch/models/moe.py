@@ -1,0 +1,145 @@
+"""Mixture-of-Experts (dropping, capacity-bounded) on torch: the port of
+`repro.models.moe`.
+
+The reference's gather/scatter formulation, with no (T, E, C) one-hot
+dispatch tensor:
+
+  1. router top-k per token on float32 probabilities;
+  2. tokens ranked within their expert by a stable sort of the flat
+     (token, slot) assignments; a rank at or past the capacity is
+     dropped (capacity = tokens * k / E * capacity_factor, per group;
+     the group is the batch row, as in the reference);
+  3. gather (E, C, D) expert inputs, padded slots reading a zero row;
+  4. the expert products, batched over experts (`torch.bmm`; the
+     reference computes them in plain `jnp.einsum`, outside any Pallas
+     kernel);
+  5. scatter-add back with the router weights (`index_add`, whose float
+     sum order differs from the reference's `.at[].add`).
+
+The reference `vmap`s step 2-5 over groups; here the groups are a
+leading batch axis and the expert products take every group's slots at
+once.  The Switch-style auxiliary load-balance loss is returned for
+training.  Expert weights are cast to the compute type at every call,
+as in the reference (at Jamba's width that is 1.9 GB of transient
+memory per bf16 weight).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..configs.base import ArchConfig
+from .layers import _activate, dense_init, dtype_of
+
+
+def moe_init(gen: torch.Generator, cfg: ArchConfig, lead: tuple = (),
+             device=None) -> dict:
+    """Router and expert weights; `lead` prepends stacking dims (the
+    LM's n_periods) to every leaf."""
+    pdt = dtype_of(cfg.param_dtype)
+    dev = gen.device if device is None else device
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    params = {
+        "router": dense_init(gen, (*lead, d, e), pdt, device=dev),
+        "w_up": dense_init(gen, (*lead, e, d, f), pdt, device=dev),
+        "w_down": dense_init(gen, (*lead, e, f, d), pdt,
+                             scale=1.0 / math.sqrt(f * 2 * cfg.n_layers),
+                             device=dev),
+    }
+    if cfg.activation in ("swiglu", "geglu"):
+        params["w_gate"] = dense_init(gen, (*lead, e, d, f), pdt, device=dev)
+    return params
+
+
+def _capacity(cfg: ArchConfig, tokens_per_group: int) -> int:
+    c = int(tokens_per_group * cfg.experts_per_token / cfg.n_experts
+            * cfg.capacity_factor)
+    return max(c, 1)
+
+
+def top_k(probs: torch.Tensor, k: int):
+    """(values, indices) of the `k` largest entries of the last axis,
+    ties to the lower index (as `jax.lax.top_k`; `torch.topk` does not
+    promise an order among equals): a stable descending sort."""
+    values, indices = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+def route(params: dict, cfg: ArchConfig, x: torch.Tensor):
+    """Router of `x` (G, T, D): (probs (G, T, E) float32, gate weights
+    (G, T, k) renormalised over the k picks, expert indices (G, T, k))."""
+    cdt = dtype_of(cfg.compute_dtype)
+    logits = (x @ params["router"].to(cdt)).float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_w, gate_i = top_k(probs, cfg.experts_per_token)
+    gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, gate_w, gate_i
+
+
+def dispatch(gate_i: torch.Tensor, gate_w: torch.Tensor, n_experts: int,
+             cap: int):
+    """Each group's (E, C) slot table: the token in each slot (T, the
+    padding row, where empty) and its router weight (0 where empty).
+    gate_i, gate_w: (G, T, k).  Assignments are ranked within their
+    expert in (token, slot) order; ranks at or past `cap` are dropped,
+    not clamped onto the last slot.  Returns (idx (G, E, C) int64,
+    w (G, E, C) float32)."""
+    g, t, k = gate_i.shape
+    flat_e = gate_i.reshape(g, t * k)
+    flat_w = gate_w.reshape(g, t * k)
+    flat_tok = torch.arange(t, device=gate_i.device).repeat_interleave(k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, order)
+    sorted_w = torch.gather(flat_w, 1, order)
+    counts = torch.zeros((g, n_experts), dtype=torch.int64,
+                         device=gate_i.device).scatter_add_(
+        1, flat_e, torch.ones_like(flat_e))
+    offsets = torch.cumsum(counts, dim=-1) - counts
+    pos = torch.arange(t * k, device=gate_i.device) \
+        - torch.gather(offsets, 1, sorted_e)
+    # Kept assignments go to slot (e, pos); dropped ones to one spare
+    # column past the table, cut off below.
+    slot = torch.where(pos < cap, sorted_e * cap + pos, n_experts * cap)
+    idx = torch.full((g, n_experts * cap + 1), t, dtype=torch.int64,
+                     device=gate_i.device).scatter(1, slot, flat_tok[order])
+    w = torch.zeros((g, n_experts * cap + 1), dtype=torch.float32,
+                    device=gate_i.device).scatter(1, slot, sorted_w)
+    return (idx[:, :-1].reshape(g, n_experts, cap),
+            w[:, :-1].reshape(g, n_experts, cap))
+
+
+def moe_apply(params: dict, cfg: ArchConfig, x: torch.Tensor):
+    """x: (G, T, D); G is the group axis (the batch).  Returns (out
+    (G, T, D) in the compute type, aux loss, a float32 scalar)."""
+    cdt = dtype_of(cfg.compute_dtype)
+    g, t, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    cap = _capacity(cfg, t)
+    probs, gate_w, gate_i = route(params, cfg, x)
+
+    # Switch aux loss: mean prob x mean assignment fraction per expert.
+    me = probs.mean(dim=(0, 1))
+    ce = torch.zeros((e,), dtype=torch.float32, device=x.device).index_add(
+        0, gate_i.reshape(-1),
+        torch.full((g * t * k,), 1.0 / (g * t * k), device=x.device))
+    aux = e * torch.sum(me * ce)
+
+    idx, w = dispatch(gate_i, gate_w, e, cap)
+    x_pad = torch.cat([x, x.new_zeros((g, 1, d))], dim=1)    # (G, T+1, D)
+    x_ec = torch.gather(x_pad, 1, idx.reshape(g, e * cap, 1)
+                        .expand(-1, -1, d))                   # (G, E*C, D)
+    # Experts lead: (E, G*C, D) @ (E, D, F).
+    xe = x_ec.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
+    u = torch.bmm(xe, params["w_up"].to(cdt))
+    gt = torch.bmm(xe, params["w_gate"].to(cdt)) \
+        if "w_gate" in params else None
+    h = _activate(cfg.activation, u, gt)
+    y = torch.bmm(h, params["w_down"].to(cdt))               # (E, G*C, D)
+    y = y.reshape(e, g, cap, d).transpose(0, 1) \
+        * w[..., None].to(cdt)                                # (G, E, C, D)
+    rows = (idx + torch.arange(g, device=x.device)[:, None, None]
+            * (t + 1)).reshape(-1)
+    out = torch.zeros((g * (t + 1), d), dtype=cdt, device=x.device) \
+        .index_add(0, rows, y.reshape(-1, d))
+    return out.reshape(g, t + 1, d)[:, :t], aux

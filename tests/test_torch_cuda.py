@@ -90,3 +90,24 @@ def test_cuda_bf16_backward_runs_on_wgmma_and_is_deterministic():
             <= 2e-2 * w.float().abs().max()
     unseen = off + sq
     assert not got[1][:, :, unseen:].any() and not got[2][:, :, unseen:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_head_dims_outside_the_kernels_raise(dtype):
+    """No fallback: the forward takes the configs' head dims and raises
+    on another; the backward raises outside (32, 64, 128)."""
+    _card()
+
+    def qkv(d):
+        return [torch.randn((1, 2, 64, d), device="cuda").to(dtype)
+                for _ in range(3)]
+
+    for d in T_fa.FWD_HEAD_DIMS:
+        assert T_fa.attend(*qkv(d), causal=True).shape == (1, 2, 64, d)
+    with pytest.raises(ValueError, match="head dims"):
+        T_fa.attend(*qkv(96), causal=True)
+    q, k, v = qkv(80)
+    out, lse = T_fa.attend(q, k, v, causal=True, return_lse=True)
+    with pytest.raises(ValueError, match="head dims"):
+        T_fa.attend_backward(q, k, v, out, out, lse, causal=True)

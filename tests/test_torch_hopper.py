@@ -77,7 +77,7 @@ def test_flash_variant_by_type():
     assert T_flash.variant(torch.float32) == "simt"
     cases = CHIP_SMOKE.FLASH_CASES
     assert (1, 16, 8, 130, 4133, 128, True, 4003) in cases
-    assert {c[5] for c in cases} == set(T_flash.HEAD_DIMS)
+    assert {c[5] for c in cases} == set(T_flash.FWD_HEAD_DIMS)
 
 
 def _c_entries(source: str) -> set[str]:
@@ -131,10 +131,19 @@ def tc_flash_emulation(q, k, v, *, causal, bkv=128, round_p=True):
     return (acc / l_sum.clamp_min(1e-30)[..., None]).bfloat16()
 
 
-@pytest.mark.parametrize("d", [32, 128])
+def tc_keys_per_tile(d: int) -> int:
+    """The wgmma kernel's K/V tile by head dim (`Tile<D>::BKV` in
+    flash_attention.cu): 128 keys up to D = 128, 64 above."""
+    return 64 if d > 128 else 128
+
+
+@pytest.mark.parametrize("d", [32, 80, 112, 128, 192, 256])
 def test_bf16_flash_numerics_within_reference_tolerance(d):
     """Rounding P to bf16 before P @ V keeps the port within the bf16
-    tolerance: GQA 4 over 2, causal, S 256 (two 128-key tiles)."""
+    tolerance: GQA 4 over 2, causal, S 256 (two 128-key tiles, or four
+    64-key tiles above D = 128), at every head dim of the model configs
+    (the kernel holds D = 80 and 112 as 128 columns, zero past D, which
+    adds nothing to the scores)."""
     b, hq, hkv, s = 1, 4, 2, 256
     rng = np.random.default_rng(d)
     arrs = [rng.standard_normal(shape).astype(np.float32)
@@ -144,14 +153,16 @@ def test_bf16_flash_numerics_within_reference_tolerance(d):
     ref = np.asarray(R_ops.gqa_flash_attention(
         jq, jk, jv, causal=True, bq=128, bkv=128, interpret=True),
         np.float32)
-    got = tc_flash_emulation(tq, tk, tv, causal=True)
+    got = tc_flash_emulation(tq, tk, tv, causal=True,
+                             bkv=tc_keys_per_tile(d))
     err = float(np.abs(got.float().numpy() - ref).max())
     print(f"bf16 tensor-core flash emulation, d={d}: max |err| {err:.3g} "
           f"against the Pallas reference (tolerance {BF16_TOL})")
     np.testing.assert_allclose(got.float().numpy(), ref, rtol=BF16_TOL,
                                atol=BF16_TOL)
     # Rounding P is a real departure from float32 P, not a no-op.
-    exact_p = tc_flash_emulation(tq, tk, tv, causal=True, round_p=False)
+    exact_p = tc_flash_emulation(tq, tk, tv, causal=True,
+                                 bkv=tc_keys_per_tile(d), round_p=False)
     assert not torch.equal(got, exact_p)
 
 
@@ -267,7 +278,7 @@ def test_flash_backward_variant_by_type():
         assert "dispatch(" in body
     cases = CHIP_SMOKE.FLASH_BWD_CASES
     assert (1, 16, 8, 130, 4133, 128, True, 4003) in cases
-    assert {c[5] for c in cases} == set(T_flash.HEAD_DIMS)
+    assert {c[5] for c in cases} == set(T_flash.BWD_HEAD_DIMS)
 
 
 def test_library_path_hashes_shared_headers(tmp_path, monkeypatch):

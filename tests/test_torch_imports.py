@@ -81,12 +81,14 @@ def test_port_imports_with_jax_and_reference_blocked():
     "repro_torch.serve.server", "repro_torch.runtime.fault_tolerance",
     "repro_torch.launch.train", "repro_torch.train.train_step",
     "repro_torch.train.optimizer", "repro_torch.data.pipeline",
-    "repro_torch.workloads.lm_extract"])
+    "repro_torch.workloads.lm_extract", "repro_torch.models.moe",
+    "repro_torch.models.ssm", "repro_torch.models.lm",
+    "repro_torch.launch.serve"])
 def test_serving_slice_modules_are_held_to_the_rules(module):
-    """The serving and training slices' modules are among the modules the
-    blocked-import run above imports, and none calls a clock itself:
-    `time.monotonic` appears only as a reference (a default to inject),
-    never called."""
+    """The serving, training and LM-family slices' modules are among the
+    modules the blocked-import run above imports, and none calls a clock
+    itself: `time.monotonic` appears only as a reference (a default to
+    inject), never called."""
     assert module in _port_modules()
     path = ROOT / "src" / (module.replace(".", "/") + ".py")
     tree = ast.parse(path.read_text())

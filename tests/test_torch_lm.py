@@ -13,8 +13,9 @@
   decode-vs-prefill test allows 0.15) and K/V caches to 0.02 + 2%
   (largest 0.031: one bfloat16 rounding step of an entry near 5).
 - The port's init: the reference's tree names, shapes and types.
-- The serve CLI on the CPU, and `NotImplementedError` for the families
-  a later slice ports.
+- The serve CLI on the CPU, and `--ckpt-dir` on a checkpoint the
+  reference wrote.  The other families are held to the reference in
+  tests/test_torch_lm_families.py.
 """
 import dataclasses
 import os
@@ -260,15 +261,6 @@ def test_lm_params_from_numpy_rejects_wrong_tree():
         convert.lm_params_from_numpy(cfg, params, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["phi3_5_moe_42b", "kimi_k2_1t",
-                                  "mamba2_1_3b", "jamba_v0_1_52b",
-                                  "llama_3_2_vision_90b", "hubert_xlarge"])
-def test_unported_family_raises(arch):
-    cfg = get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        build_model(cfg, device="cpu")
-
-
 def test_entry_points_default_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -287,10 +279,31 @@ def test_serve_cli_on_cpu():
     assert "tok/s" in proc.stdout
 
 
-def test_serve_cli_ckpt_dir_waits_for_checkpoint_slice(tmp_path):
+@pytest.mark.parametrize("arch", ["qwen3_0_6b", "kimi_k2_1t"])
+def test_serve_cli_restores_a_reference_checkpoint(arch, tmp_path):
+    """`--ckpt-dir` on a checkpoint the reference's `checkpoint.save`
+    wrote (Kimi K2's parameters are bfloat16): the step is logged as
+    the reference logs it, and the served tokens equal those of a port
+    model built from the same parameters."""
+    from repro.checkpoint import checkpoint as R_ckpt
     from repro_torch.launch import serve
 
-    args = serve.parse_args(["--reduced", "--device", "cpu",
-                             "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="queue 1 item 8.7"):
-        serve.run(args, clock=lambda: 0.0)
+    rcfg = R_get_config(arch, reduced=True)
+    params = _np_tree(R_build(rcfg).init(jax.random.PRNGKey(5))[0])
+    R_ckpt.save(tmp_path, 7, {"params": params, "opt": {"step": np.int32(7)}})
+    argv = ["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "4", "--gen", "6", "--seed", "3"]
+    logs = []
+    seq, _ = serve.run(serve.parse_args(argv + ["--ckpt-dir", str(tmp_path)]),
+                       clock=lambda: 0.0, log=logs.append)
+    assert logs == [f"[serve] restored step 7 from {tmp_path}"]
+    args = serve.parse_args(argv)
+    cfg = get_config(arch, reduced=True)
+    direct = convert.lm_params_from_numpy(cfg, params, device="cpu")
+    want, _ = serve.decode(direct, serve.prompts_for(args, cfg.vocab_size),
+                           args.gen, clock=lambda: 0.0)
+    assert seq.shape == (2, 10)
+    torch.testing.assert_close(seq, want, rtol=0, atol=0)
+    # Not the seed's model: the parameters came from the checkpoint.
+    seeded, _ = serve.run(args, clock=lambda: 0.0)
+    assert not torch.equal(seeded, seq)

@@ -162,13 +162,6 @@ def test_remat_runs_each_period_again_in_the_backward():
     assert calls == {True: 2 * n, False: n}
 
 
-def test_encoder_loss_waits_for_its_item():
-    _, _, port = _models()
-    port.cfg = dataclasses.replace(port.cfg, causal=False)
-    with pytest.raises(NotImplementedError, match="8.5"):
-        port.train_loss({"tokens": torch.zeros((1, 4), dtype=torch.int32)})
-
-
 # ---------------------------------------------------------------------------
 # The train step
 # ---------------------------------------------------------------------------
