@@ -41,6 +41,25 @@ prefill at full width.  The training path comes next, counts set to 0:
   the trained model directly; a profiled step; the reduced LM's
   training on the card against the CPU.
 
+The other families train next at their configs' published widths,
+counts set to 0 before each, 4 steps of 8 x 512 tokens (HuBERT: frames)
+through `make_train_step` on the config's optimizer (bf16 compute,
+remat), each step's attention calls and flash launches gated (2
+forward and 1 backward launch a call, all on wgmma, at the config's
+head dim):
+
+- `lm_train_mamba2_1_3b` (whole, 48 SSD layers, no flash launch),
+  `lm_train_phi3_5_moe_42b` (2 of 32 layers: the MoE router, dispatch
+  and expert products under autograd), `lm_train_hubert_xlarge` (whole,
+  full attention at D 80), `lm_train_gemma_7b` (4 of 28 layers, D 256;
+  one step profiled by kernel), `lm_train_llama_3_2_vision_90b` (one
+  period, 5 of 100 layers, with its cross-attention over 4096 image
+  embeddings; Adafactor on bf16 parameters);
+- `lm_train_families_card_vs_cpu`: the six families' reduced configs,
+  3 float32 steps, each step from the same state on the card and the
+  CPU, losses and parameters within the CPU tolerances; the MoE
+  router's picks compared.
+
 The other families' serving paths come next, counts set to 0 before
 each, each at its config's full width (one period where the whole
 model does not fit the card), prefill of 4 x 4096 and the serve loop
@@ -101,10 +120,10 @@ Then the co-search service, counts again set to 0:
   own; the reference's metric families and span names.
 
 Last, it times the three kernels (the wgmma variants of the main path,
-the float32 flash on its simt kernel, the flash forward also at
-HuBERT's head dim 80 and Gemma's 256, and the backward at the flash
-shape and at the training shape) beside their bounds, plain versions
-and library calls.
+the float32 flash on its simt kernel, the flash forward and backward
+also at HuBERT's head dim 80 and Gemma's 256, and the backward at the
+training shape) beside their bounds, plain versions and library
+calls.
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The second-to-last lines are the kernel summary and the card's name and
 power limit (from nvidia-smi); the last line is
@@ -189,6 +208,16 @@ FLASH_TIMING_SHAPES = [((4, 16, 16, 4096, 80), False, 7),
 # tiles, a causal query block after a prefix, the training shape of
 # Qwen3-0.6B's attention at batch 2, and the forward's long ragged case
 # (Sk = 4133 no multiple of a 64- or 128-key tile, after a prefix).
+# Then the other head dims of the model configs: HuBERT-XLarge's 80
+# (full, ragged Sq and Sk), Kimi K2's 112 (GQA 8 over 1, causal after a
+# prefix), Nemotron-4's 192 (causal, GQA) and Gemma-7B's 256 (full and
+# causal, the split 64-row tiles on wgmma), and a long full case of 128
+# queries over 4096 keys with GQA 8 over 1.  Last, the attention shapes
+# of the family training phases (TRAIN_FAMILIES) at batch 2: HuBERT-
+# XLarge (16 heads of 80, full), Gemma-7B (16 of 256, causal), Phi-3.5-
+# MoE (32 over 8 KV heads of 128, causal), Llama-3.2-Vision's self-
+# attention (64 over 8, causal) and its cross-attention (512 text
+# queries over 4096 image keys, full).
 # Tolerance: the largest error of each gradient within this share of
 # the plain gradient's largest magnitude.
 FLASH_BWD_CASES = [
@@ -197,6 +226,15 @@ FLASH_BWD_CASES = [
     (1, 4, 4, 100, 300, 64, True, 200), (1, 2, 1, 333, 333, 32, False, 0),
     (2, 16, 8, 512, 512, 128, True, 0),
     (1, 16, 8, 130, 4133, 128, True, 4003),
+    (2, 4, 4, 200, 333, 80, False, 0), (1, 4, 2, 300, 300, 80, True, 0),
+    (1, 8, 1, 200, 333, 112, True, 133), (1, 4, 4, 257, 257, 112, False, 0),
+    (1, 4, 2, 300, 300, 192, True, 0), (1, 4, 4, 200, 333, 192, False, 0),
+    (1, 4, 4, 257, 257, 256, False, 0), (2, 4, 2, 100, 1000, 256, True, 900),
+    (1, 4, 4, 300, 300, 256, True, 0),
+    (2, 8, 1, 128, 4096, 128, False, 0),
+    (2, 16, 16, 512, 512, 80, False, 0), (2, 16, 16, 512, 512, 256, True, 0),
+    (2, 32, 8, 512, 512, 128, True, 0), (2, 64, 8, 512, 512, 128, True, 0),
+    (2, 64, 8, 512, 4096, 128, False, 0),
 ]
 FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # The forward's log-sum-exp against the plain one (either type: the
@@ -218,6 +256,15 @@ TRAIN_ROLLBACK_RTOL = 1e-3
 # tolerances of tests/test_torch_train.py (losses rtol 1e-5, parameters
 # rtol and atol 1e-4).
 TRAIN_CARD_CPU = dict(loss_rtol=1e-5, param_tol=1e-4)
+# The families' reduced configs, card against CPU from the same state:
+# each step's gradient norm (rtol, as the CPU test against the reference
+# holds it) and each parameter leaf's gradient, its largest error within
+# this share of the leaf's largest CPU gradient.  The optimizers barely
+# see a gradient's scale (AdamW's first step moves each element by about
+# lr * sign(g)), so the parameters alone would pass a backward wrong by
+# a factor.  tests/torch_adam_drift_card.py read every leaf within
+# 3.8e-5 (NVIDIA H100 80GB HBM3, 700.00 W).
+TRAIN_GRAD_CARD_CPU = dict(grad_norm_rtol=1e-5, grad_share=1e-4)
 # Teacher-forced decode against prefill at full width, float32 compute:
 # logits and K/V stacks within this (rtol and atol).
 DECODE_TOL_F32 = 1e-3
@@ -250,6 +297,36 @@ MAMBA_BF16_GAP = 2 * MAMBA_REF_GAP
 # The reduced configs of the six families in float32, card against CPU:
 # prefill (2 x 128 tokens) and 3 decode steps, logits within this.
 FAMILY_CARD_CPU_TOL = 1e-4
+
+# Training of the other families on the card (ROADMAP item 8.8), each at
+# its config's published widths through the port's training path
+# (`make_train_step`: `LM.train_loss` with remat, the flash forward with
+# its LSE and the backward kernel, the config's optimizer in place), on
+# the data pipeline's batches of TRAIN_FAMILY_B x TRAIN_FAMILY_S tokens
+# (HuBERT: frames and labels; the VLM: its image embeddings), seed 0,
+# TRAIN_FAMILY_STEPS steps of which the first is untimed.  (arch, phase,
+# layers run or None for all, the attention calls of one forward pass as
+# (Sq, Sk, D, causal) and their count.)  Depth is cut where the whole
+# model does not fit the card: Phi-3.5-MoE 2 of 32 layers, Gemma-7B 4 of
+# 28, Llama-3.2-Vision one period, 5 of 100.  Jamba (one period: 13.27B
+# f32 parameters under AdamW, about 212 GB), Kimi K2 and Nemotron-4 fit
+# no single card at full width: Jamba and Kimi K2 train only in
+# `lm_train_families_card_vs_cpu` at their reduced configs, Nemotron-4's
+# reduced form is dense, as in `lm_train_card_vs_cpu`.
+TRAIN_FAMILY_B, TRAIN_FAMILY_S = 8, 512
+TRAIN_FAMILY_STEPS = 4
+TRAIN_FAMILIES = (
+    ("mamba2_1_3b", "lm_train_mamba2_1_3b", None, []),
+    ("phi3_5_moe_42b", "lm_train_phi3_5_moe_42b", 2,
+     [((512, 512, 128, True), 2)]),
+    ("hubert_xlarge", "lm_train_hubert_xlarge", None,
+     [((512, 512, 80, False), 48)]),
+    ("gemma_7b", "lm_train_gemma_7b", 4, [((512, 512, 256, True), 4)]),
+    ("llama_3_2_vision_90b", "lm_train_llama_3_2_vision_90b", 5,
+     [((512, 512, 128, True), 5), ((512, 4096, 128, False), 1)]),
+)
+# The family whose warm step is profiled by kernel.
+TRAIN_FAMILY_PROFILED = "gemma_7b"
 
 # Fig. 10's training set (benchmarks/fig10_11_pred_accuracy.py): the
 # training networks' 50 layers at published dims, 1567 // 50 = 31
@@ -1233,12 +1310,13 @@ def phase_flash_bwd_vs_plain(torch, fa_mod, attention_ref,
           "lse_tolerance": FLASH_LSE_TOL})
 
 
-def _flash_bwd_time(torch, fa_mod, attention_bwd_ref, shape, seed):
+def _flash_bwd_time(torch, fa_mod, attention_bwd_ref, shape, seed,
+                    causal=True):
     """The backward kernel at one shape (b, hq, hkv, s, d), bf16,
-    causal: held against the plain backward, timed beside it and beside
-    SDPA's backward (autograd of `scaled_dot_product_attention` with
-    `enable_gqa`, backward only); its bound.  Returns the numbers and
-    the variant the kernel ran on."""
+    causal or full: held against the plain backward, timed beside it
+    and beside SDPA's backward (autograd of
+    `scaled_dot_product_attention` with `enable_gqa`, backward only);
+    its bound.  Returns the numbers and the variant the kernel ran on."""
     import torch.nn.functional as F
 
     b, hq, hkv, s, d = shape
@@ -1250,14 +1328,14 @@ def _flash_bwd_time(torch, fa_mod, attention_bwd_ref, shape, seed):
 
     q, k, v, do = randn(b, hq, s, d), randn(b, hkv, s, d), \
         randn(b, hkv, s, d), randn(b, hq, s, d)
-    o, lse = fa_mod.attend(q, k, v, causal=True, return_lse=True)
+    o, lse = fa_mod.attend(q, k, v, causal=causal, return_lse=True)
     args = (q, k, v, o, do, lse)
     before = dict(fa_mod.attend_backward.launches_by_variant)
-    got = fa_mod.attend_backward(*args, causal=True)
+    got = fa_mod.attend_backward(*args, causal=causal)
     ran = [var for var, n in fa_mod.attend_backward.launches_by_variant
            .items() if n != before[var]]
     check(len(ran) == 1, f"flash bwd timing {shape}: launches {ran}")
-    want = attention_bwd_ref(*args, causal=True)
+    want = attention_bwd_ref(*args, causal=causal)
     errs = [(g.float() - w.float()).abs().max().item()
             for g, w in zip(got, want)]
     shares = [e / w.float().abs().max().item() for e, w in zip(errs, want)]
@@ -1265,25 +1343,26 @@ def _flash_bwd_time(torch, fa_mod, attention_bwd_ref, shape, seed):
           f"flash bwd timing shape {shape}: errors {errs}, shares {shares}")
     del got, want
     small = s <= 1024    # short calls: 10 back-to-back per timed run
-    ms = cuda_ms(lambda: fa_mod.attend_backward(*args, causal=True),
+    ms = cuda_ms(lambda: fa_mod.attend_backward(*args, causal=causal),
                  warmup=3, iters=20 if small else 10, reps=10 if small else 1)
-    plain_ms = cuda_ms(lambda: attention_bwd_ref(*args, causal=True),
+    plain_ms = cuda_ms(lambda: attention_bwd_ref(*args, causal=causal),
                        warmup=1, iters=10 if small else 3)
     ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
-    out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+    out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
                                          enable_gqa=True)
     library_ms = cuda_ms(lambda: torch.autograd.grad(
         out, (ql, kl, vl), do, retain_graph=True), iters=10,
         reps=10 if small else 1)
     del out, ql, kl, vl
-    pairs = b * hq * s * (s + 1) // 2
+    pairs = b * hq * (s * (s + 1) // 2 if causal else s * s)
     flops = 2.5 * 4.0 * d * pairs
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
         + 2 * lse.numel() * 4
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return ran[0], {
-        "shape_b_hq_hkv_s_d": list(shape), "ms": ms, "plain_ms": plain_ms,
+        "shape_b_hq_hkv_s_d": list(shape), "causal": causal, "ms": ms,
+        "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "flops": flops, "bytes": nbytes,
@@ -1295,32 +1374,41 @@ def _flash_bwd_time(torch, fa_mod, attention_bwd_ref, shape, seed):
 def phase_flash_bwd_timing(torch, fa_mod, attention_bwd_ref, launches):
     """The backward kernel at PERF.md's flash shape (q (4, 16, 4096,
     128), k, v (4, 8, 4096, 128)) and at the training shape of
-    Qwen3-0.6B (q (8, 16, 512, 128)), bf16, causal, each beside its
-    bound, the plain backward and SDPA's backward.  The kernel row is
-    the flash shape's, with the training shape's numbers beside it."""
+    Qwen3-0.6B (q (8, 16, 512, 128)), bf16, causal, then at the
+    forward's other timed head dims (FLASH_TIMING_SHAPES: HuBERT's 80,
+    full; Gemma's 256, causal), each beside its bound, the plain
+    backward and SDPA's backward.  The kernel row is the flash shape's,
+    with the others' numbers beside it."""
     var, flash = _flash_bwd_time(torch, fa_mod, attention_bwd_ref,
                                  (PREFILL_B, 16, 8, PREFILL_S, 128), 5)
     train_var, train = _flash_bwd_time(torch, fa_mod, attention_bwd_ref,
                                        (8, 16, 8, 512, 128), 6)
-    check(var == train_var == fa_mod.variant(torch.bfloat16),
-          f"flash bwd timing ran on {var}, {train_var}")
+    others = [_flash_bwd_time(torch, fa_mod, attention_bwd_ref, shape,
+                              seed, causal)
+              for shape, causal, seed in FLASH_TIMING_SHAPES]
+    variants = {var, train_var} | {v for v, _ in others}
+    check(variants == {fa_mod.variant(torch.bfloat16)},
+          f"flash bwd timing ran on {variants}")
+    keys = ("shape_b_hq_hkv_s_d", "causal", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "max_abs_err")
     row = {"name": "flash_attention_bwd", "variant": var,
            "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
            "replaces": "src/repro/models/layers.py:74",
            "replaces_note": "no Pallas backward: the reference "
                             "differentiates this jnp flash loop",
+           "head_dims": list(fa_mod.HEAD_DIMS),
            "launches": launches, "max_abs_err": flash["max_abs_err"],
            "ms": flash["ms"], "plain_ms": flash["plain_ms"],
            "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
            "library_ms": flash["library_ms"], "held_against_plain": True,
-           "at_train_shape": {key: train[key] for key in (
-               "shape_b_hq_hkv_s_d", "ms", "plain_ms", "library_ms",
-               "bound_ms", "bound_by", "max_abs_err")}}
-    emit({"phase": "flash_bwd_timing", "dtype": "bfloat16", "causal": True,
+           "at_train_shape": {key: train[key] for key in keys},
+           "other_head_dims": [{key: o[key] for key in keys}
+                               for _, o in others]}
+    emit({"phase": "flash_bwd_timing", "dtype": "bfloat16",
           "library": "scaled_dot_product_attention(enable_gqa=True) "
                      "backward", "flash_shape": flash, "train_shape": train,
-          **row})
+          "other_shapes": [o for _, o in others], **row})
     return row
 
 
@@ -1673,24 +1761,15 @@ def phase_lm_train(torch, train_mod, fa_mod, configs):
     return sum(a[3] for a in ran), model, ckpt
 
 
-def phase_profile_train_step(torch, model, train_step_mod, optimizer,
-                             pipeline, top: int = 14):
-    """Where a warm full-width training step's device time goes: one
-    step of `launch.train`'s configuration (a fresh AdamW state on the
-    trained model) under torch.profiler; device time in the flash
-    forward and backward kernels, in cuBLAS matrix products and in the
-    rest (the flash backward also by its kernels: Delta, dK/dV, dQ), and
-    the `top` kernels by device time."""
+def profile_step(torch, step_fn, params, opt, batch, top: int = 14):
+    """Where one warm training step's device time goes: one `step_fn`
+    call (after a warm one) under torch.profiler; device time in the
+    flash forward and backward kernels, in cuBLAS matrix products and in
+    the rest (the flash backward also by its kernels: Delta, dK/dV, dQ),
+    and the `top` kernels by device time.  Returns the numbers and the
+    state after the two steps."""
     from torch.profiler import ProfilerActivity, profile
 
-    tcfg = train_step_mod.TrainConfig(
-        opt=optimizer.OptConfig(lr=3e-4, warmup_steps=20))
-    step_fn, _ = train_step_mod.make_train_step(model, tcfg)
-    params, opt = train_step_mod.init_train_state(model, tcfg)
-    data = pipeline.DataConfig(seed=0, vocab_size=model.cfg.vocab_size,
-                               seq_len=512, global_batch=8)
-    batch = {k: torch.from_numpy(v).to("cuda")
-             for k, v in pipeline.make_batch(data, 0).items()}
     params, opt, _ = step_fn(params, opt, batch)            # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1714,15 +1793,30 @@ def phase_profile_train_step(torch, model, train_step_mod, optimizer,
     gemm = sum(t for n, t in by_name.items()
                if any(w in n for w in ("gemm", "nvjet", "xmma", "cutlass")))
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {"wall_ms_profiled": wall_ms, "device_ops": n_ops,
+            "device_busy_ms": busy if n_ops else "not measured",
+            "device_idle_share": 1.0 - busy / wall_ms if n_ops else None,
+            "flash_fwd_ms": fwd, "flash_bwd_ms": bwd,
+            "flash_bwd_ms_by_kernel": bwd_parts, "cublas_gemm_ms": gemm,
+            "other_ms": busy - fwd - bwd - gemm,
+            "top_kernels_ms": {n[:100]: t for n, t in ranked}}, params, opt
+
+
+def phase_profile_train_step(torch, model, train_step_mod, optimizer,
+                             pipeline):
+    """`profile_step` of `launch.train`'s configuration on the trained
+    Qwen3-0.6B (a fresh AdamW state), batch 8 x 512."""
+    tcfg = train_step_mod.TrainConfig(
+        opt=optimizer.OptConfig(lr=3e-4, warmup_steps=20))
+    step_fn, _ = train_step_mod.make_train_step(model, tcfg)
+    params, opt = train_step_mod.init_train_state(model, tcfg)
+    data = pipeline.DataConfig(seed=0, vocab_size=model.cfg.vocab_size,
+                               seq_len=512, global_batch=8)
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in pipeline.make_batch(data, 0).items()}
+    prof, _, opt = profile_step(torch, step_fn, params, opt, batch)
     del opt
-    emit({"phase": "profile_train_step", "batch": 8, "seq": 512,
-          "wall_ms_profiled": wall_ms, "device_ops": n_ops,
-          "device_busy_ms": busy if n_ops else "not measured",
-          "device_idle_share": 1.0 - busy / wall_ms if n_ops else None,
-          "flash_fwd_ms": fwd, "flash_bwd_ms": bwd,
-          "flash_bwd_ms_by_kernel": bwd_parts, "cublas_gemm_ms": gemm,
-          "other_ms": busy - fwd - bwd - gemm,
-          "top_kernels_ms": {n[:100]: t for n, t in ranked}})
+    emit({"phase": "profile_train_step", "batch": 8, "seq": 512, **prof})
 
 
 def phase_lm_train_card_vs_cpu(torch, lm_mod, configs, train_step_mod,
@@ -2052,6 +2146,282 @@ def phase_lm_families_card_vs_cpu(torch, lm_mod, configs):
           "logits_max_abs_err": errs, "tolerance": FAMILY_CARD_CPU_TOL})
 
 
+class route_calls:
+    """While active, records (probs, expert indices) of every call of the
+    MoE router (`models.moe.route`, which the MoE layer reaches through
+    its module) in `self.calls`, on the CPU."""
+
+    def __init__(self, moe):
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        self.orig = self.moe.route
+
+        def record(params, cfg, x):
+            probs, gate_w, gate_i = self.orig(params, cfg, x)
+            self.calls.append((probs.detach().cpu(), gate_i.cpu()))
+            return probs, gate_w, gate_i
+
+        self.moe.route = record
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+
+
+def routing_flips(cpu_calls, card_calls, limit: int = 3) -> dict:
+    """Where the card's router picked other experts than the CPU's on the
+    same step: the count of such tokens and the first `limit`, each with
+    its (call, group, token), both picks and both devices' expert
+    scores."""
+    flips, first = 0, []
+    for n, ((pc, ic), (pg, ig)) in enumerate(zip(cpu_calls, card_calls)):
+        differ = (ic != ig).any(-1)
+        flips += int(differ.sum())
+        for g, t in differ.nonzero().tolist()[:limit - len(first)]:
+            first.append({"call": n, "group": g, "token": t,
+                          "experts_cpu": ic[g, t].tolist(),
+                          "experts_card": ig[g, t].tolist(),
+                          "scores_cpu": pc[g, t].tolist(),
+                          "scores_card": pg[g, t].tolist()})
+    return {"tokens": flips, "first": first,
+            "calls": [len(cpu_calls), len(card_calls)]}
+
+
+def phase_lm_family_train(torch, lm_mod, configs, train_step_mod, optimizer,
+                          pipeline, fa_mod, arch, phase, depth,
+                          expected_calls, profile=False):
+    """Training of `arch` at its config's published widths (depth `depth`
+    where given) through `make_train_step`, parameters drawn on the card
+    from seed 0, TRAIN_FAMILY_STEPS steps of the data pipeline's batches.
+    Gates: every loss finite; every step's attention calls (with remat:
+    each forward call again in the backward pass) are `expected_calls`
+    twice over, each one flash forward launch, and one backward launch
+    per forward call, all on wgmma; no flash launch where there is no
+    attention.  Printed beside the steps' losses and learning rates:
+    the loss of the initial parameters on each step's batch (finite).
+    With `profile`, two more steps run, the second profiled.  Returns
+    the backward launches of all the steps."""
+    import dataclasses
+    from collections import Counter
+
+    full = configs.get_config(arch)
+    cfg = full if depth is None else dataclasses.replace(full,
+                                                         n_layers=depth)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = now()
+    model = lm_mod.build_model(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    tcfg = train_step_mod.TrainConfig(
+        opt=optimizer.OptConfig(lr=3e-4, warmup_steps=20))
+    step_fn, init_opt = train_step_mod.make_train_step(model, tcfg)
+    params = model.params
+    opt = init_opt(tcfg.opt, params)
+    torch.cuda.synchronize()
+    init_s = now() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    data = pipeline.DataConfig(seed=0, vocab_size=cfg.vocab_size,
+                               seq_len=TRAIN_FAMILY_S,
+                               global_batch=TRAIN_FAMILY_B,
+                               modality=cfg.modality, d_model=cfg.d_model,
+                               n_image_tokens=cfg.n_image_tokens)
+    n_calls = sum(n for _, n in expected_calls)
+    want = Counter({call: 2 * n for call, n in expected_calls})
+
+    def batch_of(step):
+        return {k: torch.from_numpy(v).to("cuda")
+                for k, v in pipeline.make_batch(data, step).items()}
+
+    # The initial parameters' loss on each step's batch: beside the
+    # steps' losses it tells what the updates changed from the spread
+    # of the batches.
+    with torch.no_grad():
+        initial = [float(model.train_loss(batch_of(step), params)[0])
+                   for step in range(TRAIN_FAMILY_STEPS)]
+    losses, secs, steps = [], [], []
+    for step in range(TRAIN_FAMILY_STEPS):
+        batch = batch_of(step)
+        fwd = dict(fa_mod.flash_attention.launches_by_variant)
+        bwd = dict(fa_mod.attend_backward.launches_by_variant)
+        torch.cuda.synchronize()
+        with flash_calls(lm_mod.L) as rec:
+            t0 = now()
+            params, opt, met = step_fn(params, opt, batch)
+            losses.append(float(met["loss"]))
+            secs.append(now() - t0)
+        steps.append((
+            {v: n - fwd[v] for v, n in
+             fa_mod.flash_attention.launches_by_variant.items()},
+            {v: n - bwd[v] for v, n in
+             fa_mod.attend_backward.launches_by_variant.items()},
+            Counter(rec.calls)))
+        del batch
+    peak = torch.cuda.max_memory_allocated()
+    check(all(x == x and abs(x) < float("inf") for x in losses + initial),
+          f"{phase}: non-finite losses {losses}, initial {initial}")
+    per_step = {"wgmma": 2 * n_calls, "simt": 0}
+    check(all(f == per_step and b == {"wgmma": n_calls, "simt": 0}
+              and calls == want for f, b, calls in steps),
+          f"{phase}: per step (forward, backward launches by variant, "
+          f"attention calls) {steps}; expected {per_step}, "
+          f"{n_calls} backward on wgmma, calls {dict(want)}")
+    step_s = statistics.median(secs[1:])
+    tokens = TRAIN_FAMILY_B * TRAIN_FAMILY_S
+    line = {"phase": phase, "arch": cfg.name,
+            "layers_run_of_published": [cfg.n_layers, full.n_layers],
+            "params": n_params, "param_dtype": cfg.param_dtype,
+            "compute_dtype": cfg.compute_dtype, "optimizer": cfg.optimizer,
+            "remat": cfg.remat, "batch": TRAIN_FAMILY_B,
+            "seq": TRAIN_FAMILY_S,
+            "head_dim": cfg.head_dim, "init_seconds": init_s,
+            "losses": losses, "losses_of_initial_params": initial,
+            "learning_rates": [
+                float(optimizer.schedule(tcfg.opt, torch.tensor(i + 1.0)))
+                for i in range(TRAIN_FAMILY_STEPS)],
+            "step_seconds": secs,
+            "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+            "max_memory_allocated_bytes": peak,
+            "attention_calls_per_step_sq_sk_d_causal_count":
+                [[*call, n] for call, n in expected_calls],
+            "flash_fwd_launches_per_step": steps[-1][0],
+            "flash_bwd_launches_per_step": steps[-1][1]}
+    if profile:
+        batch = batch_of(0)
+        line["profiled_step"], params, opt = profile_step(
+            torch, step_fn, params, opt, batch)
+    emit(line)
+    del model, params, opt, step_fn
+    torch.cuda.empty_cache()
+    # Backward launches: every step's, the profiled and its warm one too.
+    return n_calls * (TRAIN_FAMILY_STEPS + 2 * profile)
+
+
+def phase_lm_train_families_card_vs_cpu(torch, lm_mod, configs,
+                                        train_step_mod, optimizer,
+                                        pipeline):
+    """Each family's reduced config in float32 (compute and parameters),
+    3 steps of `make_train_step` on the config's optimizer and the data
+    pipeline's batches (2 x 128), on the card and on the CPU.  Every step
+    starts on both devices from the same parameters and optimizer state
+    (the card's, copied to the CPU).  Held: each parameter leaf's
+    gradient of that state and the step's gradient norm within
+    TRAIN_GRAD_CARD_CPU, the step's loss and the parameters after it
+    within TRAIN_CARD_CPU.  (Run free, the two devices' float32 sums
+    differ in the last bits and Adam, which divides each gradient
+    element by its own running magnitude, turns that into up to lr a
+    step on an element whose gradient is near zero:
+    tests/torch_adam_drift_card.py measures it.)  The MoE router's picks
+    are compared too: a token routed otherwise on the card is reported
+    with both devices' expert scores."""
+    import dataclasses
+
+    def leaves(params, opt):
+        return optimizer.tree_leaves(params) + optimizer.tree_leaves(opt)
+
+    def names(tree, prefix=""):
+        return [n for k in sorted(tree) for n in (
+            names(tree[k], f"{prefix}{k}/") if isinstance(tree[k], dict)
+            else [prefix + k])]
+
+    def grads(model, params, batch):
+        flat = optimizer.tree_leaves(params)
+        with torch.enable_grad():
+            loss, _ = model.train_loss(batch, params)
+            got = torch.autograd.grad(loss, flat, allow_unused=True)
+        return [torch.zeros(p.shape) if g is None else g.detach().cpu()
+                for p, g in zip(flat, got)]
+
+    out, flips = {}, {}
+    for arch in FAMILIES:
+        cfg = dataclasses.replace(configs.get_config(arch, reduced=True),
+                                  compute_dtype="float32",
+                                  param_dtype="float32")
+        gen = torch.Generator(device="cpu").manual_seed(0)
+        models = {"cpu": lm_mod.build_model(cfg, device="cpu",
+                                            generator=gen)}
+        models["cuda"] = lm_mod.build_model(
+            cfg, device="cuda",
+            params=lm_mod._tree_map(lambda t: t.detach().to("cuda"),
+                                    models["cpu"].params))
+        tcfg = train_step_mod.TrainConfig(
+            opt=optimizer.OptConfig(lr=1e-3, warmup_steps=2))
+        data = pipeline.DataConfig(seed=0, vocab_size=cfg.vocab_size,
+                                   seq_len=128, global_batch=2,
+                                   modality=cfg.modality,
+                                   d_model=cfg.d_model,
+                                   n_image_tokens=cfg.n_image_tokens)
+        state, steps = {}, {}
+        for name, model in models.items():
+            steps[name], _ = train_step_mod.make_train_step(model, tcfg)
+            state[name] = train_step_mod.init_train_state(model, tcfg)
+        leaf_names = names(models["cpu"].params)
+        losses = {"cpu": [], "cuda": []}
+        norms = {"cpu": [], "cuda": []}
+        loss_rel, norm_rel, grad_share, param_err = 0.0, 0.0, 0.0, 0.0
+        routes = {"cpu": [], "cuda": []}
+        tol = TRAIN_CARD_CPU["param_tol"]
+        for step in range(3):
+            with torch.no_grad():     # the CPU starts from the card's state
+                for dst, src in zip(leaves(*state["cpu"]),
+                                    leaves(*state["cuda"])):
+                    dst.copy_(src)
+            g = {}
+            for name in ("cpu", "cuda"):
+                batch = {k: torch.from_numpy(v).to(name) for k, v in
+                         pipeline.make_batch(data, step).items()}
+                g[name] = grads(models[name], state[name][0], batch)
+                with route_calls(lm_mod.M) as rec:
+                    params, opt, met = steps[name](*state[name], batch)
+                state[name] = (params, opt)
+                routes[name] += rec.calls
+                losses[name].append(float(met["loss"]))
+                norms[name].append(float(met["grad_norm"]))
+            flips[arch] = routing_flips(routes["cpu"], routes["cuda"]) \
+                if cfg.n_experts else None
+            lc, lg = losses["cpu"][-1], losses["cuda"][-1]
+            loss_rel = max(loss_rel, abs(lg - lc) / abs(lc))
+            check(abs(lg - lc) <= TRAIN_CARD_CPU["loss_rtol"] * abs(lc),
+                  f"{arch} step {step}: loss card {lg} != cpu {lc}; "
+                  f"routing flips {flips[arch]}")
+            for leaf, gc, gg in zip(leaf_names, g["cpu"], g["cuda"]):
+                share = ((gg - gc).abs().max()
+                         / gc.abs().max().clamp_min(1e-30)).item()
+                check(share <= TRAIN_GRAD_CARD_CPU["grad_share"],
+                      f"{arch} step {step}: gradient of {leaf} card != cpu,"
+                      f" max err {share} of its largest; routing flips "
+                      f"{flips[arch]}")
+                grad_share = max(grad_share, share)
+            nc, ng = norms["cpu"][-1], norms["cuda"][-1]
+            norm_rel = max(norm_rel, abs(ng - nc) / abs(nc))
+            check(abs(ng - nc) <= TRAIN_GRAD_CARD_CPU["grad_norm_rtol"]
+                  * abs(nc),
+                  f"{arch} step {step}: grad norm card {ng} != cpu {nc}")
+            for a, b in zip(optimizer.tree_leaves(state["cuda"][0]),
+                            optimizer.tree_leaves(state["cpu"][0])):
+                a = a.detach().cpu()
+                check(torch.allclose(a, b, rtol=tol, atol=tol),
+                      f"{arch} step {step}: parameters card != cpu beyond "
+                      f"{tol}, max {(a - b).abs().max().item()}; routing "
+                      f"flips {flips[arch]}")
+                param_err = max(param_err, (a - b).abs().max().item())
+        out[arch] = {"losses_cpu": losses["cpu"],
+                     "losses_cuda": losses["cuda"],
+                     "loss_max_rel_diff": loss_rel,
+                     "grad_norms_cpu": norms["cpu"],
+                     "grad_norm_max_rel_diff": norm_rel,
+                     "grad_max_err_share_of_leaf_max": grad_share,
+                     "param_max_abs_diff_per_step": param_err,
+                     "optimizer": cfg.optimizer}
+    emit({"phase": "lm_train_families_card_vs_cpu",
+          "config": "reduced, float32 compute and parameters, 3 steps of "
+                    "2 x 128 from the data pipeline, each config's "
+                    "optimizer, each step from the card's state",
+          "families": out, "routing_flips": flips,
+          "tolerances": {**TRAIN_CARD_CPU, **TRAIN_GRAD_CARD_CPU}})
+
+
 def flash_shape_timing(torch, attend, attention_ref, flash, shape, causal,
                        seed):
     """The bf16 wgmma kernel at `shape` (b, hq, hkv, s, d) against the
@@ -2185,8 +2555,8 @@ def build_all(build, names):
     """Build every kernel library at once, one nvcc each; print each
     kernel's registers, spills and static shared memory (the wgmma
     kernels' shared memory is dynamic: 197,696 B for the matmul,
-    164,904 B for flash at D 128, 133,160 B for each backward kernel at
-    D 128) and the full compiler report."""
+    164,904 B for flash at D 128, 133,160 B for each backward kernel up
+    to D 128 and 198,696 B above) and the full compiler report."""
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = now()
@@ -2321,7 +2691,31 @@ def main() -> int:
     phase_lm_train_card_vs_cpu(torch, lm_mod, configs, train_step_mod,
                                optimizer, pipeline)
 
-    # ---- main paths 6-9: the other families' prefill and serving at
+    # ---- main paths 6-10: training of the other families at full
+    # width, counts from 0 before each path and read after it.
+    for arch, phase, depth, expected_calls in TRAIN_FAMILIES:
+        reset_counts(matmul, flash_attention, fa_mod)
+        n_bwd = phase_lm_family_train(
+            torch, lm_mod, configs, train_step_mod, optimizer, pipeline,
+            fa_mod, arch, phase, depth, expected_calls,
+            profile=arch == TRAIN_FAMILY_PROFILED)
+        check(fa_mod.attend_backward.launches_by_variant
+              == {"wgmma": n_bwd, "simt": 0},
+              f"{arch}: backward launches "
+              f"{fa_mod.attend_backward.launches_by_variant}, expected "
+              f"{n_bwd} on wgmma")
+        emit({"phase": "main_path_launches", "path": f"lm_train_{arch}",
+              "matmul": matmul.launches,
+              "flash_attention": flash_attention.launches,
+              "flash_attention_by_variant":
+                  dict(flash_attention.launches_by_variant),
+              "flash_attention_bwd": fa_mod.attend_backward.launches,
+              "flash_attention_bwd_by_variant":
+                  dict(fa_mod.attend_backward.launches_by_variant)})
+    phase_lm_train_families_card_vs_cpu(torch, lm_mod, configs,
+                                        train_step_mod, optimizer, pipeline)
+
+    # ---- main paths 11-14: the other families' prefill and serving at
     # full width, counts from 0 before each path and read after it.
     s, hd = FAMILY_S, 128
     for arch, phases, expected_calls in (

@@ -37,8 +37,10 @@
 //   with 256 threads as a 16 x 16 grid, as the forward's simt kernel;
 //   tiles sit transposed in shared memory so each thread reads its 4
 //   rows or columns as one 16-byte load.  Shared memory at D = 128:
-//   174,592 bytes (dK/dV), 157,184 (dQ).  It keeps the reference's
-//   float32 numerics.
+//   174,592 bytes (dK/dV), 157,184 (dQ).  Above D = 128 the streamed
+//   tiles (query rows for dK/dV, keys for dQ) hold 32 rows, 2 a thread,
+//   so that both kernels fit a block: 230,656 and 222,208 bytes at D =
+//   256.  It keeps the reference's float32 numerics.
 //
 // - `wgmma` (bfloat16), after FlashAttention-3's backward, split into
 //   separate dK/dV and dQ kernels as the Pallas TPU backward is.  Each
@@ -47,7 +49,11 @@
 //   the consumers (setmaxnreg 24 / 240).  Tiles land in shared memory
 //   through TMA as the forward's do: rows of D cut into boxes of 64
 //   elements with a 128-byte swizzle (at D = 32 one 32-element box with
-//   a 64-byte swizzle).
+//   a 64-byte swizzle); D = 80 and 112 are held as 128 columns, TMA
+//   zero-filling past D.  Above D = 128 a block owns 64 keys or query
+//   rows, and its two consumer warpgroups split the gradients' columns
+//   between them, each computing the scores itself (`Tile` says why).
+//   The shapes below are those up to D = 128.
 //   * `bwd_dkdv_wgmma`: 128 keys a block (64 per warpgroup).  K and V
 //     are loaded once; Q and dO tiles of 64 queries stream through a
 //     2-stage ring, over every query head of the group and every query
@@ -101,9 +107,13 @@
 // bound by operations; the seven products these kernels run take at
 // least 0.973 ms there.  At the training shape of Qwen3-0.6B (q (8, 16,
 // 512, 128), k, v (8, 8, 512, 128)) the bytes bound it: 101 MB, 0.030
-// ms, against 0.022 ms of operations.  On the CUDA cores (the simt
-// variant) the five-product work takes at least 10.3 ms (67 TFLOP/s of
-// float32).
+// ms, against 0.022 ms of operations.  At HuBERT-XLarge's head dim (q,
+// k, v (4, 16, 4096, 80), full) the work is 8.6e11 FLOP, 0.87 ms; at
+// Gemma-7B's (q, k, v (4, 16, 4096, 256), causal) 1.375e12 FLOP, 1.39
+// ms; the split tiles there run 11 tile products where that count has
+// 5 (the dQ pass and each warpgroup recompute S and dP): 3.06 ms at
+// least.  On the CUDA cores (the simt variant) the five-product work at
+// the flash shape takes at least 10.3 ms (67 TFLOP/s of float32).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,16 +122,30 @@
 
 #include "hopper.cuh"
 
+// The head dims both variants take: the forward's (flash_attention.cu),
+// every one the repo's model configs use.  The wrapper's HEAD_DIMS
+// lists the same.
+#define REPRO_FLASH_HEAD_DIMS(X) X(32) X(64) X(80) X(112) X(128) X(192) X(256)
+
 namespace {
 
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BKV = 64;       // keys per tile
+constexpr int BQ = 64;        // query rows of a dQ block
+constexpr int BKV = 64;       // keys of a dK/dV block
 constexpr int THREADS = 256;  // 16 x 16
 constexpr int PAD = 4;        // keeps transposed rows 16-byte aligned
-constexpr int QLD = BQ + PAD;   // a transposed query tile's row
-constexpr int KLD = BKV + PAD;  // a transposed key tile's row
+constexpr int QLD = BQ + PAD;   // a dQ block's transposed query tile's row
+constexpr int KLD = BKV + PAD;  // a dK/dV block's transposed key tile's row
 constexpr int PLD = BKV + PAD;  // P and dS by query row (keys contiguous)
 constexpr int TLD = BQ + PAD;   // dS by key row (queries contiguous)
+
+// Rows of a streamed tile (query rows in the dK/dV kernel, keys in the
+// dQ kernel): 64, and 32 above D = 128, where the transposed resident
+// tiles alone take 139 KB at D = 256 and 64-row streamed ones would
+// not fit a block's 227 KB.
+template <int D>
+__host__ __device__ constexpr int stream_rows() {
+  return D > 128 ? 32 : 64;
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -140,26 +164,39 @@ __device__ __forceinline__ void load_transposed(float* dst, const float* src,
   }
 }
 
-// s[i][j] = sum_d at[d][4ty + i] * bt[d][4tx + j]: a 64 x 64 tile
-// product of two transposed tiles.
-template <int D>
-__device__ __forceinline__ void tile_dots(float (&s)[4][4], const float* at,
+// R consecutive floats of shared memory (4: one 16-byte load, 2: one
+// 8-byte load).
+template <int R>
+__device__ __forceinline__ void load_run(float (&dst)[R], const float* p) {
+  if constexpr (R == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    dst[0] = v.x, dst[1] = v.y, dst[2] = v.z, dst[3] = v.w;
+  } else {
+    static_assert(R == 2, "2 or 4 rows a thread");
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    dst[0] = v.x, dst[1] = v.y;
+  }
+}
+
+// s[i][j] = sum_d at[d][RA ty + i] * bt[d][RB tx + j]: a (16 RA) x
+// (16 RB) tile product of two transposed tiles.
+template <int D, int RA, int RB>
+__device__ __forceinline__ void tile_dots(float (&s)[RA][RB], const float* at,
                                           int lda, const float* bt, int ldb,
                                           int ty, int tx) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RA; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+    for (int j = 0; j < RB; ++j) s[i][j] = 0.0f;
 #pragma unroll 16
   for (int d = 0; d < D; ++d) {
-    const float4 a = *reinterpret_cast<const float4*>(&at[d * lda + ty * 4]);
-    const float4 b = *reinterpret_cast<const float4*>(&bt[d * ldb + tx * 4]);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
+    float av[RA], bv[RB];
+    load_run<RA>(av, &at[d * lda + ty * RA]);
+    load_run<RB>(bv, &bt[d * ldb + tx * RB]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RA; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+      for (int j = 0; j < RB; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
   }
 }
 
@@ -192,12 +229,13 @@ int launch_delta(const void* o, const void* dout, float* delta, int rows,
 
 template <int D>
 constexpr size_t dkdv_smem_bytes() {
-  return sizeof(float) *
-         (size_t)(2 * D * KLD + 2 * D * QLD + 2 * BQ * PLD + 2 * BQ);
+  constexpr int SQ = stream_rows<D>();
+  return sizeof(float) * (size_t)(2 * D * KLD + 2 * D * (SQ + PAD) +
+                                  2 * SQ * PLD + 2 * SQ);
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
     bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
@@ -205,16 +243,19 @@ __global__ void __launch_bounds__(THREADS)
              int sq, int sk, int causal, int q_offset, float scale) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int CPT = D / 16;  // accumulator columns per thread
+  constexpr int SQ = stream_rows<D>();  // query rows per streamed tile
+  constexpr int SLD = SQ + PAD;         // a transposed query tile's row
+  constexpr int RQ = SQ / 16;           // score rows per thread
 
   extern __shared__ __align__(16) float smem[];
   float* kt = smem;              // [D][KLD]  K tile transposed
   float* vt = kt + D * KLD;      // [D][KLD]  V tile transposed
-  float* qt = vt + D * KLD;      // [D][QLD]  Q tile transposed
-  float* dot = qt + D * QLD;     // [D][QLD]  dO tile transposed
-  float* ps = dot + D * QLD;     // [BQ][PLD] P
-  float* dss = ps + BQ * PLD;    // [BQ][PLD] dS
-  float* row_lse = dss + BQ * PLD;
-  float* row_delta = row_lse + BQ;
+  float* qt = vt + D * KLD;      // [D][SLD]  Q tile transposed
+  float* dot = qt + D * SLD;     // [D][SLD]  dO tile transposed
+  float* ps = dot + D * SLD;     // [SQ][PLD] P
+  float* dss = ps + SQ * PLD;    // [SQ][PLD] dS
+  float* row_lse = dss + SQ * PLD;
+  float* row_delta = row_lse + SQ;
 
   const int tid = threadIdx.x;
   const int ty = tid / 16;
@@ -236,7 +277,7 @@ __global__ void __launch_bounds__(THREADS)
 
   // The first query row that sees key k0 has q_offset + i >= k0.
   const int i_first = causal ? max(0, k0 - q_offset) : 0;
-  const int n_qt = (sq + BQ - 1) / BQ;
+  const int n_qt = (sq + SQ - 1) / SQ;
 
   for (int g = 0; g < group; ++g) {
     const size_t bh = (size_t)b * hq + hk * group + g;
@@ -244,24 +285,24 @@ __global__ void __launch_bounds__(THREADS)
     const float* dob = dout + bh * sq * D;
     const float* lb = lse + bh * sq;
     const float* db = delta + bh * sq;
-    for (int t = i_first / BQ; t < n_qt; ++t) {
-      const int q0 = t * BQ;
+    for (int t = i_first / SQ; t < n_qt; ++t) {
+      const int q0 = t * SQ;
       __syncthreads();  // the previous tile's readers are done
-      load_transposed<D, BQ, QLD>(qt, qb, q0, sq);
-      load_transposed<D, BQ, QLD>(dot, dob, q0, sq);
-      for (int i = tid; i < BQ; i += THREADS) {
+      load_transposed<D, SQ, SLD>(qt, qb, q0, sq);
+      load_transposed<D, SQ, SLD>(dot, dob, q0, sq);
+      for (int i = tid; i < SQ; i += THREADS) {
         const bool in = q0 + i < sq;
         row_lse[i] = in ? lb[q0 + i] : 0.0f;
         row_delta[i] = in ? db[q0 + i] : 0.0f;
       }
       __syncthreads();
 
-      float s[4][4], dp[4][4];
-      tile_dots<D>(s, qt, QLD, kt, KLD, ty, tx);    // S[q][k]
-      tile_dots<D>(dp, dot, QLD, vt, KLD, ty, tx);  // dP[q][k]
+      float s[RQ][4], dp[RQ][4];
+      tile_dots<D, RQ, 4>(s, qt, SLD, kt, KLD, ty, tx);    // S[q][k]
+      tile_dots<D, RQ, 4>(dp, dot, SLD, vt, KLD, ty, tx);  // dP[q][k]
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qr = ty * 4 + i;
+      for (int i = 0; i < RQ; ++i) {
+        const int qr = ty * RQ + i;
         const int qi = q0 + qr;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -278,15 +319,15 @@ __global__ void __launch_bounds__(THREADS)
 
       // dV[k][c] += sum_q P[q][k] dO[q][c]; dK[k][c] += sum_q dS[q][k] Q[q][c]
 #pragma unroll 4
-      for (int qq = 0; qq < BQ; ++qq) {
+      for (int qq = 0; qq < SQ; ++qq) {
         const float4 pv =
             *reinterpret_cast<const float4*>(&ps[qq * PLD + ty * 4]);
         const float4 sv =
             *reinterpret_cast<const float4*>(&dss[qq * PLD + ty * 4]);
 #pragma unroll
         for (int c = 0; c < CPT; ++c) {
-          const float dov = dot[(c * 16 + tx) * QLD + qq];
-          const float qv = qt[(c * 16 + tx) * QLD + qq];
+          const float dov = dot[(c * 16 + tx) * SLD + qq];
+          const float qv = qt[(c * 16 + tx) * SLD + qq];
           dva[0][c] = fmaf(pv.x, dov, dva[0][c]);
           dva[1][c] = fmaf(pv.y, dov, dva[1][c]);
           dva[2][c] = fmaf(pv.z, dov, dva[2][c]);
@@ -316,26 +357,30 @@ __global__ void __launch_bounds__(THREADS)
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) *
-         (size_t)(2 * D * QLD + 2 * D * KLD + BKV * TLD + 2 * BQ);
+  constexpr int SK = stream_rows<D>();
+  return sizeof(float) * (size_t)(2 * D * QLD + 2 * D * (SK + PAD) +
+                                  SK * TLD + 2 * BQ);
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
     bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
            float* __restrict__ dq, int hq, int hkv, int sq, int sk,
            int causal, int q_offset, float scale) {
   constexpr int CPT = D / 16;
+  constexpr int SK = stream_rows<D>();  // keys per streamed tile
+  constexpr int SLD = SK + PAD;         // a transposed key tile's row
+  constexpr int RK = SK / 16;           // score columns per thread
 
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;              // [D][QLD]
   float* dot = qt + D * QLD;     // [D][QLD]
-  float* kt = dot + D * QLD;     // [D][KLD]
-  float* vt = kt + D * KLD;      // [D][KLD]
-  float* dst = vt + D * KLD;     // [BKV][TLD] dS by key row
-  float* row_lse = dst + BKV * TLD;
+  float* kt = dot + D * QLD;     // [D][SLD]
+  float* vt = kt + D * SLD;      // [D][SLD]
+  float* dst = vt + D * SLD;     // [SK][TLD] dS by key row
+  float* row_lse = dst + SK * TLD;
   float* row_delta = row_lse + BQ;
 
   const int tid = threadIdx.x;
@@ -364,41 +409,41 @@ __global__ void __launch_bounds__(THREADS)
   // Keys below kv_end are visible to some row of this tile.
   int kv_end = sk;
   if (causal) kv_end = min(sk, q_offset + min(q0 + BQ, sq));
-  const int n_tiles = (kv_end + BKV - 1) / BKV;
+  const int n_tiles = (kv_end + SK - 1) / SK;
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BKV;
+    const int k0 = t * SK;
     __syncthreads();  // the previous tile's readers are done
-    load_transposed<D, BKV, KLD>(kt, kb, k0, sk);
-    load_transposed<D, BKV, KLD>(vt, vb, k0, sk);
+    load_transposed<D, SK, SLD>(kt, kb, k0, sk);
+    load_transposed<D, SK, SLD>(vt, vb, k0, sk);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
-    tile_dots<D>(s, qt, QLD, kt, KLD, ty, tx);
-    tile_dots<D>(dp, dot, QLD, vt, KLD, ty, tx);
+    float s[4][RK], dp[4][RK];
+    tile_dots<D, 4, RK>(s, qt, QLD, kt, SLD, ty, tx);
+    tile_dots<D, 4, RK>(dp, dot, QLD, vt, SLD, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qr = ty * 4 + i;
       const int qi = q0 + qr;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx * 4 + j;
+      for (int j = 0; j < RK; ++j) {
+        const int kj = k0 + tx * RK + j;
         const bool vis =
             qi < sq && kj < sk && (!causal || kj <= q_offset + qi);
         const float p = vis ? expf(s[i][j] * scale - row_lse[qr]) : 0.0f;
-        dst[(tx * 4 + j) * TLD + qr] = p * (dp[i][j] - row_delta[qr]);
+        dst[(tx * RK + j) * TLD + qr] = p * (dp[i][j] - row_delta[qr]);
       }
     }
     __syncthreads();
 
     // dQ[q][c] += sum_k dS[q][k] K[k][c]
 #pragma unroll 4
-    for (int kk = 0; kk < BKV; ++kk) {
+    for (int kk = 0; kk < SK; ++kk) {
       const float4 sv =
           *reinterpret_cast<const float4*>(&dst[kk * TLD + ty * 4]);
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
-        const float kv = kt[(c * 16 + tx) * KLD + kk];
+        const float kv = kt[(c * 16 + tx) * SLD + kk];
         dqa[0][c] = fmaf(sv.x, kv, dqa[0][c]);
         dqa[1][c] = fmaf(sv.y, kv, dqa[1][c]);
         dqa[2][c] = fmaf(sv.z, kv, dqa[2][c]);
@@ -423,6 +468,9 @@ int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* delta, void* dq,
            void* dk, void* dv, int b, int hq, int hkv, int sq, int sk,
            int causal, int q_offset, float scale, void* stream) {
+  static_assert(dkdv_smem_bytes<D>() <= 232448 &&
+                    dq_smem_bytes<D>() <= 232448,
+                "over a block's 227 KB of shared memory");
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* qp = static_cast<const float*>(q);
   const float* kp = static_cast<const float*>(k);
@@ -463,15 +511,11 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
              void* dk, void* dv, int b, int hq, int hkv, int sq, int sk,
              int d, int causal, int q_offset, float scale, void* stream) {
   switch (d) {
-    case 32:
-      return launch<32>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, hq,
-                        hkv, sq, sk, causal, q_offset, scale, stream);
-    case 64:
-      return launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, hq,
-                        hkv, sq, sk, causal, q_offset, scale, stream);
-    case 128:
-      return launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, hq,
-                         hkv, sq, sk, causal, q_offset, scale, stream);
+#define REPRO_FLASH_BWD_CASE(DIM)                                          \
+  case DIM:                                                                \
+    return launch<DIM>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, hq,    \
+                       hkv, sq, sk, causal, q_offset, scale, stream);
+    REPRO_FLASH_HEAD_DIMS(REPRO_FLASH_BWD_CASE)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -481,30 +525,55 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
 
 namespace tc {
 
-constexpr int ROWS = 128;     // keys (dK/dV) or query rows (dQ) a block
 constexpr int STREAM = 64;    // queries (dK/dV) or keys (dQ) a streamed tile
 constexpr int STAGES = 2;
 constexpr int THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
 constexpr int CONSUMER_WARPS = 8;
 constexpr float LOG2E = 1.4426950408889634f;
 
+// Tiles by head dim.  A row of D is cut into boxes of BOXW elements.  Up
+// to D = 128 a block owns ROWS = 128 keys (dK/dV) or query rows (dQ),
+// 64 per consumer warpgroup, each warpgroup holding its rows' gradients
+// at every column: DP columns, the boxes rounded up, so D = 80 and 112
+// are held as 128 with the second box zero-filled past D by TMA (zero
+// columns of Q and K add nothing to a score, whose k-steps stop at D
+// anyway; zero columns of Q and dO give gradient columns past D, which
+// the TMA store clips).  Above D = 128 (SPLIT) the gradients of 128 rows
+// would take 192 (D 192) or 256 (D 256) registers a thread for dK and
+// dV before the scores, and the tiles 262 KB of shared memory at D =
+// 256: a block owns 64 rows, which both consumer warpgroups work on,
+// each holding the gradients at half of DP = 256 columns (D = 192 is
+// held as 256, its fourth box never loaded or stored: those
+// accumulator columns see only unwritten shared memory, and a product's
+// output column reads only its own B column).  Each warpgroup computes
+// the full scores S and dP itself, so the block runs S and dP twice:
+// 6 tile products for dK/dV where a 128-row block runs 4, and 5 for dQ
+// where it runs 3.
 template <int D>
 struct Tile {
   static constexpr int SWB = D >= 64 ? 128 : 64;  // swizzle bytes = box row
   static constexpr int BOXW = SWB / 2;            // elements per box row
-  static constexpr int CHUNKS = D / BOXW;         // boxes across a row of D
+  static constexpr bool SPLIT = D > 128;
+  static constexpr int LIVE = (D + BOXW - 1) / BOXW;  // boxes holding data
+  static constexpr int CHUNKS = SPLIT ? 4 : LIVE;     // boxes held a row
+  static constexpr int DP = CHUNKS * BOXW;            // columns held a row
+  static constexpr int ROWS = SPLIT ? 64 : 128;  // a block's keys or rows
+  static constexpr int W = SPLIT ? DP / 2 : DP;  // a warpgroup's columns
   static constexpr int LAYOUT =
       SWB == 128 ? hopper::kSwizzle128B : hopper::kSwizzle64B;
   static constexpr int ATOM = 8 * SWB;            // 8 swizzled rows: SBO
   static constexpr int BIG_BOX = ROWS * SWB;      // one box of a resident tile
   static constexpr int BOX = STREAM * SWB;        // one box of a streamed tile
-  static constexpr int BIG_BYTES = ROWS * D * 2;
-  static constexpr int BYTES = STREAM * D * 2;
+  static constexpr int BIG_BYTES = ROWS * DP * 2;
+  static constexpr int BYTES = STREAM * DP * 2;
   // Two resident tiles, STAGES x two streamed tiles, per stage the
   // streamed queries' LSE and Delta (dK/dV only), the barriers.
   static constexpr size_t SMEM = 1024 + 2 * BIG_BYTES + STAGES * 2 * BYTES +
                                  STAGES * 2 * STREAM * sizeof(float) +
                                  (1 + 2 * STAGES) * sizeof(uint64_t);
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  static_assert(W == 32 || W == 64 || W == 128, "an RS wgmma width");
+  static_assert(SMEM <= 232448, "over a block's 227 KB of shared memory");
 };
 
 // The descriptor of k-step kk (16 elements of D) of a K-major operand:
@@ -520,13 +589,14 @@ __device__ __forceinline__ uint64_t kmajor_desc(const uint8_t* tile, int box,
 }
 
 // The descriptor of k-step kk (16 rows) of an MN-major operand: a
-// streamed tile (STREAM rows, the product's K) read along D (its N).
+// streamed tile (STREAM rows, the product's K) read along D (its N)
+// from box c0.
 template <int D>
-__device__ __forceinline__ uint64_t mnmajor_desc(const uint8_t* tile,
+__device__ __forceinline__ uint64_t mnmajor_desc(const uint8_t* tile, int c0,
                                                  int kk) {
   using T = Tile<D>;
-  return hopper::smem_desc(tile + kk * 16 * T::SWB, T::BOX, T::ATOM,
-                           T::LAYOUT);
+  return hopper::smem_desc(tile + c0 * T::BOX + kk * 16 * T::SWB, T::BOX,
+                           T::ATOM, T::LAYOUT);
 }
 
 // A 64 x 64 tile product of K-major operands: acc = A[row_a..+64] .
@@ -543,15 +613,15 @@ __device__ __forceinline__ void issue_tile_dots(float (&acc)[32],
   hopper::wgmma_commit();
 }
 
-// acc (64 x D) += A (64 x STREAM, bf16 fragments) . the streamed tile b
-// (STREAM x D, MN-major).
+// acc (64 x W) += A (64 x STREAM, bf16 fragments) . the streamed tile b
+// (STREAM x W from box c0, MN-major).
 template <int D>
-__device__ __forceinline__ void issue_acc(float (&acc)[D / 2],
+__device__ __forceinline__ void issue_acc(float (&acc)[Tile<D>::W / 2],
                                           const uint32_t (&a)[STREAM / 16][4],
-                                          const uint8_t* b) {
+                                          const uint8_t* b, int c0) {
 #pragma unroll
   for (int kk = 0; kk < STREAM / 16; ++kk)
-    hopper::wgmma_rs<1>(acc, a[kk], mnmajor_desc<D>(b, kk), 1);
+    hopper::wgmma_rs<1>(acc, a[kk], mnmajor_desc<D>(b, c0, kk), 1);
   hopper::wgmma_commit();
 }
 
@@ -567,18 +637,19 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[STREAM / 16][4],
           hopper::pack_bf16(acc[8 * kk + 2 * j], acc[8 * kk + 2 * j + 1]);
 }
 
-// acc * mul in bf16 over this warpgroup's 64 rows of a resident tile's
-// boxes (the swizzled layout TMA stores from).  Accumulator element i of
-// a thread sits at row r + 8 ((i / 2) % 2), column 8 (i / 4) + 2
-// (lane % 4) + i % 2.
+// acc * mul in bf16 over this warpgroup's 64 rows and W columns (from
+// box c0) of a resident tile's boxes (the swizzled layout TMA stores
+// from).  Accumulator element i of a thread sits at row r + 8 ((i / 2)
+// % 2), column 8 (i / 4) + 2 (lane % 4) + i % 2.
 template <int D>
-__device__ __forceinline__ void stage_rows(uint8_t* tile, int row_wg, int r,
-                                           int lane, const float (&acc)[D / 2],
+__device__ __forceinline__ void stage_rows(uint8_t* tile, int row_wg, int c0,
+                                           int r, int lane,
+                                           const float (&acc)[Tile<D>::W / 2],
                                            float mul) {
   using T = Tile<D>;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int c = j * 8 / T::BOXW;
+  for (int j = 0; j < T::W / 8; ++j) {
+    const int c = c0 + j * 8 / T::BOXW;
     const int within = (j * 8 % T::BOXW) * 2 + (lane % 4) * 4;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -591,10 +662,29 @@ __device__ __forceinline__ void stage_rows(uint8_t* tile, int row_wg, int r,
   }
 }
 
+// The boxes [c0, c0 + W / BOXW) that hold data, of this warpgroup's 64
+// rows of a resident tile, stored through TMA at (box column, row0,
+// plane) by one thread.
+template <int D>
+__device__ __forceinline__ void store_rows(const CUtensorMap* map,
+                                           const uint8_t* tile, int row_wg,
+                                           int c0, int row0, int plane) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int c = c0; c < c0 + T::W / T::BOXW; ++c)
+    if (c < T::LIVE)
+      hopper::tma_store_3d(map, tile + c * T::BIG_BOX + row_wg * T::SWB,
+                           c * T::BOXW, row0, plane);
+}
+
 __device__ __forceinline__ void release(uint64_t* bar, int lane) {
   __syncwarp();
   if (lane == 0) hopper::mbar_arrive(bar);
 }
+
+// Named barrier over both consumer warpgroups (ids 1 and 2 are theirs
+// alone).
+constexpr int CONSUMERS_BAR = 3;
 
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -635,7 +725,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int b = bkv / hkv;
   const int hk = bkv % hkv;
   const int group = hq / hkv;
-  const int k0 = blockIdx.y * ROWS;
+  const int k0 = blockIdx.y * T::ROWS;
   // Query tiles wholly above the diagonal of the block's first key are
   // skipped: the first query that sees key k0 has q_offset + i >= k0.
   const int n_qt = (sq + STREAM - 1) / STREAM;
@@ -652,9 +742,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     setmaxnreg_dec<24>();
     if (threadIdx.x < 32 && n_iters > 0) {
       if (lane == 0) {
-        mbar_arrive_expect_tx(kvbar, 2 * T::BIG_BYTES);
+        mbar_arrive_expect_tx(kvbar, 2 * T::LIVE * T::BIG_BOX);
 #pragma unroll
-        for (int c = 0; c < T::CHUNKS; ++c) {
+        for (int c = 0; c < T::LIVE; ++c) {
           tma_load_3d(ks + c * T::BIG_BOX, &kmap, kvbar, c * T::BOXW, k0, bkv);
           tma_load_3d(vs + c * T::BIG_BOX, &vmap, kvbar, c * T::BOXW, k0, bkv);
         }
@@ -674,9 +764,9 @@ __global__ void __launch_bounds__(THREADS, 1)
           delta_s[s * STREAM + i] = in ? delta[g] : 0.0f;
         }
         if (lane == 0) {
-          mbar_arrive_expect_tx(&full[s], 2 * T::BYTES);
+          mbar_arrive_expect_tx(&full[s], 2 * T::LIVE * T::BOX);
 #pragma unroll
-          for (int c = 0; c < T::CHUNKS; ++c) {
+          for (int c = 0; c < T::LIVE; ++c) {
             tma_load_3d(qs + s * T::BYTES + c * T::BOX, &qmap, &full[s],
                         c * T::BOXW, q0, bh);
             tma_load_3d(dos + s * T::BYTES + c * T::BOX, &domap, &full[s],
@@ -689,16 +779,18 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   } else {
     setmaxnreg_inc<240>();
-    const int row_wg = (wg - 1) * 64;  // this warpgroup's first key
+    // This warpgroup's first key, and first box of the gradients' columns.
+    const int row_wg = T::SPLIT ? 0 : (wg - 1) * 64;
+    const int cw = T::SPLIT ? (wg - 1) * (T::W / T::BOXW) : 0;
     const int warp = (threadIdx.x % 128) / 32;
     const int r = warp * 16 + lane / 4;  // keys r and r + 8 of the 64
     const int key0 = k0 + row_wg + r;
     const int col0 = 2 * (lane % 4);     // + 8 (i / 4) + i % 2
     const float scale_log2 = scale * LOG2E;
 
-    float dk[D / 2], dv[D / 2];
+    float dk[T::W / 2], dv[T::W / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.0f;
+    for (int i = 0; i < T::W / 2; ++i) dk[i] = dv[i] = 0.0f;
     float st[32], dpt[32];               // S^T then P^T; dP^T then dS^T
     uint32_t pa[STREAM / 16][4], da[STREAM / 16][4];
 
@@ -736,8 +828,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       pack_a(pa, st);
       wgmma_fence();
-      issue_acc<D>(dv, pa, dot);  // dV += P^T dO, while dS^T is formed
-      wgmma_wait<1>();            // dP^T is in
+      issue_acc<D>(dv, pa, dot, cw);  // dV += P^T dO, while dS^T is formed
+      wgmma_wait<1>();                // dP^T is in
       fence_regs(dpt);
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
@@ -746,7 +838,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       pack_a(da, dpt);
       wgmma_fence();
-      issue_acc<D>(dk, da, qt);   // dK += dS^T Q
+      issue_acc<D>(dk, da, qt, cw);   // dK += dS^T Q
       wgmma_wait<0>();
       fence_regs(dk);
       fence_regs(dv);
@@ -758,21 +850,19 @@ __global__ void __launch_bounds__(THREADS, 1)
       release(&empty[s], lane);
     }
 
-    // Epilogue: dK * scale and dV in bf16 over this warpgroup's own rows
-    // of K and V in shared memory (only this warpgroup read them); one
-    // thread stores the boxes, and TMA drops rows past Sk.
-    stage_rows<D>(ks, row_wg, r, lane, dk, scale);
-    stage_rows<D>(vs, row_wg, r, lane, dv, 1.0f);
+    // Epilogue: dK * scale and dV in bf16 over this warpgroup's rows and
+    // columns of K and V in shared memory; one thread stores the boxes,
+    // and TMA drops rows past Sk and columns past D.  Split, the other
+    // warpgroup reads every column of K and V for its scores until its
+    // loop ends: both finish before either writes.
+    if constexpr (T::SPLIT) named_barrier_sync(CONSUMERS_BAR, 256);
+    stage_rows<D>(ks, row_wg, cw, r, lane, dk, scale);
+    stage_rows<D>(vs, row_wg, cw, r, lane, dv, 1.0f);
     fence_proxy_async();
     named_barrier_sync(wg, 128);
     if (threadIdx.x % 128 == 0) {
-#pragma unroll
-      for (int c = 0; c < T::CHUNKS; ++c) {
-        tma_store_3d(&dkmap, ks + c * T::BIG_BOX + row_wg * T::SWB,
-                     c * T::BOXW, k0 + row_wg, bkv);
-        tma_store_3d(&dvmap, vs + c * T::BIG_BOX + row_wg * T::SWB,
-                     c * T::BOXW, k0 + row_wg, bkv);
-      }
+      store_rows<D>(&dkmap, ks, row_wg, cw, k0 + row_wg, bkv);
+      store_rows<D>(&dvmap, vs, row_wg, cw, k0 + row_wg, bkv);
       tma_store_wait();
     }
   }
@@ -811,11 +901,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   __syncthreads();
 
   const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * T::ROWS;
   const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
   // Keys below kv_end are visible to some row of this block.
   int kv_end = sk;
-  if (causal) kv_end = min(sk, q_offset + min(q0 + ROWS, sq));
+  if (causal) kv_end = min(sk, q_offset + min(q0 + T::ROWS, sq));
   const int n_tiles = (kv_end + STREAM - 1) / STREAM;
   const int wg = threadIdx.x / 128;
   const int lane = threadIdx.x % 32;
@@ -824,9 +914,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     // Producer: Q and dO once, then each key tile's K and V.
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
-      mbar_arrive_expect_tx(qbar, 2 * T::BIG_BYTES);
+      mbar_arrive_expect_tx(qbar, 2 * T::LIVE * T::BIG_BOX);
 #pragma unroll
-      for (int c = 0; c < T::CHUNKS; ++c) {
+      for (int c = 0; c < T::LIVE; ++c) {
         tma_load_3d(qs + c * T::BIG_BOX, &qmap, qbar, c * T::BOXW, q0, bh);
         tma_load_3d(dos + c * T::BIG_BOX, &domap, qbar, c * T::BOXW, q0, bh);
       }
@@ -834,9 +924,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int s = t % STAGES;
         const int round = t / STAGES;
         if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);
-        mbar_arrive_expect_tx(&full[s], 2 * T::BYTES);
+        mbar_arrive_expect_tx(&full[s], 2 * T::LIVE * T::BOX);
 #pragma unroll
-        for (int c = 0; c < T::CHUNKS; ++c) {
+        for (int c = 0; c < T::LIVE; ++c) {
           tma_load_3d(ks + s * T::BYTES + c * T::BOX, &kmap, &full[s],
                       c * T::BOXW, t * STREAM, kvh);
           tma_load_3d(vs + s * T::BYTES + c * T::BOX, &vmap, &full[s],
@@ -846,7 +936,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   } else {
     setmaxnreg_inc<240>();
-    const int row_wg = (wg - 1) * 64;  // this warpgroup's first row
+    // This warpgroup's first row, and first box of dQ's columns.
+    const int row_wg = T::SPLIT ? 0 : (wg - 1) * 64;
+    const int cw = T::SPLIT ? (wg - 1) * (T::W / T::BOXW) : 0;
     const int warp = (threadIdx.x % 128) / 32;
     const int r = warp * 16 + lane / 4;  // rows r and r + 8 of the 64
     const int row0 = q0 + row_wg + r;
@@ -863,9 +955,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       dlt[h] = in ? delta[(size_t)bh * sq + row] : 0.0f;
     }
 
-    float dq[D / 2];
+    float dq[T::W / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dq[i] = 0.0f;
+    for (int i = 0; i < T::W / 2; ++i) dq[i] = 0.0f;
     float sc[32], dp[32];  // S then P; dP then dS
     uint32_t da[STREAM / 16][4];
 
@@ -907,22 +999,21 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int i = 0; i < 32; ++i) dp[i] = sc[i] * (dp[i] - dlt[(i / 2) % 2]);
       pack_a(da, dp);
       wgmma_fence();
-      issue_acc<D>(dq, da, kt);  // dQ += dS K, waited on a tile later
+      issue_acc<D>(dq, da, kt, cw);  // dQ += dS K, waited on a tile later
     }
     wgmma_wait<0>();
     fence_regs(dq);
 #pragma unroll
     for (int kk = 0; kk < STREAM / 16; ++kk) fence_regs(da[kk]);
 
-    // Epilogue: dQ * scale in bf16 over this warpgroup's own Q rows.
-    stage_rows<D>(qs, row_wg, r, lane, dq, scale);
+    // Epilogue: dQ * scale in bf16 over this warpgroup's Q rows and
+    // columns; split, after both warpgroups' last reads of Q and dO.
+    if constexpr (T::SPLIT) named_barrier_sync(CONSUMERS_BAR, 256);
+    stage_rows<D>(qs, row_wg, cw, r, lane, dq, scale);
     fence_proxy_async();
     named_barrier_sync(wg, 128);
     if (threadIdx.x % 128 == 0) {
-#pragma unroll
-      for (int c = 0; c < T::CHUNKS; ++c)
-        tma_store_3d(&dqmap, qs + c * T::BIG_BOX + row_wg * T::SWB,
-                     c * T::BOXW, q0 + row_wg, bh);
+      store_rows<D>(&dqmap, qs, row_wg, cw, q0 + row_wg, bh);
       tma_store_wait();
     }
   }
@@ -945,7 +1036,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const uint64_t qstride[2] = {D * 2, (uint64_t)sq * D * 2};
   const uint64_t kdims[3] = {D, (uint64_t)sk, (uint64_t)b * hkv};
   const uint64_t kstride[2] = {D * 2, (uint64_t)sk * D * 2};
-  const uint32_t big[3] = {T::BOXW, ROWS, 1};
+  const uint32_t big[3] = {T::BOXW, T::ROWS, 1};
   const uint32_t small[3] = {T::BOXW, STREAM, 1};
   CUtensorMap q_s, do_s, k_b, v_b, dk_s, dv_s;  // dK/dV kernel
   CUtensorMap q_b, do_b, k_s, v_s, dq_s;        // dQ kernel
@@ -971,7 +1062,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       bwd_dkdv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(T::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dkdv_wgmma<D><<<dim3(b * hkv, (sk + ROWS - 1) / ROWS), THREADS,
+  bwd_dkdv_wgmma<D><<<dim3(b * hkv, (sk + T::ROWS - 1) / T::ROWS), THREADS,
                       T::SMEM, st>>>(q_s, do_s, k_b, v_b, dk_s, dv_s, lp, dp,
                                      hq, hkv, sq, sk, causal, q_offset,
                                      scale);
@@ -982,9 +1073,9 @@ int launch(const void* q, const void* k, const void* v, const void* o,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(T::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dq_wgmma<D><<<dim3(b * hq, (sq + ROWS - 1) / ROWS), THREADS, T::SMEM,
-                    st>>>(q_b, do_b, k_s, v_s, dq_s, lp, dp, hq, hkv, sq, sk,
-                          causal, q_offset, scale);
+  bwd_dq_wgmma<D><<<dim3(b * hq, (sq + T::ROWS - 1) / T::ROWS), THREADS,
+                    T::SMEM, st>>>(q_b, do_b, k_s, v_s, dq_s, lp, dp, hq,
+                                   hkv, sq, sk, causal, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -993,15 +1084,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
              void* dk, void* dv, int b, int hq, int hkv, int sq, int sk,
              int d, int causal, int q_offset, float scale, void* stream) {
   switch (d) {
-    case 32:
-      return launch<32>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, hq,
-                        hkv, sq, sk, causal, q_offset, scale, stream);
-    case 64:
-      return launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, hq,
-                        hkv, sq, sk, causal, q_offset, scale, stream);
-    case 128:
-      return launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, hq,
-                         hkv, sq, sk, causal, q_offset, scale, stream);
+    REPRO_FLASH_HEAD_DIMS(REPRO_FLASH_BWD_CASE)
+#undef REPRO_FLASH_BWD_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

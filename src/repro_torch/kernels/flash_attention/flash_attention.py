@@ -20,10 +20,9 @@ in tiles of 64).
 LM's attention call: q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D) with
 grouped-query heads read in place, a causal mask offset by `q_offset`,
 and any Sq, Sk (ragged tails are masked inside the kernel).  The
-forward kernel takes the head dims `FWD_HEAD_DIMS`: every one the
-repo's model configs use (32 to 256; the Pallas kernel takes any D as
-one block).  The backward kernel takes `BWD_HEAD_DIMS` (32, 64, 128);
-other head dims raise there.
+forward and backward kernels take the head dims `HEAD_DIMS`: every one
+the repo's model configs use (32 to 256; the Pallas kernel takes any D
+as one block); another raises.
 
 `attend(..., return_lse=True)` also returns each query row's
 log-sum-exp (float32, (B, Hq, Sq)), which `attend_backward` takes to
@@ -55,8 +54,7 @@ import torch
 
 from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
-FWD_HEAD_DIMS = (32, 64, 80, 112, 128, 192, 256)
-BWD_HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 112, 128, 192, 256)
 _ENTRY = {"simt": "repro_flash_attention_f32",
           "wgmma": "repro_flash_attention_bf16_wgmma"}
 _VARIANT = {torch.float32: "simt", torch.bfloat16: "wgmma"}
@@ -128,10 +126,8 @@ def _check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check_kernel_operands(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor, q_offset: int,
-                           head_dims: tuple) -> None:
-    """What the CUDA kernels need beyond `_check_operands`; the
-    kernel takes `head_dims`."""
+                           v: torch.Tensor, q_offset: int) -> None:
+    """What the CUDA kernels need beyond `_check_operands`."""
     _check_operands(q, k, v, 4)
     if q.device.type != "cuda":
         raise ValueError(f"the flash kernel runs on cuda, not {q.device}")
@@ -139,8 +135,8 @@ def _check_kernel_operands(q: torch.Tensor, k: torch.Tensor,
     if hq % hkv:
         raise ValueError(f"query heads {hq} not a multiple of KV heads "
                          f"{hkv}")
-    if d not in head_dims:
-        raise ValueError(f"the flash kernel takes head dims {head_dims}, "
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the flash kernels take head dims {HEAD_DIMS}, "
                          f"got {d}")
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
@@ -167,7 +163,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     `return_lse` also each row's log-sum-exp of its scaled scores,
     (B, Hq, Sq) float32.  The output carries no gradient: training goes
     through `attention`."""
-    _check_kernel_operands(q, k, v, q_offset, FWD_HEAD_DIMS)
+    _check_kernel_operands(q, k, v, q_offset)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     var = variant(q.dtype)
@@ -201,7 +197,7 @@ def attend_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous CUDA tensors, and 16-byte aligned for the wgmma variant.
     dk and dv are summed over each KV head's query group; each gradient
     comes back in its input's type."""
-    _check_kernel_operands(q, k, v, q_offset, BWD_HEAD_DIMS)
+    _check_kernel_operands(q, k, v, q_offset)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     for name, t in (("o", o), ("do", do)):

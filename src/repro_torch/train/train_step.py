@@ -60,7 +60,11 @@ def make_train_step(model: LM, tcfg: TrainConfig) -> tuple[Callable,
         leaves = tree_leaves(params)
         with torch.enable_grad():
             loss, metrics = model.train_loss(batch, params)
-            grads = torch.autograd.grad(loss, leaves)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        # A leaf the loss never reads (the audio encoder's token table)
+        # gets a zero gradient, as under jax.grad.
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
         return loss.detach(), metrics, _unflatten_like(params, grads)
 
     def train_step(params, opt_state, batch):

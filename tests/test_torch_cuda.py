@@ -9,10 +9,16 @@ kernels' full checks on the card are chip_smoke.py's phases."""
 import pytest
 import torch
 
+from repro_torch.configs import get_config
+from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.kernels.flash_attention import flash_attention as T_fa
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_lse_ref)
 from repro_torch.models import layers as T_L
+from repro_torch.models.lm import build_model
+from repro_torch.train.optimizer import OptConfig, tree_leaves
+from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                          make_train_step)
 
 
 def _card():
@@ -95,19 +101,59 @@ def test_cuda_bf16_backward_runs_on_wgmma_and_is_deterministic():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_head_dims_outside_the_kernels_raise(dtype):
-    """No fallback: the forward takes the configs' head dims and raises
-    on another; the backward raises outside (32, 64, 128)."""
+    """No fallback: the forward and the backward take the configs' head
+    dims, each on its type's variant, and raise on another."""
     _card()
 
     def qkv(d):
         return [torch.randn((1, 2, 64, d), device="cuda").to(dtype)
                 for _ in range(3)]
 
-    for d in T_fa.FWD_HEAD_DIMS:
-        assert T_fa.attend(*qkv(d), causal=True).shape == (1, 2, 64, d)
+    for d in T_fa.HEAD_DIMS:
+        q, k, v = qkv(d)
+        out, lse = T_fa.attend(q, k, v, causal=True, return_lse=True)
+        assert out.shape == (1, 2, 64, d)
+        before = dict(T_fa.attend_backward.launches_by_variant)
+        grads = T_fa.attend_backward(q, k, v, out, out, lse, causal=True)
+        after = T_fa.attend_backward.launches_by_variant
+        assert {var: after[var] - before[var] for var in after} == \
+            {var: int(var == T_fa.variant(dtype)) for var in after}
+        assert all(g.shape == t.shape and bool(torch.isfinite(g).all())
+                   for g, t in zip(grads, (q, k, v)))
+    q, k, v = qkv(96)
     with pytest.raises(ValueError, match="head dims"):
-        T_fa.attend(*qkv(96), causal=True)
-    q, k, v = qkv(80)
-    out, lse = T_fa.attend(q, k, v, causal=True, return_lse=True)
+        T_fa.attend(q, k, v, causal=True)
     with pytest.raises(ValueError, match="head dims"):
-        T_fa.attend_backward(q, k, v, out, out, lse, causal=True)
+        T_fa.attend_backward(q, k, v, q, q, q[..., 0].float(), causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["phi3_5_moe_42b", "mamba2_1_3b",
+                                  "jamba_v0_1_52b"])
+def test_cuda_bf16_training_step_of_the_moe_and_ssm_families(arch):
+    """One training step of the reduced MoE, SSM and hybrid configs in
+    bf16 compute on the card (`make_train_step`: the MoE dispatch and
+    the SSD scan under autograd): a finite loss, every parameter
+    finite, and one backward kernel launch on wgmma per attention layer
+    (none for the SSM)."""
+    _card()
+    cfg = get_config(arch, reduced=True)
+    assert cfg.compute_dtype == "bfloat16"
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2))
+    step, _ = make_train_step(model, tcfg)
+    params, opt = init_train_state(model, tcfg)
+    data = DataConfig(seed=0, vocab_size=cfg.vocab_size, seq_len=128,
+                      global_batch=2)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in make_batch(data, 0).items()}
+    before = dict(T_fa.attend_backward.launches_by_variant)
+    params, opt, met = step(params, opt, batch)
+    torch.cuda.synchronize()
+    after = T_fa.attend_backward.launches_by_variant
+    n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+    assert {var: after[var] - before[var] for var in after} == \
+        {"wgmma": n_attn, "simt": 0}
+    assert bool(torch.isfinite(met["loss"]))
+    assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(params))

@@ -31,12 +31,20 @@ from repro_torch.models import layers as T_L
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 # (b, hq, hkv, sq, sk, d, causal, chunk, q_offset): several chunks with
-# GQA, one full chunk, a causal query block after a prefix, head dim 128.
+# GQA, one full chunk, a causal query block after a prefix, head dim 128;
+# then the configs' other head dims: 80 (full, Sq != Sk), 112 (GQA 8
+# over 1, causal after a prefix), 192 (causal, GQA) and 256 (full and
+# causal).
 CASES = [
     (1, 4, 2, 64, 64, 32, True, 16, 0),
     (2, 2, 2, 48, 48, 64, False, 1024, 0),
     (1, 4, 4, 40, 64, 32, True, 16, 24),
     (1, 2, 1, 33, 33, 128, True, 1024, 0),
+    (1, 4, 4, 40, 48, 80, False, 16, 0),
+    (1, 8, 1, 24, 48, 112, True, 16, 24),
+    (1, 4, 2, 33, 33, 192, True, 1024, 0),
+    (1, 2, 2, 32, 48, 256, False, 16, 0),
+    (1, 4, 2, 40, 40, 256, True, 8, 0),
 ]
 
 

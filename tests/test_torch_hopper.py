@@ -77,7 +77,7 @@ def test_flash_variant_by_type():
     assert T_flash.variant(torch.float32) == "simt"
     cases = CHIP_SMOKE.FLASH_CASES
     assert (1, 16, 8, 130, 4133, 128, True, 4003) in cases
-    assert {c[5] for c in cases} == set(T_flash.FWD_HEAD_DIMS)
+    assert {c[5] for c in cases} == set(T_flash.HEAD_DIMS)
 
 
 def _c_entries(source: str) -> set[str]:
@@ -225,12 +225,15 @@ def _reference_flash_grads(q, k, v, do, *, causal, chunk):
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))]
 
 
-@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("d", T_flash.HEAD_DIMS)
 def test_bf16_flash_backward_numerics_within_reference_tolerance(d):
     """Rounding P and dS to bf16 before the products keeps the wgmma
     backward within the bf16 tolerance of `jax.grad` of the reference's
-    jnp flash loop: GQA 4 over 2, causal, S 256 (four 64-row tiles).
-    The reference runs in float32 on the bf16-rounded inputs."""
+    jnp flash loop: GQA 4 over 2, causal, S 256 (four 64-row tiles), at
+    every head dim the kernel takes (80 and 112 held as 128 columns, zero
+    past D; above 128 the two warpgroups split the columns, which leaves
+    each product's sums as they are).  The reference runs in float32 on
+    the bf16-rounded inputs."""
     b, hq, hkv, s = 1, 4, 2, 256
     rng = np.random.default_rng(100 + d)
     arrs = [rng.standard_normal(shape).astype(np.float32)
@@ -278,7 +281,25 @@ def test_flash_backward_variant_by_type():
         assert "dispatch(" in body
     cases = CHIP_SMOKE.FLASH_BWD_CASES
     assert (1, 16, 8, 130, 4133, 128, True, 4003) in cases
-    assert {c[5] for c in cases} == set(T_flash.BWD_HEAD_DIMS)
+    assert {c[5] for c in cases} == set(T_flash.HEAD_DIMS)
+
+
+def test_flash_backward_cases_hold_every_training_shape():
+    """Each attention call of chip_smoke's family training phases, at
+    batch 2 with the config's query and KV heads, is a case that
+    `flash_bwd_vs_plain` holds against the plain backward."""
+    from repro_torch import configs
+
+    cases = set(CHIP_SMOKE.FLASH_BWD_CASES)
+    shapes = 0
+    for arch, _, _, calls in CHIP_SMOKE.TRAIN_FAMILIES:
+        cfg = configs.get_config(arch)
+        for (sq, sk, d, causal), _ in calls:
+            assert d == cfg.head_dim
+            assert (2, cfg.n_heads, cfg.n_kv_heads, sq, sk, d, causal,
+                    0) in cases, (arch, sq, sk, d, causal)
+            shapes += 1
+    assert shapes == 5
 
 
 def test_library_path_hashes_shared_headers(tmp_path, monkeypatch):

@@ -24,7 +24,15 @@ Tolerances, largest errors measured in brackets:
   the encoder's loss reads `labels`;
 - bfloat16 compute (prefill of the MoE and hybrid families, where
   near-ties in the router could route a token elsewhere): logits within
-  the LM's bfloat16 bounds, 0.05 [0.027].
+  the LM's bfloat16 bounds, 0.05 [0.027];
+- `make_train_step`, 3 steps on the config's optimizer (AdamW; Adafactor
+  for Kimi K2 and Llama-3.2-Vision) in float32 compute and parameters,
+  on the data pipeline's batches (2 x 128): losses and gradient norms
+  rtol 1e-5, parameters within 1e-4 (rtol and atol), the bounds of
+  tests/test_torch_train.py's dense case; Kimi K2 and Llama-3.2-Vision
+  as they ship (bf16 parameters and compute, lr 3e-4, warmup 20):
+  losses rtol 1e-3 [2.7e-4], gradient norms rtol 2**-7 [9.1e-4], each
+  parameter leaf within 2**-7 of its largest magnitude [2.8e-3].
 Largest errors over the six configs, from one CPU run.
 """
 import dataclasses
@@ -38,13 +46,20 @@ import torch
 
 from repro.configs import ARCH_IDS as R_ARCH_IDS
 from repro.configs import get_config as R_get_config
+from repro.data.pipeline import DataConfig as R_DataConfig
+from repro.data.pipeline import make_batch as R_make_batch
 from repro.models.lm import build_model as R_build
 from repro.serve.serve_step import greedy_decode as R_greedy
+from repro.train.optimizer import OptConfig as R_OptConfig
+from repro.train.train_step import TrainConfig as R_TrainConfig
+from repro.train.train_step import make_train_step as R_make_train_step
 from repro_torch import convert
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models.lm import abstract_params, build_model
 from repro_torch.serve.serve_step import greedy_decode
-from repro_torch.train.optimizer import tree_leaves
+from repro_torch.train.optimizer import OptConfig, tree_leaves
+from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                          make_train_step)
 
 FAMILIES = ["phi3_5_moe_42b", "kimi_k2_1t", "mamba2_1_3b",
             "jamba_v0_1_52b", "llama_3_2_vision_90b", "hubert_xlarge"]
@@ -55,6 +70,8 @@ LOSS_F32 = dict(rtol=1e-5, atol=1e-5)
 # float32 leaves 1e-4; bfloat16 leaves (the bf16-parameter configs)
 # one bfloat16 step, 2**-7, as both packages round the gradient.
 GRAD_SHARE = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+STEP_LOSS = dict(rtol=1e-5, atol=0.0)
+STEP_PARAMS = dict(rtol=1e-4, atol=1e-4)
 SEQ = 128
 
 
@@ -254,6 +271,80 @@ def test_train_loss_and_gradients_match_reference(arch):
         share = GRAD_SHARE[leaf.dtype]
         err = np.abs(t.float().numpy() - r).max()
         assert err <= share * np.abs(r).max(), (err, np.abs(r).max())
+
+
+def _three_steps(arch, lr, warmup, **kw):
+    """3 steps of `make_train_step` on the config's optimizer (config
+    fields `kw` replaced in both packages) and the reference's jitted
+    step, on the same perturbed parameters and the data pipeline's
+    batches (HuBERT's frames and labels, the VLM's image embeddings):
+    (port params, reference params, [(port, reference) loss and gradient
+    norm of each step])."""
+    rcfg = dataclasses.replace(R_get_config(arch, reduced=True), **kw)
+    cfg = dataclasses.replace(get_config(arch, reduced=True), **kw)
+    assert cfg.optimizer == rcfg.optimizer
+    params = _perturbed_params(rcfg)
+    port = convert.lm_params_from_numpy(cfg, params, device="cpu")
+    rmodel = R_build(rcfg)
+    r_params = jax.tree.map(jnp.asarray, params)
+    r_tcfg = R_TrainConfig(opt=R_OptConfig(lr=lr, warmup_steps=warmup))
+    t_tcfg = TrainConfig(opt=OptConfig(lr=lr, warmup_steps=warmup))
+    r_step, r_init = R_make_train_step(rmodel, r_tcfg)
+    r_step = jax.jit(r_step)
+    r_opt = r_init(r_tcfg.opt, r_params)
+    t_step, _ = make_train_step(port, t_tcfg)
+    t_params, t_opt = init_train_state(port, t_tcfg)
+    data = R_DataConfig(seed=0, vocab_size=cfg.vocab_size, seq_len=SEQ,
+                        global_batch=2, modality=cfg.modality,
+                        d_model=cfg.d_model,
+                        n_image_tokens=cfg.n_image_tokens)
+    metrics = []
+    for step in range(3):
+        arrs = R_make_batch(data, step)
+        r_params, r_opt, rmet = r_step(
+            r_params, r_opt, {k: jnp.asarray(v) for k, v in arrs.items()})
+        t_params, t_opt, tmet = t_step(
+            t_params, t_opt,
+            {k: torch.from_numpy(v) for k, v in arrs.items()})
+        metrics += [(tmet[key].item(), float(rmet[key]))
+                    for key in ("loss", "grad_norm")]
+    assert int(t_opt["step"]) == int(r_opt["step"]) == 3
+    r_leaves = jax.tree.leaves(r_params)
+    assert len(tree_leaves(t_params)) == len(r_leaves)
+    return tree_leaves(t_params), r_leaves, metrics
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_train_step_three_steps_match_reference(arch):
+    """3 steps on the config's optimizer in float32 compute and
+    parameters."""
+    t_leaves, r_leaves, metrics = _three_steps(
+        arch, 1e-3, 2, compute_dtype="float32", param_dtype="float32")
+    for got, want in metrics:
+        np.testing.assert_allclose(got, want, **STEP_LOSS)
+    for t, r in zip(t_leaves, r_leaves):
+        np.testing.assert_allclose(t.detach().numpy(), np.asarray(r),
+                                   **STEP_PARAMS)
+
+
+@pytest.mark.parametrize("arch", ["kimi_k2_1t", "llama_3_2_vision_90b"])
+def test_bf16_adafactor_steps_match_reference(arch):
+    """The bf16-parameter configs as they ship (bf16 compute and
+    parameters, Adafactor), 3 steps at the training CLI's lr and warmup:
+    losses within the bf16 bound of tests/test_torch_train.py (rtol
+    1e-3); gradient norms, and each parameter leaf as a share of its
+    largest magnitude, within one bfloat16 step, 2**-7."""
+    t_leaves, r_leaves, metrics = _three_steps(arch, 3e-4, 20)
+    for (loss, r_loss), (gnorm, r_gnorm) in zip(metrics[::2], metrics[1::2]):
+        np.testing.assert_allclose(loss, r_loss, rtol=1e-3)
+        np.testing.assert_allclose(gnorm, r_gnorm,
+                                   rtol=GRAD_SHARE[torch.bfloat16])
+    for t, r in zip(t_leaves, r_leaves):
+        assert t.dtype == torch.bfloat16
+        r = np.asarray(r, np.float32)
+        err = np.abs(t.detach().float().numpy() - r).max()
+        assert err <= GRAD_SHARE[torch.bfloat16] * np.abs(r).max(), (
+            err, np.abs(r).max())
 
 
 def test_encoder_loss_reads_the_labels():
