@@ -119,6 +119,20 @@ Then the co-search service, counts again set to 0:
   (rolled back and retried) and torn checkpoints, each gated on its
   own; the reference's metric families and span names.
 
+The static-analysis suite (`repro_torch.analysis`) runs in two phases:
+
+- `analysis_lint` (host, right after the build): the port's lint over
+  this checkout's `src/repro_torch` against its baseline, with no new
+  finding, and the spec lint of the shipped specs, clean;
+- `analysis_contracts` (after the service, counts again set to 0): the
+  engine contracts on the card (transfer-free under the dispatch
+  recorder and set_sync_debug_mode("error"), one engine build across
+  populations 2 and 4, no float64, the op-sequence fingerprint) for the
+  search, fleet and service paths, every check gated; two negative
+  controls (`.item()`, `nonzero()`) that must fail `transfer_free` on
+  the card; and the same contracts on the CPU, whose search fingerprint
+  is printed beside the card's (equality reported, not gated).
+
 Last, it times the three kernels (the wgmma variants of the main path,
 the float32 flash on its simt kernel, the flash forward and backward
 also at HuBERT's head dim 80 and Gemma's 256, and the backward at the
@@ -1865,6 +1879,69 @@ def phase_lm_train_card_vs_cpu(torch, lm_mod, configs, train_step_mod,
           "param_max_abs_diff": err, "tolerances": TRAIN_CARD_CPU})
 
 
+def phase_analysis_lint(an_report):
+    """The port's lint over this checkout against its baseline (no new
+    finding) and the shipped specs' lint (clean), on the host."""
+    t0 = now()
+    lint = an_report.lint_section(ROOT, an_report.DEFAULT_BASELINE)
+    spec = an_report.speclint_section()
+    seconds = now() - t0
+    check(lint["ok"], "analysis_lint: new findings "
+          + "; ".join(f"{v['path']}:{v['line']} {v['rule']}"
+                      for v in lint["new"]))
+    check(spec["ok"], f"analysis_lint: spec lint {spec['specs']}")
+    emit({"phase": "analysis_lint", "total": lint["total"],
+          "by_rule": lint["by_rule"], "baselined": lint["baselined"],
+          "new": len(lint["new"]),
+          "fixed": len(lint["baseline_diff"]["fixed"]),
+          "spec_issues": {k: len(v) for k, v in spec["specs"].items()},
+          "seconds": seconds})
+
+
+def phase_analysis_contracts(torch, an_report, contracts):
+    """The engine contracts on the card, every check gated; negative
+    controls that must fail on the card (the guards are armed there);
+    the same contracts on the CPU, fingerprints compared."""
+    t0 = now()
+    card = an_report.contracts_section("cuda")
+    card_s = now() - t0
+    failed = {k: v["detail"] for k, v in card["checks"].items()
+              if isinstance(v, dict) and not v["passed"]}
+    check(card["ok"] and not failed,
+          f"analysis_contracts on the card: {failed}")
+    controls = {}
+    x = torch.ones(4096, device="cuda")
+    for name, fn, op in (("item", lambda t: t.sum().item(),
+                          "_local_scalar_dense"),
+                         ("nonzero", lambda t: t.nonzero(), "nonzero")):
+        r = contracts.transfer_free(fn, lambda: ((x.clone(),), {}))
+        check(not r.passed, f"negative control {name} passed "
+              f"transfer_free on the card: {r.detail}")
+        check(op in r.detail and "RuntimeError" in r.detail,
+              f"negative control {name}: the recorder and the sync "
+              f"guard must both fire: {r.detail}")
+        controls[name] = r.detail
+    check(torch.cuda.get_sync_debug_mode() == 0,
+          "set_sync_debug_mode left set after the contracts")
+    t1 = now()
+    cpu = an_report.contracts_section("cpu")
+    cpu_s = now() - t1
+    fp_card = card["checks"]["search.trace_fingerprint"]
+    fp_cpu = cpu["checks"]["search.trace_fingerprint"]
+    emit({"phase": "analysis_contracts", "device": card["device"],
+          "checks": {k: v["passed"] if isinstance(v, dict) else v
+                     for k, v in card["checks"].items()},
+          "details": {k: v["detail"] for k, v in card["checks"].items()
+                      if isinstance(v, dict)},
+          "negative_controls": controls,
+          "cpu_ok": cpu["ok"],
+          "cpu_failed": {k: v["detail"] for k, v in cpu["checks"].items()
+                         if isinstance(v, dict) and not v["passed"]},
+          "fingerprint_card": fp_card, "fingerprint_cpu": fp_cpu,
+          "fingerprints_equal": fp_card == fp_cpu,
+          "seconds_card": card_s, "seconds_cpu": cpu_s})
+
+
 def reset_counts(matmul, flash, fa_mod) -> None:
     """Every kernel's launch counts to 0."""
     matmul.launches = 0
@@ -2582,6 +2659,8 @@ def main() -> int:
     import numpy as np
 
     from repro_torch import api, configs
+    from repro_torch.analysis import contracts
+    from repro_torch.analysis import report as an_report
     from repro_torch.core import (archspec, calibration, cosa, fleet,
                                   mapping, oracle, problem, rtl_sim, search,
                                   surrogate)
@@ -2619,6 +2698,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     build_all(build, ["matmul", "flash_attention", "flash_attention_bwd"])
+    phase_analysis_lint(an_report)
     phase_kernel_vs_plain(torch, matmul, matmul_ref)
     phase_flash_vs_plain(torch, attend, attention_ref, flash_attention)
     phase_flash_bwd_vs_plain(torch, fa_mod, attention_ref, attention_lse_ref)
@@ -2789,6 +2869,15 @@ def main() -> int:
                        problem, wl)
     emit({"phase": "main_path_launches",
           "path": "device_seed+fleet+service",
+          "matmul": matmul.launches,
+          "flash_attention": flash_attention.launches,
+          "flash_attention_bwd": fa_mod.attend_backward.launches})
+
+    # ---- the analysis suite's engine contracts, counts from 0 (no
+    # kernel of this repo is on this path).
+    reset_counts(matmul, flash_attention, fa_mod)
+    phase_analysis_contracts(torch, an_report, contracts)
+    emit({"phase": "main_path_launches", "path": "analysis_contracts",
           "matmul": matmul.launches,
           "flash_attention": flash_attention.launches,
           "flash_attention_bwd": fa_mod.attend_backward.launches})

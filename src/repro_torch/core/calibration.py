@@ -118,7 +118,9 @@ def traced_features(cspec: CompiledSpec, theta: torch.Tensor,
         batch + (L, 3 * (nl - 1)))
     hw_feats = [torch.log(torch.sqrt(hw.c_pe))]
     for i in cspec.searched_levels:
-        kb = hw.cap_words[..., i] * float(cspec.word_bytes[i]) / 1024.0
+        # the spec's host table, not a tensor
+        wb = float(cspec.word_bytes[i])  # repro-lint: allow[TH101]
+        kb = hw.cap_words[..., i] * wb / 1024.0
         hw_feats.append(torch.log(kb))
     hwf = torch.stack(hw_feats, dim=-1)                  # (..., n_hw)
     hwf = hwf[..., None, :].expand(batch + (L, len(hw_feats)))

@@ -34,6 +34,10 @@ class LRUCache:
         self._build_s: OrderedDict = OrderedDict()
         self.build_count = 0
         self.build_seconds_total = 0.0
+        # Fresh inserts per key (bounded like `_build_s`): an engine
+        # cache's counterpart of a jit cache's program count, read by
+        # `analysis.contracts.compiled_programs`.
+        self._inserts: OrderedDict = OrderedDict()
 
     def __len__(self) -> int:
         return len(self._data)
@@ -55,9 +59,13 @@ class LRUCache:
         bound (counted in `evictions`)."""
         if key in self._data:
             self._data.move_to_end(key)
-        elif len(self._data) >= self.maxsize:
-            self._data.popitem(last=False)
-            self.evictions += 1
+        else:
+            if len(self._data) >= self.maxsize:
+                self._data.popitem(last=False)
+                self.evictions += 1
+            self._inserts[key] = self._inserts.pop(key, 0) + 1
+            while len(self._inserts) > 4 * self.maxsize:
+                self._inserts.popitem(last=False)
         self._data[key] = value
 
     def get_or_build(self, key, build: Callable):
@@ -85,6 +93,19 @@ class LRUCache:
         entries whose backing resource was deleted out of band."""
         self._data.pop(key, None)
 
+    def inserts_of(self, key) -> int:
+        """How many times `key` was inserted fresh: once per build of an
+        engine cache's entry, more after an eviction or a `clear`."""
+        return self._inserts.get(key, 0)
+
+    def key_of(self, value):
+        """The key whose cached value *is* `value` (identity), or
+        ``None``."""
+        for k, v in self._data.items():
+            if v is value:
+                return k
+        return None
+
     def keys(self):
         """Keys in LRU-to-MRU order (a snapshot list, safe to mutate
         the cache while iterating)."""
@@ -107,6 +128,7 @@ class LRUCache:
         if reset_stats:
             self.hits = self.misses = self.evictions = 0
             self._build_s.clear()
+            self._inserts.clear()
             self.build_count = 0
             self.build_seconds_total = 0.0
 

@@ -389,12 +389,14 @@ def infer_hw_spec(cspec: CompiledSpec, fs: torch.Tensor,
     Returns SpecHW with (...,) / (..., n_levels) leaves."""
     caps = capacities(fs, strides)                   # (..., L, nl, 3)
     batch = fs.shape[:-4]
+    # the PE dims are the spec's Python ints, not tensors
     if cspec.spec.fixed_pe_dim is not None:
-        c_pe = fs.new_full(batch, float(cspec.spec.fixed_pe_dim) ** 2)
+        pe = float(cspec.spec.fixed_pe_dim)  # repro-lint: allow[TH101]
+        c_pe = fs.new_full(batch, pe ** 2)
     else:
         c_pe = torch.amax(layer_c_pe_spec(cspec, fs), dim=-1)
-        c_pe = torch.minimum(c_pe, c_pe.new_full(
-            (), float(cspec.spec.max_pe_dim) ** 2))
+        pe = float(cspec.spec.max_pe_dim)  # repro-lint: allow[TH101]
+        c_pe = torch.minimum(c_pe, c_pe.new_full((), pe ** 2))
     cap_words = []
     fixed = dict(cspec.fixed_capacity)
     for i in range(cspec.n_levels):

@@ -83,12 +83,14 @@ def test_port_imports_with_jax_and_reference_blocked():
     "repro_torch.train.optimizer", "repro_torch.data.pipeline",
     "repro_torch.workloads.lm_extract", "repro_torch.models.moe",
     "repro_torch.models.ssm", "repro_torch.models.lm",
-    "repro_torch.launch.serve"])
+    "repro_torch.launch.serve", "repro_torch.analysis.rules",
+    "repro_torch.analysis.astlint", "repro_torch.analysis.contracts",
+    "repro_torch.analysis.report", "repro_torch.analysis.__main__"])
 def test_serving_slice_modules_are_held_to_the_rules(module):
-    """The serving, training and LM-family slices' modules are among the
-    modules the blocked-import run above imports, and none calls a clock
-    itself: `time.monotonic` appears only as a reference (a default to
-    inject), never called."""
+    """The serving, training, LM-family and analysis slices' modules are
+    among the modules the blocked-import run above imports, and none
+    calls a clock itself: `time.monotonic` appears only as a reference
+    (a default to inject), never called."""
     assert module in _port_modules()
     path = ROOT / "src" / (module.replace(".", "/") + ".py")
     tree = ast.parse(path.read_text())
