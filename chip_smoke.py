@@ -133,6 +133,29 @@ The static-analysis suite (`repro_torch.analysis`) runs in two phases:
   the card; and the same contracts on the CPU, whose search fingerprint
   is printed beside the card's (equality reported, not gated).
 
+The dry-run (`repro_torch.launch.cells`, every step traced on the
+meta device) runs in three phases:
+
+- `dryrun_cells` and `hillclimb_qwen3` (host, right after the lint):
+  `run_cell` on the 16x16 mesh for DRYRUN_CELLS, every applicable cell
+  counted and every skip with the reference's reason, within
+  DRYRUN_BUDGET_S, each with its per-device FLOPs, bytes, memory and
+  H100 roofline terms; `hillclimb.run`'s "baseline" and "no_remat" on
+  Qwen3-0.6B train_4k, whose compute term must fall;
+- `dryrun_vs_card` on a one-device mesh, for Qwen3-0.6B training (8 x
+  512) and prefill (4 x 4096) after the Qwen3 training section, and for
+  Gemma-7B's 4-layer training on the model `lm_train_gemma_7b` built:
+  the meta FLOP count equals FlopCounterMode around a real step on the
+  card, op by op; the meta argument bytes equal the card's parameters,
+  optimizer state and batch; the H100 roofline step is at most the
+  measured step.  The flash kernels are custom ops
+  (`repro_torch::flash_fwd`, `repro_torch::flash_bwd`), so the counter
+  sees them on the card by their FLOP formula.
+
+After the co-search, `example_torch_quickstart` runs
+`examples/torch_quickstart.py` on the card in a process of its own and
+holds its best EDP to the oracle's.
+
 Last, it times the three kernels (the wgmma variants of the main path,
 the float32 flash on its simt kernel, the flash forward and backward
 also at HuBERT's head dim 80 and Gemma's 256, and the backward at the
@@ -156,11 +179,15 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.core.arch import H100_SXM  # noqa: E402
 
-# Peaks of one H100 SXM (NVIDIA data sheet, dense, at the 700 W limit).
-PEAK_BF16_FLOPS = 989e12
+# Peaks of one H100 SXM (NVIDIA data sheet, dense, at the 700 W limit):
+# the port's roofline target, and its float32 rate outside the tensor
+# cores.
+PEAK_BF16_FLOPS = H100_SXM.peak_flops
 PEAK_F32_FLOPS = 67e12
-HBM_BYTES_PER_S = 3.35e12
+HBM_BYTES_PER_S = H100_SXM.hbm_bw
 
 # (m, k, n): the kernel tests' shapes, one ragged in M, K and N that
 # TMA can take (16-byte rows), one it cannot.
@@ -376,6 +403,34 @@ SMALL = dict(steps=20, round_every=10)
 SERVE_RESNET50 = dict(steps=250, round_every=125, n_start_points=2, seed=0)
 # The chaos schedule's seed: 2 transient faults and 2 torn checkpoints.
 CHAOS_SEED = 8
+
+# The dry-run (`launch.cells`) in `dryrun_cells`: cells counted on the
+# meta device on the 16x16 mesh (every shape of Qwen3-0.6B, the 1T and
+# 340B training cells, the sub-quadratic long-context cells and two of
+# the reference's skips; the full sweep stays with `python -m
+# repro_torch.launch.dryrun --all`), the reference's skip reasons
+# (`repro.configs.base.shape_applicable`), and the phase's budget.
+DRYRUN_CELLS = [("qwen3_0_6b", s) for s in ("train_4k", "prefill_32k",
+                                            "decode_32k", "long_500k")] + [
+    ("kimi_k2_1t", "train_4k"), ("nemotron_4_340b", "train_4k"),
+    ("jamba_v0_1_52b", "long_500k"), ("mamba2_1_3b", "long_500k"),
+    ("gemma_7b", "long_500k"), ("hubert_xlarge", "decode_32k")]
+_LONG_SKIP = "long_500k requires sub-quadratic attention"
+DRYRUN_SKIPS = {("qwen3_0_6b", "long_500k"): _LONG_SKIP,
+                ("gemma_7b", "long_500k"): _LONG_SKIP,
+                ("hubert_xlarge", "decode_32k"):
+                    "encoder-only arch has no decode step"}
+DRYRUN_BUDGET_S = 90.0
+# `dryrun_vs_card`: the one-device mesh on which the meta count is held
+# against real steps, and the family whose training model it reuses.
+ONE_DEVICE = {"data": 1, "model": 1}
+DRYRUN_CARD_FAMILY = "gemma_7b"
+DRYRUN_CARD_STEPS = 4
+# Qwen3-0.6B serving before the flash kernels became custom ops (PERF.md
+# section 5; H100 80GB HBM3, 700 W): the serve loop's tok/s and a decode
+# step's wall ms.
+SERVE_BEFORE = {"tok_per_s": {"PR 19 run 2": 122.0, "PR 20 run 1": 101.0},
+                "decode_step_wall_ms": {"PR 19 run 2": 39.8}}
 # The reference service's metric families (`repro.serve.cosearch_service`,
 # `repro.obs.telemetry`, `repro.runtime.search_checkpoint`) and its
 # request-lifecycle span and event names.
@@ -1490,6 +1545,7 @@ def phase_lm_serve(torch, serve, configs, flash):
     check(bool(((seq >= 0) & (seq < vocab)).all()), "tokens in range")
     emit({"phase": "lm_serve_qwen3_0_6b", "argv": argv,
           "seconds": secs, "tok_per_s": seq.numel() / secs,
+          "tok_per_s_before_custom_ops": SERVE_BEFORE["tok_per_s"],
           "flash_launches": flash.launches,
           "sample": seq[0, 120:140].tolist()})
 
@@ -1561,6 +1617,8 @@ def phase_profile_decode(torch, model, n_steps: int = 5):
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / n_steps
     emit({"phase": "profile_decode_steps", "steps": n_steps, "batch": 4,
           "wall_ms_per_step": step_ms,
+          "wall_ms_per_step_before_custom_ops":
+              SERVE_BEFORE["decode_step_wall_ms"],
           "device_ops_per_step": len(dev) / n_steps,
           "device_busy_ms_per_step": busy_ms if dev else "not measured",
           "device_busy_share": busy_ms / step_ms if dev
@@ -1942,6 +2000,280 @@ def phase_analysis_contracts(torch, an_report, contracts):
           "seconds_card": card_s, "seconds_cpu": cpu_s})
 
 
+def phase_dryrun_cells(cells, tpu_model):
+    """The dry-run on the host: `run_cell` on the 16x16 mesh for
+    DRYRUN_CELLS, each step traced on the meta device (nothing
+    allocated or launched).  Gates: every applicable cell counted, every
+    other skipped with the reference's reason, within DRYRUN_BUDGET_S.
+    Prints per device the FLOPs, bytes, memory and the three roofline
+    terms on the H100 (the collective term 0: no census yet) with their
+    bound."""
+    t0 = now()
+    rows = []
+    for arch, shape in DRYRUN_CELLS:
+        res = cells.run_cell(arch, shape, multi_pod=False)
+        skip = DRYRUN_SKIPS.get((arch, shape), "")
+        check(res.ok == (not skip) and res.skip_reason == skip,
+              f"dryrun {arch} {shape}: ok {res.ok}, skip "
+              f"{res.skip_reason!r}, error {res.error!r}; expected "
+              f"{'skip ' + repr(skip) if skip else 'a count'}")
+        row = {"arch": arch, "shape": shape, "mode": res.mode,
+               "ok": res.ok, "skip_reason": res.skip_reason}
+        if res.ok:
+            terms = tpu_model.step_roofline(res.flops, res.bytes_accessed,
+                                            0.0, target=H100_SXM)
+            mem = res.memory
+            row.update(
+                trace_s=res.lower_s, flops_per_device=res.flops,
+                bytes_per_device=res.bytes_accessed, memory=mem,
+                fits_hbm=mem["argument_size_in_bytes"]
+                + mem["output_size_in_bytes"] <= H100_SXM.hbm_bytes,
+                collectives=res.collectives,
+                compute_s=terms.compute_s, memory_s=terms.memory_s,
+                collective_s=terms.collective_s, bound=terms.bound,
+                step_s=terms.step_s)
+        rows.append(row)
+    secs = now() - t0
+    check(secs <= DRYRUN_BUDGET_S,
+          f"dryrun_cells took {secs:.1f} s, budget {DRYRUN_BUDGET_S} s")
+    emit({"phase": "dryrun_cells", "mesh": "16x16", "devices": 256,
+          "target": "H100_SXM", "cells": rows, "seconds": secs,
+          "budget_s": DRYRUN_BUDGET_S})
+
+
+def phase_hillclimb_qwen3(hillclimb):
+    """`hillclimb.run` of "baseline" and "no_remat" on Qwen3-0.6B
+    train_4k, 16x16, H100 terms; its JSON goes under build/.  Gate: the
+    recompute removed, the compute term falls."""
+    import os
+
+    out = ROOT / "build" / "chip_smoke_hillclimb"
+    out.mkdir(parents=True, exist_ok=True)
+    prev = os.getcwd()
+    t0 = now()
+    os.chdir(out)
+    try:
+        recs = {v: hillclimb.run("qwen3_0_6b", "train_4k", v)
+                for v in ("baseline", "no_remat")}
+    finally:
+        os.chdir(prev)
+    check(recs["no_remat"]["compute_s"] < recs["baseline"]["compute_s"],
+          f"no_remat compute {recs['no_remat']['compute_s']} s not below "
+          f"baseline {recs['baseline']['compute_s']} s")
+    emit({"phase": "hillclimb_qwen3", "arch": "qwen3_0_6b",
+          "shape": "train_4k", "mesh": "16x16", "target": "H100_SXM",
+          "records": recs, "seconds": now() - t0,
+          "file": str(out / "artifacts" / "perf"
+                      / "qwen3_0_6b_train_4k.json")})
+
+
+def phase_example_quickstart():
+    """`examples/torch_quickstart.py` in a process of its own, on the
+    card (its default): it exits 0, ran on cuda, and its printed best
+    EDP equals the numpy oracle's EDP of the best mappings it
+    printed."""
+    import math
+    import os
+    import re
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                               if env.get("PYTHONPATH") else []))
+    t0 = now()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "torch_quickstart.py")],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    secs = now() - t0
+    out = proc.stdout
+    check(proc.returncode == 0, f"torch_quickstart.py exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    best = re.search(r"^best EDP: (\S+)", out, re.M)
+    orc = re.search(r"^oracle EDP of the best mappings: (\S+)", out, re.M)
+    check(best is not None and orc is not None and "device: cuda" in out,
+          f"torch_quickstart.py printed {out[-1500:]}")
+    best, orc = float(best.group(1)), float(orc.group(1))
+    check(math.isfinite(best) and best == orc,
+          f"quickstart best EDP {best} != oracle {orc}")
+    emit({"phase": "example_torch_quickstart", "seconds": secs,
+          "best_edp": best, "oracle_edp": orc, "stdout": out[-1200:]})
+
+
+def tree_nbytes(tree) -> int:
+    """Bytes of every tensor in a tree of dicts, lists and tuples; a
+    Python number counts as a 4-byte scalar, None as nothing."""
+    if isinstance(tree, dict):
+        return sum(tree_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_nbytes(v) for v in tree)
+    if tree is None:
+        return 0
+    return tree.nbytes if hasattr(tree, "nbytes") else 4
+
+
+def hold_meta_to_card(torch, cells, tpu_model, smi, case, cfg, shape,
+                      train_overrides, run_step, card_args, measured_s,
+                      extra):
+    """The dry-run held against the card on a one-device mesh: (a) the
+    meta count of `cfg` at `shape` (`cells.measure`, the counter
+    `run_cell` uses) equals FlopCounterMode around one real step
+    (`run_step`, not timed), op by op; (b) its argument bytes equal the
+    card's `card_args` bytes; (c) its H100 roofline step is at most the
+    measured step `measured_s`.  Prints the roofline fraction."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    t0 = now()
+    meta, memory = cells.measure(cfg, shape, ONE_DEVICE, train_overrides)
+    meta_s = now() - t0
+    torch.cuda.synchronize()
+    with FlopCounterMode(display=False) as fc:
+        run_step()
+    torch.cuda.synchronize()
+    card = cells.flops_by_op(fc)
+    differ = {op: {"card": card.get(op), "meta": meta.flops_by_op.get(op)}
+              for op in sorted(set(card) | set(meta.flops_by_op))
+              if card.get(op) != meta.flops_by_op.get(op)}
+    check(not differ and int(fc.get_total_flops()) == meta.flops,
+          f"{case}: FLOPs on the card {int(fc.get_total_flops())} != meta "
+          f"{meta.flops}; differing ops {differ}")
+    card_bytes = tree_nbytes(card_args)
+    check(card_bytes == memory["argument_size_in_bytes"],
+          f"{case}: argument bytes on the card {card_bytes} != meta "
+          f"{memory['argument_size_in_bytes']}")
+    terms = tpu_model.step_roofline(meta.flops, meta.bytes_accessed, 0.0,
+                                    target=H100_SXM)
+    check(terms.step_s <= measured_s,
+          f"{case}: roofline step {terms.step_s} s above the measured "
+          f"{measured_s} s")
+    top_bytes = sorted(meta.bytes_by_op.items(), key=lambda kv: -kv[1])[:8]
+    emit({"phase": "dryrun_vs_card", "case": case, "mesh": ONE_DEVICE,
+          "batch": shape.global_batch, "seq": shape.seq_len,
+          "mode": shape.mode, "flops_meta": meta.flops,
+          "flops_card": int(fc.get_total_flops()),
+          "flops_by_op": meta.flops_by_op,
+          "bytes_accessed_meta": meta.bytes_accessed,
+          "bytes_top_ops": dict(top_bytes), "memory_meta": memory,
+          "argument_bytes_card": card_bytes,
+          "compute_s": terms.compute_s, "memory_s": terms.memory_s,
+          "bound": terms.bound, "roofline_step_s": terms.step_s,
+          "measured_step_s": measured_s,
+          "roofline_fraction": terms.step_s / measured_s,
+          "meta_trace_s": meta_s, "nvidia_smi": smi, **extra})
+
+
+def _launches(fa_mod) -> tuple[dict, dict]:
+    return (dict(fa_mod.flash_attention.launches_by_variant),
+            dict(fa_mod.attend_backward.launches_by_variant))
+
+
+def _check_step_launches(fa_mod, before, calls, case, train=True):
+    """One step's flash launches since `before`: per attention call 2
+    forward (remat) and 1 backward in training, 1 forward in prefill,
+    all on wgmma."""
+    after = _launches(fa_mod)
+    diff = [{v: a[v] - b[v] for v in a} for a, b in zip(after, before)]
+    want = [{"wgmma": (2 if train else 1) * calls, "simt": 0},
+            {"wgmma": calls if train else 0, "simt": 0}]
+    check(diff == want, f"{case}: flash launches (forward, backward) "
+          f"{diff}, expected {want}")
+
+
+def phase_dryrun_vs_card_train(torch, cells, tpu_model, fa_mod, smi, case,
+                               st, measured_s=None):
+    """`hold_meta_to_card` for a training state `st` (model, params,
+    opt, step_fn, opt_cfg, batch, calls_per_step) at 8 x 512.  Without
+    `measured_s`, DRYRUN_CARD_STEPS steps are timed here (the first
+    warm) and their median taken; each step's flash launches are
+    gated."""
+    model, calls = st["model"], st["calls_per_step"]
+    shape = cells.ShapeConfig(f"{case}_shape", TRAIN_FAMILY_S,
+                              TRAIN_FAMILY_B, "train")
+    card_args = (st["params"], st["opt"], st["batch"])
+
+    def run_step():
+        before = _launches(fa_mod)
+        st["params"], st["opt"], met = st["step_fn"](
+            st["params"], st["opt"], st["batch"])
+        loss = float(met["loss"])
+        _check_step_launches(fa_mod, before, calls, case)
+        check(loss == loss, f"{case}: loss {loss}")
+
+    timed = []
+    if measured_s is None:
+        for _ in range(DRYRUN_CARD_STEPS):
+            torch.cuda.synchronize()
+            t0 = now()
+            run_step()
+            timed.append(now() - t0)
+        measured_s = statistics.median(timed[1:])
+    hold_meta_to_card(torch, cells, tpu_model, smi, case, model.cfg, shape,
+                      {"opt": st["opt_cfg"]}, run_step, card_args,
+                      measured_s, {"layers": model.cfg.n_layers,
+                                   "optimizer": model.cfg.optimizer,
+                                   "remat": model.cfg.remat,
+                                   "steps_timed_s": timed})
+
+
+def phase_dryrun_vs_card_qwen3(torch, cells, tpu_model, lm_mod, configs,
+                               train_step_mod, optimizer, pipeline, fa_mod,
+                               smi):
+    """`dryrun_vs_card` for Qwen3-0.6B at full width: training 8 x 512
+    (AdamW, remat, `launch.train`'s learning rate) and prefill 4 x 4096
+    (int32 tokens, as the dry-run's batch), each model drawn on the card
+    from seed 0."""
+    cfg = configs.get_config("qwen3_0_6b")
+    model = lm_mod.build_model(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    opt_cfg = optimizer.OptConfig(lr=3e-4, warmup_steps=20)
+    step_fn, init_opt = train_step_mod.make_train_step(
+        model, train_step_mod.TrainConfig(opt=opt_cfg))
+    data = pipeline.DataConfig(seed=0, vocab_size=cfg.vocab_size,
+                               seq_len=TRAIN_FAMILY_S,
+                               global_batch=TRAIN_FAMILY_B)
+    st = {"model": model, "params": model.params, "step_fn": step_fn,
+          "opt_cfg": opt_cfg, "calls_per_step": cfg.n_layers,
+          "batch": {k: torch.from_numpy(v).to("cuda")
+                    for k, v in pipeline.make_batch(data, 0).items()}}
+    st["opt"] = init_opt(opt_cfg, st["params"])
+    phase_dryrun_vs_card_train(torch, cells, tpu_model, fa_mod, smi,
+                               "qwen3_0_6b_train", st)
+    del st
+    torch.cuda.empty_cache()
+
+    model = lm_mod.build_model(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(1, cfg.vocab_size,
+                                     (PREFILL_B, PREFILL_S), generator=gen,
+                                     device="cuda", dtype=torch.int32)}
+
+    def run_step():
+        before = _launches(fa_mod)
+        logits, _ = model.prefill(batch)
+        torch.cuda.synchronize()
+        _check_step_launches(fa_mod, before, cfg.n_layers,
+                             "qwen3_0_6b_prefill", train=False)
+        return logits
+
+    run_step()                                              # warm
+    timed = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = now()
+        run_step()
+        timed.append(now() - t0)
+    shape = cells.ShapeConfig("qwen3_0_6b_prefill_shape", PREFILL_S,
+                              PREFILL_B, "prefill")
+    hold_meta_to_card(torch, cells, tpu_model, smi, "qwen3_0_6b_prefill",
+                      cfg, shape, None, run_step, (model.params, batch),
+                      statistics.median(timed),
+                      {"layers": cfg.n_layers, "calls_timed_s": timed})
+    del model
+    torch.cuda.empty_cache()
+
+
 def reset_counts(matmul, flash, fa_mod) -> None:
     """Every kernel's launch counts to 0."""
     matmul.launches = 0
@@ -2267,7 +2599,7 @@ def routing_flips(cpu_calls, card_calls, limit: int = 3) -> dict:
 
 def phase_lm_family_train(torch, lm_mod, configs, train_step_mod, optimizer,
                           pipeline, fa_mod, arch, phase, depth,
-                          expected_calls, profile=False):
+                          expected_calls, profile=False, keep=False):
     """Training of `arch` at its config's published widths (depth `depth`
     where given) through `make_train_step`, parameters drawn on the card
     from seed 0, TRAIN_FAMILY_STEPS steps of the data pipeline's batches.
@@ -2278,7 +2610,9 @@ def phase_lm_family_train(torch, lm_mod, configs, train_step_mod, optimizer,
     attention.  Printed beside the steps' losses and learning rates:
     the loss of the initial parameters on each step's batch (finite).
     With `profile`, two more steps run, the second profiled.  Returns
-    the backward launches of all the steps."""
+    (the backward launches of all the steps, None), or with `keep` the
+    model and its training state in place of None (for
+    `dryrun_vs_card`), which the caller frees."""
     import dataclasses
     from collections import Counter
 
@@ -2369,10 +2703,16 @@ def phase_lm_family_train(torch, lm_mod, configs, train_step_mod, optimizer,
         line["profiled_step"], params, opt = profile_step(
             torch, step_fn, params, opt, batch)
     emit(line)
+    # Backward launches: every step's, the profiled and its warm one too.
+    n_bwd = n_calls * (TRAIN_FAMILY_STEPS + 2 * profile)
+    if keep:
+        return n_bwd, {"model": model, "params": params, "opt": opt,
+                       "step_fn": step_fn, "opt_cfg": tcfg.opt,
+                       "batch": batch_of(0), "step_s": step_s,
+                       "calls_per_step": n_calls}
     del model, params, opt, step_fn
     torch.cuda.empty_cache()
-    # Backward launches: every step's, the profiled and its warm one too.
-    return n_calls * (TRAIN_FAMILY_STEPS + 2 * profile)
+    return n_bwd, None
 
 
 def phase_lm_train_families_card_vs_cpu(torch, lm_mod, configs,
@@ -2655,7 +2995,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
     from repro_torch import api, configs
@@ -2665,6 +3004,7 @@ def main() -> int:
                                   mapping, oracle, problem, rtl_sim, search,
                                   surrogate)
     from repro_torch.core.arch import GEMMINI_DEFAULT
+    from repro_torch.core import tpu_model
     from repro_torch.core.baselines import random_search
     from repro_torch.data import pipeline
     from repro_torch.kernels import build
@@ -2677,7 +3017,7 @@ def main() -> int:
     from repro_torch.kernels.matmul.matmul import matmul
     from repro_torch.kernels.matmul.ops import tuned_blocks, tuned_matmul
     from repro_torch.kernels.matmul.ref import matmul_ref
-    from repro_torch.launch import serve
+    from repro_torch.launch import cells, hillclimb, serve
     from repro_torch.launch import train as train_mod
     from repro_torch.models import lm as lm_mod
     from repro_torch.obs import telemetry as obs
@@ -2699,6 +3039,8 @@ def main() -> int:
 
     build_all(build, ["matmul", "flash_attention", "flash_attention_bwd"])
     phase_analysis_lint(an_report)
+    phase_dryrun_cells(cells, tpu_model)
+    phase_hillclimb_qwen3(hillclimb)
     phase_kernel_vs_plain(torch, matmul, matmul_ref)
     phase_flash_vs_plain(torch, attend, attention_ref, flash_attention)
     phase_flash_bwd_vs_plain(torch, fa_mod, attention_ref, attention_lse_ref)
@@ -2708,6 +3050,7 @@ def main() -> int:
     x, y = phase_tuned_matmul(torch, tuned_matmul, tuned_blocks, matmul_ref,
                               matmul)
     wl, cfg, res = phase_cosearch(torch, search, oracle, dnn_zoo)
+    phase_example_quickstart()
     mm_launches = matmul.launches_by_variant["wgmma"]
     check(mm_launches > 0,
           "the tuned path never launched the wgmma matmul kernel")
@@ -2770,15 +3113,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_lm_train_card_vs_cpu(torch, lm_mod, configs, train_step_mod,
                                optimizer, pipeline)
+    phase_dryrun_vs_card_qwen3(torch, cells, tpu_model, lm_mod, configs,
+                               train_step_mod, optimizer, pipeline, fa_mod,
+                               smi)
 
     # ---- main paths 6-10: training of the other families at full
     # width, counts from 0 before each path and read after it.
     for arch, phase, depth, expected_calls in TRAIN_FAMILIES:
         reset_counts(matmul, flash_attention, fa_mod)
-        n_bwd = phase_lm_family_train(
+        n_bwd, kept = phase_lm_family_train(
             torch, lm_mod, configs, train_step_mod, optimizer, pipeline,
             fa_mod, arch, phase, depth, expected_calls,
-            profile=arch == TRAIN_FAMILY_PROFILED)
+            profile=arch == TRAIN_FAMILY_PROFILED,
+            keep=arch == DRYRUN_CARD_FAMILY)
         check(fa_mod.attend_backward.launches_by_variant
               == {"wgmma": n_bwd, "simt": 0},
               f"{arch}: backward launches "
@@ -2792,6 +3139,13 @@ def main() -> int:
               "flash_attention_bwd": fa_mod.attend_backward.launches,
               "flash_attention_bwd_by_variant":
                   dict(fa_mod.attend_backward.launches_by_variant)})
+        if kept is not None:
+            phase_dryrun_vs_card_train(
+                torch, cells, tpu_model, fa_mod, smi,
+                f"{arch}_{kept['model'].cfg.n_layers}_layers_train", kept,
+                measured_s=kept["step_s"])
+            del kept
+            torch.cuda.empty_cache()
     phase_lm_train_families_card_vs_cpu(torch, lm_mod, configs,
                                         train_step_mod, optimizer, pipeline)
 

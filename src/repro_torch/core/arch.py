@@ -140,3 +140,14 @@ class TPUTarget:
 
 
 TPU_V5E = TPUTarget()
+
+# NVIDIA H100 SXM, the card the port runs on, as a roofline target of
+# the dry-run and the hillclimb (`step_roofline(..., target=H100_SXM)`):
+# the data sheet's dense bf16 peak and HBM3 rate at the 700 W limit,
+# NVLink 4's rate per direction, 80 GB of HBM, the 227 KB of shared
+# memory one block can take (the counterpart of VMEM) and a wgmma's M.
+# Only the roofline reads it: `tpu_model.matmul_latency`'s block-cost
+# model is calibrated for the TPU v5e, not for this target (a Hopper
+# block-cost model is an open question).
+H100_SXM = TPUTarget(peak_flops=989e12, hbm_bw=3.35e12, ici_bw=450e9,
+                     vmem_bytes=227 * 1024, mxu_dim=64, hbm_bytes=80e9)

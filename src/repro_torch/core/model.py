@@ -449,6 +449,13 @@ def workload_eval_spec(cspec: CompiledSpec, fs: torch.Tensor,
 population_eval_spec = workload_eval_spec
 
 
+def workload_edp_spec(cspec: CompiledSpec, fs: torch.Tensor,
+                      orders: torch.Tensor, strides: torch.Tensor,
+                      repeats: torch.Tensor, hw: SpecHW | None = None):
+    """The EDP alone of `workload_eval_spec`."""
+    return workload_eval_spec(cspec, fs, orders, strides, repeats, hw)[0]
+
+
 def workload_eval(fs: torch.Tensor, orders: torch.Tensor,
                   strides: torch.Tensor, repeats: torch.Tensor,
                   hw: HWParams | None = None):

@@ -34,6 +34,9 @@ import numpy as np
 
 from .archspec import resolve_spec
 from .mapping import ORDER_TABLE, SPATIAL, TEMPORAL, Mapping
+# Legacy constant (Gemmini chains), the model's object; the generic path
+# reads `cspec.tensor_levels`.
+from .model import TENSOR_LEVELS  # noqa: F401
 from .problem import (C, K, N, NDIMS, P, Q, R, S, REL, I_T, O_T, W_T, Layer)
 
 @dataclasses.dataclass

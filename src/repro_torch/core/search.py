@@ -91,6 +91,9 @@ from .oracle import evaluate_workload
 from .problem import Workload
 from .rounding import (round_all, round_population, rounding_tables,
                        _round_population_core)
+# Free optimization sites of the default (Gemmini) target; generic
+# targets read `compile_spec(spec).free_mask`.
+from .surrogate import FREE_MASK  # noqa: F401
 
 _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
 

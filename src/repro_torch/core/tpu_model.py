@@ -1,11 +1,10 @@
 """DOSA's differentiable model retargeted at the TPU v5e memory
 hierarchy, on torch tensors: the block-cost model the matmul autotuner
-descends.
+descends, and the step-level three-term roofline of the dry-run.
 
-The PyTorch port of the parts of `repro.core.tpu_model` that
-`core.autotune` uses, ported as-is for parity: the TPU v5e is
-`archspec.TPU_V5E_SPEC` (HBM -> VMEM -> VREG/MXU with *fixed*
-capacities), and `matmul_latency` / `vmem_footprint` express a
+The PyTorch port of `repro.core.tpu_model`, ported as-is for parity:
+the TPU v5e is `archspec.TPU_V5E_SPEC` (HBM -> VMEM -> VREG/MXU with
+*fixed* capacities), and `matmul_latency` / `vmem_footprint` express a
 matmul tile schedule (bm, bn, bk) as a mapping tensor for the shared
 differentiable core in `model.py`.  It prices a TPU, not the H100 the
 port runs on: its blocks do not steer the CUDA kernel's tiling until a
@@ -18,6 +17,8 @@ torch multiplies by a reciprocal, which rounds differently from the
 reference's division.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -125,3 +126,49 @@ def vmem_penalty(bm, bn, bk, dtype_bytes: float = 2.0,
     """Relative VMEM overflow — the inverted Eq. 2-5 constraint."""
     return relu(vmem_footprint(bm, bn, bk, dtype_bytes)
                 / _f32(target.vmem_bytes, bm.device) - 1.0)
+
+
+# ---------------------------------------------------------------------------
+# Step-level three-term roofline (the dry-run's; `launch.hillclimb`)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RooflineTerms:
+    compute_s: float
+    memory_s: float
+    collective_s: float
+
+    @property
+    def bound(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def step_s(self) -> float:
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+
+def step_roofline(flops_per_dev: float, bytes_per_dev: float,
+                  coll_bytes_per_dev: float,
+                  target: TPUTarget = TPU_V5E) -> RooflineTerms:
+    """Three roofline terms from the dry-run's per-device counts:
+
+      compute    = FLOPs / peak
+      memory     = bytes / HBM rate
+      collective = collective bytes / link rate
+
+    The default target is the reference's (`TPU_V5E`); the port's
+    dry-run and hillclimb pass `arch.H100_SXM`."""
+    return RooflineTerms(
+        compute_s=flops_per_dev / target.peak_flops,
+        memory_s=bytes_per_dev / target.hbm_bw,
+        collective_s=coll_bytes_per_dev / target.ici_bw,
+    )
+
+
+def model_flops(n_active_params: float, tokens: float,
+                train: bool) -> float:
+    """6*N*D (train) / 2*N*D (inference) useful-FLOPs accounting."""
+    per_tok = 6.0 * n_active_params if train else 2.0 * n_active_params
+    return per_tok * tokens

@@ -43,6 +43,17 @@ counts the forward kernel's launches, and
 its three passes), and `attend_backward.launches_by_variant` per
 variant; `attention.calls` counts calls of the differentiable entry on
 either device.
+
+Both directions are `torch.library` custom ops, `repro_torch::flash_fwd`
+(the output and, when asked, the LSE) and `repro_torch::flash_bwd`
+(dq, dk, dv): their CUDA kernel is the launch above, their CPU kernel
+the plain version, and their fake kernel gives meta and fake tensors
+their shapes, so that a model traced on the meta device (the dry-run,
+`launch.cells`) reaches attention without launching or materialising
+anything.  `torch.utils.flop_counter` counts each op by its formula
+(`flash_fwd_flops`, `flash_bwd_flops`): 4 B Hq D FLOPs per unmasked
+(query, key) pair forward, 2.5 times that backward, whether the call
+ran on the card, the CPU or the meta device.
 """
 from __future__ import annotations
 
@@ -51,6 +62,7 @@ import functools
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
@@ -127,9 +139,10 @@ def _check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check_kernel_operands(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, q_offset: int) -> None:
-    """What the CUDA kernels need beyond `_check_operands`."""
+    """What the CUDA kernels need beyond `_check_operands`; a meta
+    tensor (shapes only, nothing launches) is held to the same."""
     _check_operands(q, k, v, 4)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"the flash kernel runs on cuda, not {q.device}")
     hq, hkv, d = q.shape[1], k.shape[1], q.shape[3]
     if hq % hkv:
@@ -154,29 +167,51 @@ def _check_aligned(var: str, **tensors: torch.Tensor) -> None:
                              f"aligned {', '.join(tensors)}; not {off}")
 
 
-def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           causal: bool, q_offset: int = 0, return_lse: bool = False):
-    """Launch the kernel: q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D),
-    contiguous CUDA tensors of one type, Hq % Hkv == 0.  Query row i
-    sits at position `q_offset + i`; with `causal` it sees keys
-    j <= q_offset + i.  Returns (B, Hq, Sq, D) in q's type, and with
-    `return_lse` also each row's log-sum-exp of its scaled scores,
-    (B, Hq, Sq) float32.  The output carries no gradient: training goes
-    through `attention`."""
-    _check_kernel_operands(q, k, v, q_offset)
+def causal_pairs(sq: int, sk: int, causal: bool, q_offset: int) -> int:
+    """The (query, key) pairs attention computes: Sq * Sk, or with
+    `causal` those with key j <= q_offset + i, row i seeing
+    min(Sk, q_offset + i + 1) keys."""
+    if not causal:
+        return sq * sk
+    first = q_offset + 1                  # keys row 0 sees (q_offset >= 0)
+    n = max(0, min(sq, sk - first + 1))   # rows that see fewer than Sk
+    return n * first + n * (n - 1) // 2 + (sq - n) * sk
+
+
+def flash_fwd_flops(q_shape, k_shape, causal: bool, q_offset: int) -> int:
+    """Forward FLOPs: 4 B Hq D per unmasked pair (Q K^T and P V, 2
+    each), the convention of the kernel's roofline."""
+    b, hq, sq, d = q_shape
+    return 4 * b * hq * d * causal_pairs(sq, k_shape[2], causal, q_offset)
+
+
+def flash_bwd_flops(q_shape, k_shape, causal: bool, q_offset: int) -> int:
+    """Backward FLOPs: 2.5 times the forward's (S again, dP, dV, dQ,
+    dK: 5 products of 2 to the forward's 2 of 2)."""
+    return 5 * flash_fwd_flops(q_shape, k_shape, causal, q_offset) // 2
+
+
+@torch.library.custom_op(
+    "repro_torch::flash_fwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, int q_offset, "
+           "bool return_lse) -> (Tensor, Tensor)")
+def flash_fwd(q, k, v, causal, q_offset, return_lse):
+    """The forward kernel's launch on the card: (out, lse), lse empty
+    unless `return_lse`.  Operands checked by the callers
+    (`_check_kernel_operands`)."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     var = variant(q.dtype)
     _check_aligned(var, q=q, k=k, v=v)
     lib = _library()
     out = torch.empty_like(q)
-    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) \
-        if return_lse else None
+    lse = torch.empty((b, hq, sq) if return_lse else (0,),
+                      dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, _ENTRY[var])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(),
+            lse.data_ptr() if return_lse else None,
             b, hq, hkv, sq, sk, d, int(causal), q_offset,
             1.0 / math.sqrt(d), stream)
     if rc != 0:
@@ -185,32 +220,39 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"{msg} ({rc})")
     flash_attention.launches += 1
     flash_attention.launches_by_variant[var] += 1
-    return (out, lse) if return_lse else out
+    return out, lse
 
 
-def attend_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor, *,
-                    causal: bool, q_offset: int = 0):
-    """Launch the backward kernel: the gradients (dq, dk, dv) of
-    `attend`'s output `o` for the output gradient `do` (both shaped and
-    typed like q), from the forward's `lse` ((B, Hq, Sq) float32).  All
-    contiguous CUDA tensors, and 16-byte aligned for the wgmma variant.
-    dk and dv are summed over each KV head's query group; each gradient
-    comes back in its input's type."""
-    _check_kernel_operands(q, k, v, q_offset)
+@flash_fwd.register_kernel("cpu")
+def _flash_fwd_cpu(q, k, v, causal, q_offset, return_lse):
+    out, lse = attention_lse_ref(q, k, v, causal=causal, q_offset=q_offset)
+    return out, lse if return_lse else lse.new_empty((0,))
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, causal, q_offset, return_lse):
+    b, hq, sq = q.shape[:3]
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((b, hq, sq) if return_lse else (0,),
+                        dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_fwd)
+def _flash_fwd_formula(q_shape, k_shape, v_shape, causal, q_offset,
+                       return_lse, *, out_shape=None, **kwargs) -> int:
+    return flash_fwd_flops(q_shape, k_shape, causal, q_offset)
+
+
+@torch.library.custom_op(
+    "repro_torch::flash_bwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor o, Tensor do, "
+           "Tensor lse, bool causal, int q_offset) -> "
+           "(Tensor, Tensor, Tensor)")
+def flash_bwd(q, k, v, o, do, lse, causal, q_offset):
+    """The backward kernel's launch on the card: (dq, dk, dv).
+    Operands checked by `attend_backward`."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    for name, t in (("o", o), ("do", do)):
-        if t.shape != q.shape or t.dtype != q.dtype \
-                or t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {q.dtype} "
-                             f"tensor shaped like q {tuple(q.shape)} on "
-                             f"{q.device}, got {t.dtype} {tuple(t.shape)}")
-    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32 \
-            or lse.device != q.device or not lse.is_contiguous():
-        raise ValueError(f"lse must be contiguous float32 {(b, hq, sq)} "
-                         f"on {q.device}, got {lse.dtype} "
-                         f"{tuple(lse.shape)}")
     var = variant(q.dtype)
     _check_aligned(var, q=q, k=k, v=v, o=o, do=do)
     lib = _bwd_library()
@@ -232,6 +274,68 @@ def attend_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+@flash_bwd.register_kernel("cpu")
+def _flash_bwd_cpu(q, k, v, o, do, lse, causal, q_offset):
+    return attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                             q_offset=q_offset)
+
+
+@flash_bwd.register_fake
+def _flash_bwd_fake(q, k, v, o, do, lse, causal, q_offset):
+    return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                 for t in (q, k, v))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_bwd)
+def _flash_bwd_formula(q_shape, k_shape, v_shape, o_shape, do_shape,
+                       lse_shape, causal, q_offset, *, out_shape=None,
+                       **kwargs) -> int:
+    return flash_bwd_flops(q_shape, k_shape, causal, q_offset)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool, q_offset: int = 0, return_lse: bool = False):
+    """Launch the kernel: q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D),
+    contiguous CUDA tensors of one type, Hq % Hkv == 0.  Query row i
+    sits at position `q_offset + i`; with `causal` it sees keys
+    j <= q_offset + i.  Returns (B, Hq, Sq, D) in q's type, and with
+    `return_lse` also each row's log-sum-exp of its scaled scores,
+    (B, Hq, Sq) float32.  The output carries no gradient: training goes
+    through `attention`.  Through `repro_torch::flash_fwd`: meta tensors
+    get shapes and launch nothing; a CPU tensor raises."""
+    _check_kernel_operands(q, k, v, q_offset)
+    out, lse = torch.ops.repro_torch.flash_fwd(q, k, v, causal, q_offset,
+                                               return_lse)
+    return (out, lse) if return_lse else out
+
+
+def attend_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor, *,
+                    causal: bool, q_offset: int = 0):
+    """Launch the backward kernel: the gradients (dq, dk, dv) of
+    `attend`'s output `o` for the output gradient `do` (both shaped and
+    typed like q), from the forward's `lse` ((B, Hq, Sq) float32).  All
+    contiguous CUDA tensors, and 16-byte aligned for the wgmma variant.
+    dk and dv are summed over each KV head's query group; each gradient
+    comes back in its input's type.  Through `repro_torch::flash_bwd`,
+    as `attend`."""
+    _check_kernel_operands(q, k, v, q_offset)
+    b, hq, sq, d = q.shape
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {q.dtype} "
+                             f"tensor shaped like q {tuple(q.shape)} on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)}")
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous float32 {(b, hq, sq)} "
+                         f"on {q.device}, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    return torch.ops.repro_torch.flash_bwd(q, k, v, o, do, lse, causal,
+                                           q_offset)
+
+
 attend_backward.launches = 0
 attend_backward.launches_by_variant = dict.fromkeys(_ENTRY, 0)
 
@@ -240,13 +344,15 @@ class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention at `attend`'s interface.  On the
     card the forward launches the forward kernel with its LSE output and
     the backward launches the backward kernel; on the CPU both are the
-    plain versions.  Nothing else: no library attention, no fallback."""
+    plain versions, on the meta device shapes only: the custom ops'
+    kernels in each case.  Nothing else: no library attention, no
+    fallback."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, q_offset: int):
         if q.device.type == "cpu":
-            out, lse = attention_lse_ref(q, k, v, causal=causal,
-                                         q_offset=q_offset)
+            out, lse = torch.ops.repro_torch.flash_fwd(q, k, v, causal,
+                                                       q_offset, True)
         else:
             out, lse = attend(q, k, v, causal=causal, q_offset=q_offset,
                               return_lse=True)
@@ -258,9 +364,13 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dout = dout.contiguous()
-        fn = attention_bwd_ref if q.device.type == "cpu" else attend_backward
-        dq, dk, dv = fn(q, k, v, out, dout, lse, causal=ctx.causal,
-                        q_offset=ctx.q_offset)
+        if q.device.type == "cpu":
+            dq, dk, dv = torch.ops.repro_torch.flash_bwd(
+                q, k, v, out, dout, lse, ctx.causal, ctx.q_offset)
+        else:
+            dq, dk, dv = attend_backward(q, k, v, out, dout, lse,
+                                         causal=ctx.causal,
+                                         q_offset=ctx.q_offset)
         return dq, dk, dv, None, None
 
 

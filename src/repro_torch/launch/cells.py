@@ -1,0 +1,382 @@
+"""Dry-run cells: (architecture x input shape x mesh) counted on the
+meta device.  The port of `repro.launch.cells`.
+
+`run_cell` builds meta-tensor stand-ins for every input (weights,
+optimizer state, batch or KV cache: shapes and types, no storage),
+runs one train, prefill or decode step on them under
+`torch.utils.flop_counter.FlopCounterMode` and `OpBytes` (a dispatch
+mode that sums each operation's input and output bytes), and reports
+per device:
+
+  * `flops` and `bytes_accessed`: the step's totals divided by the
+    mesh's device count.  That is the ideal split; the reference's
+    per-device HLO counts include work a partition replicates.
+  * `memory`: `argument_size_in_bytes` and `output_size_in_bytes`, each
+    leaf's bytes divided dim by dim (ceil) by the mesh axes its
+    sanitized PartitionSpec names.  There is no compiler here, so
+    `temp_size_in_bytes` and `generated_code_size_in_bytes` are absent.
+  * `collectives`: None.  Collective bytes need the multi-GPU path
+    (ROADMAP queue 1 item 7); no record shows a census of zeros.
+
+The meta step allocates and launches nothing, on any machine: the
+flash kernels are custom ops whose fake kernels give shapes and whose
+FLOP formulas count the pairs the kernel computes.  The model's Python
+loop runs every period, so the counts cover the whole depth; the
+reference's depth-1/depth-2 extrapolation (XLA counts a loop body once)
+has no counterpart.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import re
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves as _pytree_leaves
+from torch.utils.flop_counter import FlopCounterMode
+
+from ..configs import get_config
+from ..configs.base import SHAPES, ArchConfig, ShapeConfig, shape_applicable
+from ..models.lm import LM, build_model, param_specs
+from ..obs import telemetry as _obs
+from ..sharding.rules import P, PartitionSpec, sanitize_spec, set_parallelism
+from ..train.optimizer import OptConfig
+from ..train.train_step import TrainConfig, make_train_step, opt_state_specs
+from .mesh import make_production_mesh, mesh_devices, mesh_name
+
+DTYPE_BYTES = {"f32": 4, "bf16": 2, "f16": 2, "s32": 4, "u32": 4,
+               "s8": 1, "u8": 1, "pred": 1, "f64": 8, "s64": 8,
+               "u16": 2, "s16": 2, "f8e4m3fn": 1, "f8e5m2": 1,
+               "c64": 8, "u64": 8}
+
+# bytes moved on the wire per element, ring algorithms
+COLLECTIVE_FACTOR = {"all-reduce": 2.0, "all-gather": 1.0,
+                     "reduce-scatter": 1.0, "all-to-all": 1.0,
+                     "collective-permute": 1.0}
+
+_HLO_RE = re.compile(
+    r"=\s*(?:\()?((?:f|bf|s|u|pred|c)[\w\d]*)\[([\d,]*)\][^)]*?\)?\s*"
+    r"(all-reduce|all-gather|reduce-scatter|all-to-all|"
+    r"collective-permute)\(")
+
+
+def parse_collective_bytes(hlo_text: str) -> dict[str, float]:
+    """Sum per-device collective bytes by op kind from partitioned HLO
+    text (kept for the multi-device path, and held to the reference)."""
+    out: dict[str, float] = {k: 0.0 for k in COLLECTIVE_FACTOR}
+    count = 0
+    for m in _HLO_RE.finditer(hlo_text):
+        dtype, dims, kind = m.group(1), m.group(2), m.group(3)
+        elems = 1
+        for d in dims.split(","):
+            if d:
+                elems *= int(d)
+        nbytes = elems * DTYPE_BYTES.get(dtype, 4)
+        out[kind] += nbytes * COLLECTIVE_FACTOR[kind]
+        count += 1
+    out["n_ops"] = count
+    out["total"] = sum(v for k, v in out.items()
+                       if k in COLLECTIVE_FACTOR)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta-tensor stand-ins)
+# ---------------------------------------------------------------------------
+
+def batch_struct(cfg: ArchConfig, shape: ShapeConfig,
+                 device="meta") -> dict:
+    """The batch of a train or prefill step, on `device` (meta: no
+    storage; elsewhere uninitialised)."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def empty(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device=device)
+
+    if cfg.modality == "audio":
+        return {"frames": empty((b, s, cfg.d_model), torch.bfloat16),
+                "labels": empty((b, s), torch.int32)}
+    out = {"tokens": empty((b, s), torch.int32)}
+    if cfg.modality == "vision+text":
+        out["image_embeds"] = empty((b, cfg.n_image_tokens, cfg.d_model),
+                                    torch.bfloat16)
+    return out
+
+
+def batch_specs(cfg: ArchConfig, shape: ShapeConfig,
+                batch_shardable: bool) -> dict:
+    bspec = ("pod", "data") if batch_shardable else None
+    if cfg.modality == "audio":
+        return {"frames": P(bspec, None, None), "labels": P(bspec, None)}
+    out = {"tokens": P(bspec, None)}
+    if cfg.modality == "vision+text":
+        out["image_embeds"] = P(bspec, None, None)
+    return out
+
+
+def input_specs(arch: str, shape_name: str) -> dict:
+    """Public helper: meta tensors for an (arch, shape) cell's inputs
+    (decode: the token, the position and the cache)."""
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    if shape.mode == "decode":
+        model = build_model(cfg, device="meta")
+        return {"tokens": torch.empty((shape.global_batch, 1),
+                                      dtype=torch.int32, device="meta"),
+                "position": torch.empty((), dtype=torch.int32,
+                                        device="meta"),
+                "cache": model.init_cache(shape.global_batch,
+                                          shape.seq_len)}
+    return batch_struct(cfg, shape)
+
+
+# ---------------------------------------------------------------------------
+# Counting
+# ---------------------------------------------------------------------------
+
+def tensor_bytes(t: torch.Tensor) -> int:
+    """Bytes of the elements `t` addresses: a dim of stride 0 (a
+    broadcast) counts once."""
+    n = math.prod(size for size, stride in zip(t.shape, t.stride())
+                  if stride != 0)
+    return n * t.element_size()
+
+
+_NO_TRAFFIC = ("empty", "new_empty", "_unsafe_view")
+
+
+class OpBytes(TorchDispatchMode):
+    """While active, sums each dispatched operation's tensor input and
+    output bytes (`tensor_bytes`) into `self.total`, and by op name into
+    `self.by_op`.  Views (`_unsafe_view` among them) and allocations
+    without a write (`empty*`) move nothing and are skipped; an in-place
+    op's output counts as a write."""
+
+    def __init__(self):
+        super().__init__()
+        self.total = 0
+        self.by_op: dict[str, int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func._schema.name.split("::")[-1]
+        if func.is_view or name.startswith(_NO_TRAFFIC):
+            return out
+        moved = sum(tensor_bytes(t) for t in _pytree_leaves(
+            (args, kwargs or {}, out)) if isinstance(t, torch.Tensor))
+        self.total += moved
+        self.by_op[name] = self.by_op.get(name, 0) + moved
+        return out
+
+
+@dataclasses.dataclass
+class StepCount:
+    """One step's counts on one device (no mesh division): FLOPs and
+    bytes moved, each in total and by op name, and the step's arguments
+    and outputs."""
+    flops: int
+    flops_by_op: dict
+    bytes_accessed: int
+    bytes_by_op: dict
+    args: tuple
+    outputs: tuple
+
+
+def flops_by_op(counter: FlopCounterMode) -> dict[str, int]:
+    return {str(op): int(n) for op, n in
+            counter.get_flop_counts().get("Global", {}).items()}
+
+
+def _step_fn(model: LM, mode: str, shape: ShapeConfig,
+             tcfg: TrainConfig | None, device):
+    """(fn, args): the step of `mode` and its arguments on `device`."""
+    if mode == "train":
+        step, init_opt = make_train_step(model, tcfg)
+        params = model.params
+        args = (params, init_opt(tcfg.opt, params),
+                batch_struct(model.cfg, shape, device))
+        return step, args
+    if mode == "prefill":
+        return model.prefill, (batch_struct(model.cfg, shape, device),)
+    cfg = model.cfg
+    args = [model.init_cache(shape.global_batch, shape.seq_len),
+            torch.empty((shape.global_batch, 1), dtype=torch.int32,
+                        device=device), shape.seq_len - 1]
+    if cfg.modality == "vision+text":
+        args.append(torch.empty(
+            (shape.global_batch, cfg.n_image_tokens, cfg.d_model),
+            dtype=torch.bfloat16, device=device))
+    return model.decode_step, tuple(args)
+
+
+def count_step(model: LM, mode: str, shape: ShapeConfig,
+               tcfg: TrainConfig | None = None) -> StepCount:
+    """Run one step of `mode` ("train", "prefill", "decode") of `model`
+    at `shape` on the model's device under the counters.  On the meta
+    device nothing is allocated or launched.  `tcfg` (train) defaults to
+    `TrainConfig(OptConfig())`."""
+    tcfg = tcfg or TrainConfig(opt=OptConfig())
+    fn, args = _step_fn(model, mode, shape, tcfg, model.device)
+    with FlopCounterMode(display=False) as fc, OpBytes() as ob:
+        outputs = fn(*args)
+    return StepCount(flops=int(fc.get_total_flops()),
+                     flops_by_op=flops_by_op(fc),
+                     bytes_accessed=ob.total, bytes_by_op=ob.by_op,
+                     args=args, outputs=outputs)
+
+
+def shard_bytes(t, pspec: PartitionSpec, mesh: dict[str, int]) -> int:
+    """Bytes of one device's shard of `t` (a tensor, or a Python number
+    counted as a 4-byte scalar) under `pspec` on `mesh`: each dim
+    divided, rounding up, by the product of the mesh axes its sanitized
+    entry names."""
+    if not isinstance(t, torch.Tensor):
+        return 4
+    clean = sanitize_spec(pspec, set(mesh))
+    n = 1
+    for d, size in enumerate(t.shape):
+        entry = clean[d] if d < len(clean) else None
+        axes = () if entry is None else (
+            entry if isinstance(entry, tuple) else (entry,))
+        n *= -(-size // math.prod(mesh[a] for a in axes))
+    return n * t.element_size()
+
+
+def tree_shard_bytes(tree, specs, mesh: dict[str, int]) -> int:
+    """Sum of `shard_bytes` over a tree (nested dicts, lists and tuples)
+    of tensors beside a congruent tree of specs; a spec where the tree
+    has a subtree applies to all of it; None leaves count nothing."""
+    if tree is None:
+        return 0
+    if isinstance(specs, PartitionSpec):
+        if isinstance(tree, dict):
+            return sum(tree_shard_bytes(v, specs, mesh)
+                       for v in tree.values())
+        if isinstance(tree, (list, tuple)):
+            return sum(tree_shard_bytes(v, specs, mesh) for v in tree)
+        return shard_bytes(tree, specs, mesh)
+    if isinstance(tree, dict):
+        return sum(tree_shard_bytes(tree[k], specs[k], mesh) for k in tree)
+    return sum(tree_shard_bytes(t, s, mesh) for t, s in zip(tree, specs))
+
+
+def step_specs(model: LM, mode: str, batch_shardable: bool,
+               shape: ShapeConfig) -> tuple:
+    """(argument specs, output specs) of `_step_fn`'s step, congruent
+    with its arguments and outputs: parameters and optimizer state as
+    `param_specs` and `opt_state_specs` say, the batch over ("pod",
+    "data") when it divides, the decode cache as `cache_specs`, logits
+    and metrics replicated.  The prefill's KV stacks take the decode
+    cache's layout (the reference leaves them to the compiler)."""
+    cfg = model.cfg
+    p_specs = param_specs(cfg)
+    b_specs = batch_specs(cfg, shape, batch_shardable)
+    if mode == "train":
+        o_specs = opt_state_specs(p_specs, cfg.optimizer)
+        return (p_specs, o_specs, b_specs), (p_specs, o_specs, P())
+    c_specs = model.cache_specs(batch_shardable=batch_shardable)
+    if mode == "prefill":
+        kv = tuple((c_specs[f"slot{si}"]["k"], c_specs[f"slot{si}"]["v"])
+                   for si, slot in enumerate(model.slots)
+                   if slot.kind == "attn")
+        return (b_specs,), (P(), {"kv": kv, "ssm": P()})
+    bspec = ("pod", "data") if batch_shardable else None
+    args = [c_specs, P(bspec, None), P()]
+    if cfg.modality == "vision+text":
+        args.append(P(bspec, None, None))
+    return tuple(args), (P(), c_specs)
+
+
+def memory_per_device(model: LM, mode: str, shape: ShapeConfig,
+                      mesh: dict[str, int], batch_shardable: bool,
+                      count: StepCount) -> dict:
+    """`argument_size_in_bytes` and `output_size_in_bytes` per device.
+    The parameters are arguments of every step (for prefill and decode
+    the model holds them)."""
+    arg_specs, out_specs = step_specs(model, mode, batch_shardable, shape)
+    args = tree_shard_bytes(count.args, arg_specs, mesh)
+    if mode != "train":
+        args += tree_shard_bytes(model.params, param_specs(model.cfg),
+                                 mesh)
+    return {"argument_size_in_bytes": float(args),
+            "output_size_in_bytes": float(tree_shard_bytes(
+                count.outputs, out_specs, mesh))}
+
+
+# ---------------------------------------------------------------------------
+# Cells
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CellResult:
+    arch: str
+    shape: str
+    mesh: str
+    mode: str
+    ok: bool
+    skip_reason: str = ""
+    error: str = ""
+    flops: float = 0.0
+    bytes_accessed: float = 0.0
+    collectives: dict | None = None
+    memory: dict | None = None
+    n_params: float = 0.0
+    lower_s: float = 0.0
+    compile_s: float = 0.0
+
+    def to_json(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def measure(cfg: ArchConfig, shape: ShapeConfig, mesh: dict[str, int],
+            train_overrides: dict | None = None) -> tuple[StepCount, dict]:
+    """(count, memory) of `cfg` at `shape` on `mesh`, traced on the meta
+    device: the counter `run_cell` and the card comparison share."""
+    model = build_model(cfg, device="meta")
+    n_dev = mesh_devices(mesh)
+    batch_shardable = shape.global_batch % (n_dev // mesh["model"]) == 0
+    tcfg = TrainConfig(**{"opt": OptConfig(), **(train_overrides or {})})
+    count = count_step(model, shape.mode, shape, tcfg)
+    return count, memory_per_device(model, shape.mode, shape, mesh,
+                                    batch_shardable, count)
+
+
+def run_cell(arch: str, shape_name: str, multi_pod: bool,
+             cfg_overrides: dict | None = None,
+             train_overrides: dict | None = None,
+             parallelism: str = "tp") -> CellResult:
+    """Count one cell on the production mesh (the reference's skip
+    rules, overrides and parallelism mode).  `lower_s` is the meta
+    trace's seconds on the telemetry clock; `compile_s` is 0.0, since
+    nothing is compiled."""
+    set_parallelism(parallelism)
+    cfg = get_config(arch)
+    if cfg_overrides:
+        cfg = dataclasses.replace(cfg, **cfg_overrides)
+    shape = SHAPES[shape_name]
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    res = CellResult(arch=arch, shape=shape_name, mesh=mesh_name(mesh),
+                     mode=shape.mode, ok=False)
+    ok, why = shape_applicable(cfg, shape)
+    if not ok:
+        res.skip_reason = why
+        return res
+    res.n_params = float(cfg.n_params())
+    tracer = _obs.get_tracer()
+    t0 = _obs.default_clock()
+    with tracer.span("engine.lower", arch=arch, shape=shape_name):
+        count, res.memory = measure(cfg, shape, mesh, train_overrides)
+    res.lower_s = _obs.default_clock() - t0
+    n_dev = mesh_devices(mesh)
+    res.flops = count.flops / n_dev
+    res.bytes_accessed = count.bytes_accessed / n_dev
+    res.ok = True
+    return res
+
+
+def all_cells():
+    from ..configs import ARCH_IDS
+    for arch in ARCH_IDS:
+        for shape_name in SHAPES:
+            yield arch, shape_name

@@ -4,12 +4,15 @@ embedding).
 
 Functions take a nested dict of tensors (the reference's parameter
 tree) and activations.  Parameters live in `param_dtype` and are cast
-to `compute_dtype` at use, as in the reference.  One device: the
-reference's sharding annotations (`constrain`, `spec`) have no
-counterpart here.  Parameter init draws from an explicit
-`torch.Generator` on the parameters' device; it gives other numbers
-than the reference's `jax.random` keys (`convert.lm_params_from_numpy`
-carries the reference's parameters over).
+to `compute_dtype` at use, as in the reference.  Beside each init, a
+`*_specs` function gives the reference's PartitionSpec tree for the
+same leaves (`sharding.rules`), which the dry-run reads to divide the
+bytes per device; the model itself runs on one device, so the
+reference's activation constraints (`constrain`) have no counterpart.
+Parameter init draws from an explicit `torch.Generator` on the
+parameters' device; it gives other numbers than the reference's
+`jax.random` keys (`convert.lm_params_from_numpy` carries the
+reference's parameters over).
 
 `flash_attention` runs the Hopper flash kernel on CUDA tensors and its
 plain version on CPU tensors; where q, k or v needs a gradient it goes
@@ -24,8 +27,9 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from ..kernels.flash_attention.flash_attention import attend, attention
-from ..kernels.flash_attention.ref import attention_lse_ref
+from ..kernels.flash_attention.flash_attention import (attend, attention,
+                                                      flash_fwd)
+from ..sharding.rules import MODEL_AXIS_SIZE, P, spec
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -60,6 +64,10 @@ def rmsnorm_init(cfg: ArchConfig, width: int | None = None,
     width = width or cfg.d_model
     return {"scale": torch.ones((width,), dtype=dtype_of(cfg.param_dtype),
                                 device=device)}
+
+
+def rmsnorm_specs() -> dict:
+    return {"scale": spec(None)}
 
 
 def rmsnorm(params: dict, x: torch.Tensor,
@@ -103,9 +111,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     On a CUDA tensor this launches the Hopper flash kernel
     (`kernels.flash_attention.attend`), which tiles by its own tiles;
     on a CPU tensor it runs the kernel's plain version
-    (`attention_lse_ref`, the materialized softmax in float32).  Both
-    take the reference's shapes: the chunk count max(Sk // chunk, 1) of
-    its blockwise loop must divide Sk, as its reshape requires.
+    (`attention_lse_ref`, the materialized softmax in float32); on a
+    meta tensor it gives the output's shape.  All three go through the
+    custom op `repro_torch::flash_fwd`, which the FLOP counter counts
+    by the kernel's formula.  All take the reference's shapes: the
+    chunk count max(Sk // chunk, 1) of its blockwise loop must divide
+    Sk, as its reshape requires.
 
     When autograd is on and q, k or v requires a gradient, the call
     goes through `kernels.flash_attention.attention` instead: on the
@@ -125,8 +136,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return attention(q.contiguous(), k.contiguous(), v.contiguous(),
                          causal=causal, q_offset=q_offset)
     if q.device.type == "cpu":
-        return attention_lse_ref(q, k, v, causal=causal,
-                                 q_offset=q_offset)[0]
+        return flash_fwd(q, k, v, causal, q_offset, False)[0]
     return attend(q.contiguous(), k.contiguous(), v.contiguous(),
                   causal=causal, q_offset=q_offset)
 
@@ -163,6 +173,21 @@ def attention_init(gen: torch.Generator, cfg: ArchConfig,
             params[name] = {"scale": torch.ones(
                 (*lead, cfg.head_dim), dtype=pdt, device=dev)}
     return params
+
+
+def attention_specs(cfg: ArchConfig) -> dict:
+    """`attention_init`'s specs (self or cross: the same tree).  Flat
+    projection dims sharded over "model" (divisible for any head count),
+    FSDP over "data" on the other dim."""
+    specs = {"wq": spec("embed", "embed_tp"), "wk": spec("embed", "embed_tp"),
+             "wv": spec("embed", "embed_tp"), "wo": spec("embed_tp", "embed")}
+    if cfg.qkv_bias:
+        specs.update(bq=spec("heads"), bk=spec("kv_heads"),
+                     bv=spec("kv_heads"))
+    if cfg.qk_norm:
+        specs["q_norm"] = rmsnorm_specs()
+        specs["k_norm"] = rmsnorm_specs()
+    return specs
 
 
 def _split_heads(x: torch.Tensor, n_heads: int,
@@ -269,6 +294,13 @@ def mlp_init(gen: torch.Generator, cfg: ArchConfig, lead: tuple = (),
     return params
 
 
+def mlp_specs(cfg: ArchConfig) -> dict:
+    specs = {"w_up": spec("embed", "mlp"), "w_down": spec("mlp", "embed")}
+    if cfg.activation in ("swiglu", "geglu"):
+        specs["w_gate"] = spec("embed", "mlp")
+    return specs
+
+
 def _activate(name: str, u: torch.Tensor,
               g: torch.Tensor | None = None) -> torch.Tensor:
     """The reference's activations; `jax.nn.gelu` is the tanh form."""
@@ -302,6 +334,16 @@ def embedding_init(gen: torch.Generator, cfg: ArchConfig,
         "unembed": dense_init(gen, (cfg.d_model, cfg.vocab_size), pdt,
                               device=device),
     }
+
+
+def embedding_specs(cfg: ArchConfig) -> dict:
+    if cfg.vocab_size % MODEL_AXIS_SIZE == 0:
+        return {"tok": spec("vocab", "embed"),
+                "unembed": spec("embed", "vocab")}
+    # odd vocabularies (50280, 504): shard d_model over the full
+    # (data, model) plane instead
+    return {"tok": P(None, ("data", "model")),
+            "unembed": P(("data", "model"), None)}
 
 
 def embed(params: dict, cfg: ArchConfig,

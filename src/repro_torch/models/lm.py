@@ -35,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..sharding.rules import P, PartitionSpec
 from . import layers as L
 from . import moe as M
 from . import ssm as S
@@ -99,6 +100,37 @@ def _slot_init(gen: torch.Generator, cfg: ArchConfig, slot: SlotSpec,
         elif cfg.d_ff > 0:
             p["mlp"] = L.mlp_init(gen, cfg, lead, device=device)
     return p
+
+
+def _slot_specs(cfg: ArchConfig, slot: SlotSpec) -> dict:
+    """`_slot_init`'s PartitionSpecs for one period (unstacked)."""
+    s = {"ln1": L.rmsnorm_specs()}
+    if slot.kind == "attn":
+        s["attn"] = L.attention_specs(cfg)
+    else:
+        s["ssm"] = S.ssm_specs()
+    if slot.cross:
+        s["lnx"] = L.rmsnorm_specs()
+        s["xattn"] = L.attention_specs(cfg)
+    if slot.kind == "attn" or cfg.family == "hybrid":
+        s["ln2"] = L.rmsnorm_specs()
+        if slot.moe:
+            s["moe"] = M.moe_specs(cfg)
+        elif cfg.d_ff > 0:
+            s["mlp"] = L.mlp_specs(cfg)
+    return s
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """The PartitionSpec tree of `init_params`' leaves, the reference's
+    (`repro.models.lm.LM.init`): each block leaf's spec has a leading
+    None for its stacked period axis."""
+    return {
+        "embed": L.embedding_specs(cfg),
+        "final_norm": L.rmsnorm_specs(),
+        "blocks": {f"slot{si}": _tree_map(lambda sp: P(None, *sp),
+                                          _slot_specs(cfg, slot))
+                   for si, slot in enumerate(period_layout(cfg))}}
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator,
@@ -212,7 +244,8 @@ class LM(nn.Module):
     """The LM on one device.  Parameters come from `params` (a tree like
     `init`'s, e.g. from `convert.lm_params_from_numpy`) or else are
     drawn by `init` from `generator` (seed 0 on `device` when none is
-    given)."""
+    given).  On the meta device the parameters are `abstract_params`:
+    shapes without storage, for the dry-run."""
 
     def __init__(self, cfg: ArchConfig, device=DEFAULT_DEVICE,
                  generator: torch.Generator | None = None,
@@ -222,7 +255,9 @@ class LM(nn.Module):
         self.slots = period_layout(cfg)
         self.n_periods = cfg.n_layers // len(self.slots)
         self.device = resolve_device(device)
-        if params is None:
+        if params is None and self.device.type == "meta":
+            params = abstract_params(cfg)
+        elif params is None:
             if generator is None:
                 generator = torch.Generator(self.device).manual_seed(0)
             params = self.init(generator)
@@ -236,6 +271,30 @@ class LM(nn.Module):
             raise ValueError(f"generator on {gen.device}, model on "
                              f"{self.device}")
         return init_params(self.cfg, gen)
+
+    def abstract_init(self) -> tuple[dict, dict]:
+        """(parameter tree on the meta device, its PartitionSpecs),
+        allocating nothing: the dry-run's stand-ins for 340B- and
+        1T-class configs (the reference's `abstract_init`)."""
+        return abstract_params(self.cfg), param_specs(self.cfg)
+
+    def cache_specs(self, batch_shardable: bool = True) -> dict:
+        """Decode-cache shardings: KV cache sequence-sharded over
+        "model" (context parallelism, any kv-head count); SSM state
+        head-sharded over "model".  When the batch is too small to
+        cover ("pod", "data") (long_500k, B=1), the sequence dim takes
+        ("data", "model") instead and the batch is replicated."""
+        bspec = ("pod", "data") if batch_shardable else None
+        sspec = "model" if batch_shardable else ("data", "model")
+        specs: dict[str, dict[str, PartitionSpec]] = {}
+        for si, slot in enumerate(self.slots):
+            if slot.kind == "attn":
+                kv = P(None, bspec, None, sspec, None)
+                specs[f"slot{si}"] = {"k": kv, "v": kv}
+            else:
+                specs[f"slot{si}"] = {
+                    "h": P(None, bspec, "model", None, None)}
+        return specs
 
     @property
     def params(self) -> dict:

@@ -30,6 +30,7 @@ import math
 import torch
 
 from ..configs.base import ArchConfig
+from ..sharding.rules import spec
 from .layers import _activate, dense_init, dtype_of
 
 
@@ -50,6 +51,16 @@ def moe_init(gen: torch.Generator, cfg: ArchConfig, lead: tuple = (),
     if cfg.activation in ("swiglu", "geglu"):
         params["w_gate"] = dense_init(gen, (*lead, e, d, f), pdt, device=dev)
     return params
+
+
+def moe_specs(cfg: ArchConfig) -> dict:
+    """`moe_init`'s specs: experts over "model" (EP), FSDP on d_model."""
+    specs = {"router": spec("embed", None),
+             "w_up": spec("experts", "embed", "expert_mlp"),
+             "w_down": spec("experts", "expert_mlp", "embed")}
+    if cfg.activation in ("swiglu", "geglu"):
+        specs["w_gate"] = spec("experts", "embed", "expert_mlp")
+    return specs
 
 
 def _capacity(cfg: ArchConfig, tokens_per_group: int) -> int:

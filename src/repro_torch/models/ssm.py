@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from .layers import dense_init, dtype_of, rmsnorm
+from ..sharding.rules import spec
+from .layers import dense_init, dtype_of, rmsnorm, rmsnorm_specs
 
 
 def ssm_init(gen: torch.Generator, cfg: ArchConfig, lead: tuple = (),
@@ -54,6 +55,14 @@ def ssm_init(gen: torch.Generator, cfg: ArchConfig, lead: tuple = (),
                                       device=dev)),
         "norm": {"scale": torch.ones((*lead, di), dtype=pdt, device=dev)},
     }
+
+
+def ssm_specs() -> dict:
+    """`ssm_init`'s specs: the inner width and the heads over "model"."""
+    return {"w_in": spec("embed", "ssm_inner"),
+            "w_out": spec("ssm_inner", "embed"),
+            "a_log": spec("ssm_heads"), "dt_bias": spec("ssm_heads"),
+            "d_skip": spec("ssm_heads"), "norm": rmsnorm_specs()}
 
 
 def _project(params: dict, cfg: ArchConfig, x: torch.Tensor):

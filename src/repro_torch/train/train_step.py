@@ -6,9 +6,12 @@ The step keeps the reference's signature, `train_step(params,
 opt_state, batch) -> (params, opt_state, metrics)`, on one device: the
 parameters are the model's own tensors (they require gradients), the
 gradients come from `torch.autograd.grad` of `LM.train_loss`, and the
-optimizer writes the new values into the same tensors in place.  The
-reference's `opt_state_specs` (PartitionSpecs for sharding the
-optimizer state) waits for multi-GPU work (ROADMAP queue 1 item 7).
+optimizer writes the new values into the same tensors in place.
+`opt_state_specs` gives the optimizer state's PartitionSpecs, congruent
+with the state tree (ZeRO: each moment inherits its parameter's spec);
+the dry-run (`launch.cells`) reads them to divide the state's bytes per
+device.  Placing the state over several cards is multi-GPU work
+(ROADMAP queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import Callable
 import torch
 
 from ..models.lm import LM
+from ..sharding.rules import P
 from .optimizer import (OptConfig, clip_by_global_norm, make_optimizer,
                         tree_leaves, tree_map)
 
@@ -105,3 +109,22 @@ def init_train_state(model: LM, tcfg: TrainConfig):
     params = model.params
     init_opt, _ = make_optimizer(model.cfg.optimizer, tcfg.opt)
     return params, init_opt(tcfg.opt, params)
+
+
+def opt_state_specs(param_specs: dict, opt_name: str) -> dict:
+    """Optimizer-state PartitionSpecs congruent with the state trees of
+    `optimizer.adam_init` and `adafactor_init` (ZeRO: the moments take
+    their parameter's spec; Adafactor's factored state drops one dim of
+    it)."""
+    if opt_name == "adam":
+        return {"m": param_specs, "v": param_specs, "step": P()}
+
+    def factored(node):
+        if isinstance(node, dict):
+            return {k: factored(v) for k, v in node.items()}
+        parts = tuple(node)
+        if len(parts) >= 2:
+            return {"vr": P(*parts[:-1]), "vc": P(*parts[:-2], parts[-1])}
+        return {"v": P(*parts)}
+
+    return {"v": factored(param_specs), "step": P()}

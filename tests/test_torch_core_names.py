@@ -278,3 +278,43 @@ def test_lm_extract_equals_the_reference(arch):
                 for lay in got.layers] == \
             [(tuple(lay.dims), lay.wstride, lay.hstride, lay.repeat,
               lay.name) for lay in want.layers]
+
+
+# ---------------------------------------------------------------------------
+# The last public core names: model.workload_edp_spec,
+# oracle.TENSOR_LEVELS, search.FREE_MASK
+# ---------------------------------------------------------------------------
+
+def test_workload_edp_spec(population):
+    """One workload, hardware inferred and given; the population form
+    is the same batched function on the port's side."""
+    from repro_torch.core import archspec as T_archspec
+
+    f, orders, strides, repeats = population
+    args_t = (_t(f), _t(orders), _t(strides), _t(repeats))
+    cs_t = T_archspec.compile_spec(T_archspec.GEMMINI_SPEC)
+    cs_r = R_archspec.compile_spec(R_archspec.GEMMINI_SPEC)
+    assert torch.equal(T.workload_edp_spec(cs_t, *args_t),
+                       T.workload_eval_spec(cs_t, *args_t)[0])
+    for i in range(P):
+        one_t = (args_t[0][i], args_t[1][i], args_t[2], args_t[3])
+        one_r = tuple(jnp.asarray(x) for x in (f[i], orders[i], strides,
+                                               repeats))
+        _close(T.workload_edp_spec(cs_t, *one_t),
+               R.workload_edp_spec(cs_r, *one_r))
+        hw_t = T.infer_hw_spec(cs_t, one_t[0], one_t[2])
+        hw_r = R.infer_hw_spec(cs_r, one_r[0], one_r[2])
+        _close(T.workload_edp_spec(cs_t, *one_t, hw=hw_t),
+               R.workload_edp_spec(cs_r, *one_r, hw=hw_r))
+
+
+def test_oracle_tensor_levels_and_search_free_mask():
+    from repro.core import oracle as R_oracle
+    from repro_torch.core import oracle as T_oracle
+    from repro_torch.core import surrogate as T_surrogate
+
+    assert T_oracle.TENSOR_LEVELS == R_oracle.TENSOR_LEVELS
+    assert T_oracle.TENSOR_LEVELS is T.TENSOR_LEVELS
+    np.testing.assert_array_equal(T_search.FREE_MASK, R_search.FREE_MASK)
+    assert T_search.FREE_MASK.dtype == R_search.FREE_MASK.dtype
+    assert T_search.FREE_MASK is T_surrogate.FREE_MASK

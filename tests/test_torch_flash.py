@@ -9,6 +9,13 @@
   softmax) against the reference's `layers.flash_attention`: GQA,
   chunk < S, q_offset > 0, non-causal with Sq != Sk.
 - The wrappers' checks.
+- The custom ops `repro_torch::flash_fwd` and `repro_torch::flash_bwd`:
+  on the CPU bit-equal to the plain versions they replaced in the
+  wrappers (`attention_lse_ref`, `attention_bwd_ref`); on the meta
+  device the outputs' shapes and types, forward and backward; their
+  FLOP formula (4 B Hq D per unmasked pair forward, 2.5 times that
+  backward) against a count of the pairs, and counted as such by
+  `FlopCounterMode` on the CPU and on the meta device.
 
 The CUDA kernel runs only on the card: `chip_smoke.py` holds it against
 `attention_ref` there.  Inputs are drawn with numpy and handed to both
@@ -25,7 +32,9 @@ from repro.kernels.flash_attention.ref import attention_ref as R_ref
 from repro.models import layers as R_layers
 from repro_torch.kernels.flash_attention import flash_attention as T_mod
 from repro_torch.kernels.flash_attention.ops import gqa_flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_lse_ref,
+                                                     attention_ref)
 from repro_torch.models import layers as T_layers
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -140,3 +149,88 @@ def test_cpu_path_launches_no_kernel():
     T_layers.flash_attention(x[None], x[None], x[None], causal=True)
     assert T_mod.flash_attention.launches == before
     assert T_mod.flash_attention.launches_by_variant == by_variant
+
+
+# (b, hq, hkv, sq, sk, d, causal, q_offset)
+OP_CASES = [(2, 4, 2, 64, 64, 32, True, 0), (1, 4, 1, 16, 96, 64, True, 80),
+            (1, 2, 2, 40, 96, 64, False, 0), (2, 4, 2, 48, 48, 80, True, 5)]
+
+
+@pytest.mark.parametrize("case", OP_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_ops_on_the_cpu_are_the_plain_versions(case, dtype):
+    b, hq, hkv, sq, sk, d, causal, off = case
+    rng = np.random.default_rng(sq + sk + d)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dtype) for s in ((b, hq, sq, d), (b, hkv, sk, d),
+                                         (b, hkv, sk, d), (b, hq, sq, d)))
+    o, lse = torch.ops.repro_torch.flash_fwd(q, k, v, causal, off, True)
+    want_o, want_lse = attention_lse_ref(q, k, v, causal=causal, q_offset=off)
+    assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
+    o2, empty = torch.ops.repro_torch.flash_fwd(q, k, v, causal, off, False)
+    assert torch.equal(o2, want_o) and empty.numel() == 0
+    grads = torch.ops.repro_torch.flash_bwd(q, k, v, o, do, lse, causal, off)
+    for got, want in zip(grads, attention_bwd_ref(q, k, v, o, do, lse,
+                                                  causal=causal,
+                                                  q_offset=off)):
+        assert torch.equal(got, want)
+    layer = T_layers.flash_attention(q, k, v, causal=causal, chunk=sk,
+                                     q_offset=off)
+    assert torch.equal(layer, want_o)
+
+
+def test_flash_ops_on_meta_give_shapes_only():
+    before = (T_mod.flash_attention.launches,
+              T_mod.attend_backward.launches)
+    q = torch.empty((2, 8, 64, 128), dtype=torch.bfloat16, device="meta")
+    kv = torch.empty((2, 4, 96, 128), dtype=torch.bfloat16, device="meta")
+    out = T_mod.attend(q, kv, kv, causal=True)
+    assert (out.device.type, out.shape, out.dtype) == \
+        ("meta", q.shape, q.dtype)
+    out, lse = T_mod.attend(q, kv, kv, causal=True, q_offset=32,
+                            return_lse=True)
+    assert lse.shape == (2, 8, 64) and lse.dtype == torch.float32
+    dq, dk, dv = T_mod.attend_backward(q, kv, kv, out, out, lse,
+                                       causal=True, q_offset=32)
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, kv.shape, kv.shape)
+    qg, kg = (t.clone().requires_grad_() for t in (q, kv))
+    y = T_layers.flash_attention(qg, kg, kg, causal=True)
+    y.float().sum().backward()
+    assert qg.grad.shape == q.shape and kg.grad.device.type == "meta"
+    with pytest.raises(ValueError, match="head dims"):
+        T_mod.attend(q[..., :96], kv[..., :96], kv[..., :96], causal=True)
+    assert before == (T_mod.flash_attention.launches,
+                      T_mod.attend_backward.launches)
+
+
+@pytest.mark.parametrize("sq,sk", [(1, 1), (7, 7), (5, 9), (9, 5), (64, 32),
+                                   (1, 4096)])
+@pytest.mark.parametrize("q_offset", [0, 1, 3, 8, 40])
+def test_causal_pairs_counts_the_unmasked_pairs(sq, sk, q_offset):
+    rows = np.arange(sq)[:, None] + q_offset
+    mask = rows >= np.arange(sk)[None, :]
+    assert T_mod.causal_pairs(sq, sk, True, q_offset) == int(mask.sum())
+    assert T_mod.causal_pairs(sq, sk, False, q_offset) == sq * sk
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_flop_counter_counts_the_flash_ops_by_formula(device):
+    """The formula of PERF.md's kernel table: q (4, 16, 4096, 128)
+    causal is 2.75e11 FLOPs forward; here a small case, counted by
+    FlopCounterMode through the differentiable entry on either
+    device."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    assert T_mod.flash_fwd_flops((4, 16, 4096, 128), (4, 8, 4096, 128),
+                                 True, 0) == 4 * 4 * 16 * 128 * 4096 * 4097 \
+        // 2
+    b, hq, hkv, s, d = 2, 4, 2, 24, 32
+    q = torch.randn((b, hq, s, d), device=device, requires_grad=True)
+    k = torch.randn((b, hkv, s, d), device=device, requires_grad=True)
+    with FlopCounterMode(display=False) as fc:
+        y = T_mod.attention(q, k, k, causal=True, q_offset=2)
+        y.sum().backward()
+    counts = {str(op): n for op, n in fc.get_flop_counts()["Global"].items()}
+    fwd = 4 * b * hq * d * T_mod.causal_pairs(s, s, True, 2)
+    assert counts == {"repro_torch.flash_fwd": fwd,
+                      "repro_torch.flash_bwd": 5 * fwd // 2}

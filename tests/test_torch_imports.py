@@ -1,7 +1,7 @@
 """Import hygiene of the PyTorch port: `src/repro_torch/`,
-`chip_smoke.py` and `chip_kernel_ab.py` import neither jax nor the JAX
-package `repro`, and
-every module of the port imports with both blocked."""
+`chip_smoke.py`, `chip_kernel_ab.py` and the port's examples
+(`examples/torch_*.py`) import neither jax nor the JAX package `repro`,
+and every module of the port imports with both blocked."""
 import ast
 import os
 import subprocess
@@ -15,9 +15,15 @@ PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
+EXAMPLES = ("torch_quickstart", "torch_multi_target_cosearch",
+            "torch_dosa_search_lm", "torch_serve_lm", "torch_train_lm",
+            "torch_autotune")
+
+
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "chip_kernel_ab.py"]
+                                         ROOT / "chip_kernel_ab.py"] \
+        + sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _port_modules():
@@ -47,6 +53,24 @@ def test_port_file_imports_no_jax_or_reference(path):
     bad = [(line, root) for line, root in _imported_roots(tree)
            if root in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_examples_have_counterparts_that_default_to_the_card():
+    """One port example per reference example, each with a `--device`
+    option whose default is "cuda"."""
+    assert sorted(p.stem for p in (ROOT / "examples").glob("torch_*.py")) \
+        == sorted(EXAMPLES)
+    for name in EXAMPLES:
+        tree = ast.parse((ROOT / "examples" / f"{name}.py").read_text())
+        device = [call for call in ast.walk(tree)
+                  if isinstance(call, ast.Call)
+                  and ast.unparse(call.func).endswith("add_argument")
+                  and call.args and isinstance(call.args[0], ast.Constant)
+                  and call.args[0].value == "--device"]
+        assert len(device) == 1, name
+        defaults = {kw.arg: ast.literal_eval(kw.value)
+                    for kw in device[0].keywords if kw.arg == "default"}
+        assert defaults == {"default": "cuda"}, name
 
 
 def test_port_imports_with_jax_and_reference_blocked():
@@ -85,10 +109,14 @@ def test_port_imports_with_jax_and_reference_blocked():
     "repro_torch.models.ssm", "repro_torch.models.lm",
     "repro_torch.launch.serve", "repro_torch.analysis.rules",
     "repro_torch.analysis.astlint", "repro_torch.analysis.contracts",
-    "repro_torch.analysis.report", "repro_torch.analysis.__main__"])
+    "repro_torch.analysis.report", "repro_torch.analysis.__main__",
+    "repro_torch.launch.cells", "repro_torch.launch.dryrun",
+    "repro_torch.launch.hillclimb", "repro_torch.launch.mesh",
+    "repro_torch.sharding.rules"])
 def test_serving_slice_modules_are_held_to_the_rules(module):
-    """The serving, training, LM-family and analysis slices' modules are
-    among the modules the blocked-import run above imports, and none
+    """The serving, training, LM-family, analysis and dry-run slices'
+    modules are among the modules the blocked-import run above imports,
+    and none
     calls a clock itself: `time.monotonic` appears only as a reference
     (a default to inject), never called."""
     assert module in _port_modules()
