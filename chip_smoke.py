@@ -119,6 +119,20 @@ Then the co-search service, counts again set to 0:
   (rolled back and retried) and torn checkpoints, each gated on its
   own; the reference's metric families and span names.
 
+Then population sharding, counts again set to 0:
+
+- `pop_shards`: the ResNet-50 device-seeded fused search (P = 256, 50
+  GD steps rounded once) at 1, 2 and 4 shards over repeated cuda:0,
+  one host thread and one stream a shard, and over every card when
+  there are several: each shard count's `best_edp`, `n_evals` and
+  `history` equal one shard's; one chunk's rounded read-back (two
+  segments of 5 steps) at 2 and 4 shards bit-equal to one shard's, its
+  reduced best the unsharded tracker's argmin; the tiny fleet (TPU v5e
+  + edge) at 2 shards equal to 1; one service request at shards=2 under
+  an injected `ShardLossFault`, degraded to one shard with
+  ("shard_fallback",) and the direct answer. Seconds of each search,
+  not gated.
+
 The static-analysis suite (`repro_torch.analysis`) runs in two phases:
 
 - `analysis_lint` (host, right after the build): the port's lint over
@@ -126,9 +140,11 @@ The static-analysis suite (`repro_torch.analysis`) runs in two phases:
   finding, and the spec lint of the shipped specs, clean;
 - `analysis_contracts` (after the service, counts again set to 0): the
   engine contracts on the card (transfer-free under the dispatch
-  recorder and set_sync_debug_mode("error"), one engine build across
-  populations 2 and 4, no float64, the op-sequence fingerprint) for the
-  search, fleet and service paths, every check gated; two negative
+  recorder and set_sync_debug_mode("error"), for the search and fleet
+  engines also one chunk split over two shards of the card, each
+  shard's worker recorded; one engine build across populations 2 and
+  4, no float64, the op-sequence fingerprint) for the search, fleet
+  and service paths, every check gated; two negative
   controls (`.item()`, `nonzero()`) that must fail `transfer_free` on
   the card; and the same contracts on the CPU, whose search fingerprint
   is printed beside the card's (equality reported, not gated).
@@ -401,6 +417,18 @@ DEVICE_SEEDED_CUT = ("500 GD steps rounded every 250, not the paper's "
 FLEET = dict(steps=500, round_every=250, n_start_points=2, seed=0)
 SMALL = dict(steps=20, round_every=10)
 SERVE_RESNET50 = dict(steps=250, round_every=125, n_start_points=2, seed=0)
+# Population sharding (`pop_shards`): the ResNet-50 device-seeded fused
+# search at P=256 over repeated cuda:0 (and every card where there are
+# several), at each of POP_SHARD_COUNTS; one chunk's read-back at
+# POP_READBACK statics against one shard's.
+POP_SHARDS = dict(steps=50, round_every=50, n_start_points=256, seed=0,
+                  start_points="cosa-device")
+POP_SHARDS_CUT = ("50 GD steps rounded once, not 100 rounded every 50: "
+                  "at 100 the phase took 98 s of its 60 (512 host oracle "
+                  "evaluations a search, and one card's host dispatching "
+                  "every shard's ops)")
+POP_SHARD_COUNTS = (1, 2, 4)
+POP_READBACK = dict(n_full=2, rem=0, seg_len=5)
 # The chaos schedule's seed: 2 transient faults and 2 torn checkpoints.
 CHAOS_SEED = 8
 
@@ -1005,6 +1033,157 @@ def phase_fleet(torch, fleet, search, oracle, archspec, obs, wl, problem):
           "group_seconds": _fleet_group_seconds(tracer.spans(), t_begin),
           "entries": entries, "frontier": [e.spec_name for e in front],
           "small_fleet_equals_single_target": True})
+
+
+def _pop_run(search, wl, cfg, device, sync) -> dict:
+    """One fused search over the pop mesh `device` names, timed."""
+    sync()
+    t0 = now()
+    res = search.dosa_search(wl, cfg, population=cfg.n_start_points,
+                             device=device)
+    sync()
+    return {"result": (res.best_edp, res.n_evals, res.history),
+            "seconds": now() - t0}
+
+
+def _pop_readback(torch, search, mapping, wl, cfg, shards, devices):
+    """One seeded chunk through `search.run_fused` over `shards` of
+    `devices`: ((f, orders, model EDP) on the host, the best)."""
+    from repro_torch.launch.mesh import make_pop_mesh
+    from repro_torch.sharding.rules import member_spec
+
+    dev = torch.device(devices[0])
+    mesh = make_pop_mesh(shards, devices)
+    engines = search.fused_engines(wl, cfg, mesh)
+    engine = engines[mesh.devices[0]]
+    _, theta, orders = mapping.seed_population(
+        wl.dims_array(), cfg.n_start_points,
+        search.chunk_generator(cfg.seed, 0, dev), spec=engine.cspec,
+        pe_cap=engine.pe_cap, mode="cosa", device=dev)
+    theta, orders = search.shard_population(theta, orders, shards, devices)
+    ys, best = search.run_fused(engines, mesh, (theta, orders),
+                                (member_spec(4), member_spec(2)),
+                                **POP_READBACK)
+    return tuple(y.cpu() for y in ys), best
+
+
+def phase_pop_shards(torch, search, fleet, mapping, archspec, api,
+                     service_mod, faults, problem, wl, dev="cuda:0",
+                     cfg_kw=None, tiny=None):
+    """Population sharding on the card: the ResNet-50 device-seeded
+    fused search (P=256, 50 steps rounded once) at 1, 2 and 4 shards
+    over repeated `dev`, and over every visible card when there are
+    several, each oracle result equal to one shard's; one chunk's
+    rounded read-back on each of those meshes bit-equal to one shard's,
+    its reduced best equal to the unsharded tracker's argmin; the tiny
+    fleet (TPU v5e + edge) at 2 shards equal to 1; one service request
+    at shards=2 under one injected ShardLossFault, degraded to one
+    shard with ("shard_fallback",) and the direct answer (the fleet and
+    the service also over two distinct cards where there are several).
+    `cfg_kw` and `tiny` shrink it for a rehearsal on the CPU."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import auto_pop_shards
+
+    t_phase = now()
+    is_cuda = torch.device(dev).type == "cuda"
+    cards = torch.cuda.device_count() if is_cuda else 0
+    sync = torch.cuda.synchronize if is_cuda else (lambda: None)
+    cfg = search.SearchConfig(**(cfg_kw or POP_SHARDS))
+    meshes = {f"{k}x{dev}": [dev] * k for k in POP_SHARD_COUNTS}
+    pairs = {f"2x{dev}": [dev, dev]}
+    if cards > 1:
+        meshes["every_card"] = [f"cuda:{i}" for i in range(cards)]
+        pairs["cuda:0+cuda:1"] = ["cuda:0", "cuda:1"]
+    # shards=None: each mesh's count resolves as a user's would
+    shards_of = {name: auto_pop_shards(cfg.n_start_points, None, devs)
+                 for name, devs in meshes.items()}
+    runs = {name: _pop_run(search, wl, cfg, devs, sync)
+            for name, devs in meshes.items()}
+    base = runs[f"1x{dev}"]["result"]
+    for name, r in runs.items():
+        check(r["result"] == base, f"pop_shards: the search at {name} "
+              f"({r['result'][:2]}) differs from one shard's "
+              f"({base[:2]})")
+
+    (f1, o1, e1), best1 = _pop_readback(torch, search, mapping, wl, cfg, 1,
+                                        [dev])
+    i = int(torch.argmin(best1.edp))
+    readback = {}
+    for name, devs in meshes.items():
+        if shards_of[name] == 1:
+            continue
+        (f, o, e), best = _pop_readback(torch, search, mapping, wl, cfg,
+                                        shards_of[name], devs)
+        rel = float(((e.double() - e1.double()).abs()
+                     / e1.double().abs()).max())
+        check(torch.equal(f, f1) and torch.equal(o, o1),
+              f"pop_shards: the rounded read-back at {name} differs "
+              f"from one shard's (max relative model EDP {rel})")
+        check(best.edp.shape == (1,)
+              and torch.equal(best.edp.cpu(), best1.edp[i:i + 1].cpu())
+              and torch.equal(best.f.cpu(), best1.f[i:i + 1].cpu())
+              and torch.equal(best.orders.cpu(),
+                              best1.orders[i:i + 1].cpu()),
+              f"pop_shards: the reduced best at {name} is not the "
+              "unsharded tracker's argmin")
+        readback[name] = {"max_rel_model_edp_diff": rel,
+                          "best_model_edp": float(best.edp[0])}
+
+    small = tiny if tiny is not None else tiny_workload(problem)
+    cfg_s = search.SearchConfig(n_start_points=2, seed=3, **SMALL)
+    specs = [archspec.TPU_V5E_SPEC, archspec.EDGE_SPEC]
+    fleet_runs = {}
+    for name, devs in {f"1x{dev}": [dev], **pairs}.items():
+        sync()
+        t0 = now()
+        got = fleet.search_group_results(
+            small, specs, dataclasses.replace(cfg_s, shards=len(devs)),
+            device=devs)
+        sync()
+        fleet_runs[name] = (
+            [(r.best_edp, r.n_evals, r.history) for r in got], now() - t0)
+    for name, (res, _) in fleet_runs.items():
+        check(res == fleet_runs[f"1x{dev}"][0],
+              f"pop_shards: the fleet at {name} differs from one shard")
+
+    direct = search.dosa_search(small, cfg_s, population=2, device=dev)
+    service = {}
+    for name, devs in pairs.items():
+        fired = []
+
+        def lose_a_shard(task_id, seg, request_ids, fired=fired):
+            if seg == 1 and not fired:
+                fired.append(seg)
+                raise faults.ShardLossFault("shard 1 unreachable")
+
+        svc = service_mod.CoSearchService(service_mod.ServiceConfig(
+            bucket_workloads=False))
+        svc.fault_hook = lose_a_shard
+        rid = svc.submit(api.SearchRequest(
+            workload=small, config=dataclasses.replace(cfg_s, shards=2),
+            device=devs))
+        out = svc.drain()[rid]
+        check(fired == [1] and out.status == "degraded"
+              and out.degraded == ("shard_fallback",),
+              f"pop_shards: service on {name}: {out.status} "
+              f"{out.degraded}")
+        check((out.best_edp, out.n_evals, out.history)
+              == (direct.best_edp, direct.n_evals, direct.history),
+              f"pop_shards: the degraded service answer on {name} "
+              "differs from direct")
+        service[name] = {"status": out.status, "degraded": out.degraded,
+                         "best_edp": out.best_edp}
+    emit({"phase": "pop_shards", "device": dev, "cards": cards,
+          "meshes": meshes, "shards": shards_of,
+          "config": dict(cfg_kw or POP_SHARDS),
+          "cut": POP_SHARDS_CUT if cfg_kw is None else None,
+          "readback_statics": POP_READBACK,
+          "search_seconds": {n: r["seconds"] for n, r in runs.items()},
+          "best_edp": base[0], "n_evals": base[1],
+          "readback": readback,
+          "fleet_seconds": {k: v[1] for k, v in fleet_runs.items()},
+          "service": service, "seconds": now() - t_phase})
 
 
 def _layers_json(wl):
@@ -3021,7 +3200,7 @@ def main() -> int:
     from repro_torch.launch import train as train_mod
     from repro_torch.models import lm as lm_mod
     from repro_torch.obs import telemetry as obs
-    from repro_torch.runtime import chaos
+    from repro_torch.runtime import chaos, faults
     from repro_torch.serve import cosearch_service as service_mod
     from repro_torch.serve import serve_step
     from repro_torch.serve import server as server_mod
@@ -3223,6 +3402,17 @@ def main() -> int:
                        problem, wl)
     emit({"phase": "main_path_launches",
           "path": "device_seed+fleet+service",
+          "matmul": matmul.launches,
+          "flash_attention": flash_attention.launches,
+          "flash_attention_bwd": fa_mod.attend_backward.launches})
+
+    # ---- population sharding over a pop mesh of repeated cuda:0 (and
+    # every card where there are several), counts from 0 (no kernel of
+    # this repo is on this path).
+    reset_counts(matmul, flash_attention, fa_mod)
+    phase_pop_shards(torch, search, fleet, mapping, archspec, api,
+                     service_mod, faults, problem, wl)
+    emit({"phase": "main_path_launches", "path": "pop_shards",
           "matmul": matmul.launches,
           "flash_attention": flash_attention.launches,
           "flash_attention_bwd": fa_mod.attend_backward.launches})

@@ -12,8 +12,10 @@ states the same properties through what it does have:
   `LRUCache.inserts_of` counts its builds.  Any other engine its cache
   builds while the calls run (`LRUCache.build_count`) counts too.
 * **transfer_free** — a warm call completes with no host read and no
-  cross-device copy.  A `TorchDispatchMode` recorder sees every aten op
-  the call dispatches, autograd's backward included, and flags
+  cross-device copy; `transfer_free_sharded` proves the same of one
+  call sharded over a pop mesh, in every shard's worker thread.  A
+  `TorchDispatchMode` recorder sees every aten op the call
+  dispatches, autograd's backward included, and flags
   ``_local_scalar_dense`` (``.item()``, ``bool()``, ``float()`` of a
   tensor), ``nonzero`` and the other ops whose output size is data,
   boolean-mask indexing, ``lift_fresh`` (numpy or Python data
@@ -221,6 +223,52 @@ def _distinct(names: list[str], limit: int = 8) -> str:
 # transfer_free / no_f64_constants / trace_fingerprint
 # ---------------------------------------------------------------------------
 
+def _guarded(call: Callable[[], Any], rec: _Recorder) -> Exception | None:
+    """Run ``call()`` under `rec` and, where CUDA is available, under
+    ``torch.cuda.set_sync_debug_mode("error")`` (restored in a
+    ``finally``), then wait for its device work.  Returns what it
+    raised, or None."""
+    cuda = torch.cuda.is_available()
+    try:
+        with rec:
+            if cuda:
+                prev = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                call()
+                if cuda:
+                    done = torch.cuda.Event()
+                    done.record()
+            finally:
+                if cuda:
+                    torch.cuda.set_sync_debug_mode(prev)
+        if cuda:
+            done.synchronize()
+    # any failure inside the guard IS the finding being reported
+    except Exception as e:  # repro-lint: allow[EX301]
+        return e
+    return None
+
+
+def _transfer_verdict(raised: Exception | None, host_reads: list[str],
+                      what: str) -> ContractResult:
+    if raised is not None:
+        reads = f"; host reads: {_distinct(host_reads)}" \
+            if host_reads else ""
+        return ContractResult(
+            "transfer_free", False,
+            f"host transfer inside guarded call: {raised!r}{reads}")
+    if host_reads:
+        return ContractResult(
+            "transfer_free", False,
+            f"host transfer inside guarded call: {_distinct(host_reads)}")
+    guard = " and sync_debug_mode('error')" \
+        if torch.cuda.is_available() else ""
+    return ContractResult("transfer_free", True,
+                          f"{what} completed under the dispatch "
+                          f"recorder{guard}")
+
+
 def transfer_free(fn: Callable,
                   make_args: Callable[[], tuple[Sequence, dict]],
                   warmup: bool = True) -> ContractResult:
@@ -241,40 +289,58 @@ def transfer_free(fn: Callable,
         fn(*args, **kwargs)
         _sync()
     args, kwargs = make_args()
-    cuda = torch.cuda.is_available()
     rec = _Recorder()
-    try:
+    raised = _guarded(lambda: fn(*args, **kwargs), rec)
+    return _transfer_verdict(raised, rec.host_reads,
+                             f"warm call of {len(rec.ops)} ops")
+
+
+def transfer_free_sharded(fn: Callable, make_args: Callable[[], tuple],
+                          mesh, in_specs: tuple, out_specs,
+                          warmup: bool = True) -> ContractResult:
+    """Prove one warm sharded call stays on its devices: ``fn`` runs
+    once per member block of ``make_args()``'s arguments (built outside
+    the guarded window, as `transfer_free`'s) through
+    `sharding.rules.shard_map` over the pop `mesh`, one worker thread a
+    shard.  A dispatch mode holds only in the thread that entered it,
+    so each worker records its own shard's ops; the calling thread's
+    split and join are recorded too, and the sync guard, which is
+    process-wide, covers every thread.  A host read in any shard's run
+    before the join fails it — a worker that synchronised would
+    serialise the shards.  Give a mesh that repeats one device: on
+    distinct cards the split and the join are cross-device copies."""
+    import threading
+
+    from ..sharding.rules import shard_map
+
+    def sharded(per_shard: Callable):
+        return shard_map(per_shard, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs)
+
+    workers: list = []
+
+    def recorded(*blocks):
+        rec = _Recorder()
+        workers.append((threading.get_ident(), rec))
         with rec:
-            if cuda:
-                prev = torch.cuda.get_sync_debug_mode()
-                torch.cuda.set_sync_debug_mode("error")
-            try:
-                fn(*args, **kwargs)
-                if cuda:
-                    done = torch.cuda.Event()
-                    done.record()
-            finally:
-                if cuda:
-                    torch.cuda.set_sync_debug_mode(prev)
-        if cuda:
-            done.synchronize()
-    # any failure inside the guard IS the finding being reported
-    except Exception as e:  # repro-lint: allow[EX301]
-        reads = f"; host reads: {_distinct(rec.host_reads)}" \
-            if rec.host_reads else ""
+            return fn(*blocks)
+
+    if warmup:
+        sharded(fn)(*make_args())
+        _sync()
+    call, args = sharded(recorded), make_args()
+    rec = _Recorder()
+    raised = _guarded(lambda: call(*args), rec)
+    reads = rec.host_reads + [r for _, w in workers for r in w.host_reads]
+    threads = {t for t, _ in workers} - {threading.get_ident()}
+    if raised is None and len(threads) != mesh.size:
         return ContractResult(
             "transfer_free", False,
-            f"host transfer inside guarded call: {e!r}{reads}")
-    if rec.host_reads:
-        return ContractResult(
-            "transfer_free", False,
-            f"host transfer inside guarded call: "
-            f"{_distinct(rec.host_reads)}")
-    guard = " and sync_debug_mode('error')" if cuda else ""
-    return ContractResult(
-        "transfer_free", True,
-        f"warm call of {len(rec.ops)} ops completed under the dispatch "
-        f"recorder{guard}")
+            f"{mesh.size} shards ran on {len(threads)} worker thread(s)")
+    n_ops = len(rec.ops) + sum(len(w.ops) for _, w in workers)
+    return _transfer_verdict(
+        raised, reads, f"warm sharded call of {n_ops} ops, "
+        f"{mesh.size} shards on {len(threads)} worker threads,")
 
 
 def _record(fn: Callable, *args, **kwargs) -> _Recorder:

@@ -96,6 +96,10 @@ def smoke_engine_inputs(device):
 
 
 SEARCH_STATICS = dict(n_full=2, rem=0, seg_len=10)
+# The sharded and fleet transfer checks: two segments of two steps run
+# every op of a chunk (Adam, rounding, ordering, best tracking, the
+# per-segment stack) at a fifth of the recorded ops.
+SHORT_STATICS = dict(n_full=2, rem=0, seg_len=2)
 
 
 def _search_contracts(device) -> dict:
@@ -104,7 +108,9 @@ def _search_contracts(device) -> dict:
     import numpy as np
     import torch
 
-    from ..core.search import dosa_search
+    from ..core.search import SEGMENT_OUT_SPECS, dosa_search
+    from ..launch.mesh import make_pop_mesh
+    from ..sharding.rules import member_spec
 
     engine, theta, orders = smoke_engine_inputs(device)
     wl, cfg = _smoke_workload(), _smoke_cfg()
@@ -131,6 +137,13 @@ def _search_contracts(device) -> dict:
     out = {}
     out["search.transfer_free"] = contracts.transfer_free(
         engine.run, make_args).to_json()
+    # one chunk split over two shards of the same device: no host read
+    # in any shard's worker before the join
+    mesh = make_pop_mesh(2, [device, device])
+    out["search.sharded_transfer_free"] = contracts.transfer_free_sharded(
+        lambda th, od: engine.run(th, od, **SHORT_STATICS),
+        lambda: make_args()[0], mesh, (member_spec(4), member_spec(2)),
+        (SEGMENT_OUT_SPECS, None)).to_json()
     # populations of 2 and 4, segments of 10 and 5: one engine
     calls = [lambda: run(1, **SEARCH_STATICS),
              lambda: run(2, n_full=4, rem=0, seg_len=5),
@@ -145,11 +158,49 @@ def _search_contracts(device) -> dict:
     return out
 
 
+def smoke_fleet_inputs(device, shards: int = 1):
+    """(engine, args) of the fleet smoke: the fused fleet engine of TPU
+    v5e + edge on `device` and its members' (theta, orders, SpecParams)
+    on `device`, in the shard-major order of `shards` shards."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ..core.archspec import EDGE_SPEC, TPU_V5E_SPEC, resolve_spec
+    from ..core.fleet import (make_fused_fleet_runner, shard_major_order,
+                              spec_params, stack_spec_params)
+    from ..core.search import (generate_start_points,
+                               orders_from_population,
+                               theta_from_population)
+
+    wl, cfg = _smoke_workload(), _smoke_cfg()
+    specs = [TPU_V5E_SPEC, EDGE_SPEC]      # one structural group
+    thetas, orders, params = [], [], []
+    for spec in specs:
+        cspec = resolve_spec(spec)
+        starts, _, _ = generate_start_points(
+            wl, dataclasses.replace(cfg, spec=spec))
+        thetas.append(theta_from_population(starts, cspec.free_mask))
+        orders.append(orders_from_population(starts))
+        params += [spec_params(cspec)] * len(starts)
+    perm = shard_major_order(cfg.n_start_points, len(specs), shards)
+    theta = np.concatenate(thetas).astype(np.float32)[perm]
+    order = np.concatenate(orders)[perm]
+    sp = stack_spec_params([params[i] for i in perm], device)
+    engine = make_fused_fleet_runner(wl, specs, cfg, device)
+    return engine, (torch.as_tensor(theta, device=device),
+                    torch.as_tensor(order, device=device), sp)
+
+
 def _fleet_contracts(device) -> dict:
     import dataclasses
 
     from ..core.archspec import EDGE_SPEC, TPU_V5E_SPEC
     from ..core.fleet import fleet_search, make_fused_fleet_runner
+    from ..core.search import SEGMENT_OUT_SPECS
+    from ..launch.mesh import make_pop_mesh
+    from ..sharding.rules import member_spec
 
     wl, cfg = _smoke_workload(), _smoke_cfg()
     specs = [TPU_V5E_SPEC, EDGE_SPEC]      # one structural group
@@ -159,8 +210,18 @@ def _fleet_contracts(device) -> dict:
     again = [lambda: fleet_search(wl, specs,
                                   dataclasses.replace(cfg, seed=1),
                                   fused=True, device=device)]
-    return {"fleet.no_recompile":
-            contracts.no_recompile(engine, again).to_json()}
+    out = {"fleet.no_recompile":
+           contracts.no_recompile(engine, again).to_json()}
+    out["fleet.transfer_free"] = contracts.transfer_free(
+        engine.run, lambda: (smoke_fleet_inputs(device)[1],
+                             SHORT_STATICS)).to_json()
+    mesh = make_pop_mesh(2, [device, device])
+    out["fleet.sharded_transfer_free"] = contracts.transfer_free_sharded(
+        lambda *a: engine.run(*a, **SHORT_STATICS),
+        lambda: smoke_fleet_inputs(device, shards=2)[1], mesh,
+        (member_spec(4), member_spec(2), member_spec()),
+        (SEGMENT_OUT_SPECS, None)).to_json()
+    return out
 
 
 def _serve_contracts(device) -> dict:

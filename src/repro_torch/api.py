@@ -63,9 +63,11 @@ class SearchRequest:
     timeout, max rounding segments before a partial-result timeout).
     They are deliberately excluded from the fingerprint: the same query
     resubmitted at a different priority must dedup onto the same
-    in-flight task.  `device` names where the search runs; it is not
-    part of the fingerprint either (the answer does not depend on it),
-    but the serving layer batches only requests on one device.
+    in-flight task.  `device` names where the search runs: a device, or
+    a sequence of devices over which the fused engine shards its
+    population (``config.shards``).  It is not part of the fingerprint
+    either (the answer does not depend on it), but the serving layer
+    batches only requests on one device tuple.
     """
     workload: Workload | Iterable[Workload]
     config: SearchConfig = dataclasses.field(default_factory=SearchConfig)
@@ -76,9 +78,11 @@ class SearchRequest:
     priority: int = 0                  # serving: higher = larger share
     deadline_s: float | None = None    # serving: wall-clock budget
     segment_budget: int | None = None  # serving: max rounding segments
-    device: str = DEFAULT_DEVICE       # where the search runs
+    device: str | tuple = DEFAULT_DEVICE  # where the search runs
 
     def __post_init__(self):
+        if isinstance(self.device, list):
+            self.device = tuple(self.device)
         if self.specs is not None:
             self.specs = tuple(self.specs)
             if not self.specs:

@@ -11,7 +11,8 @@ other:
 
 Leaves are numpy arrays or torch tensors (any device; they are copied
 to the host).  `restore` returns numpy arrays, and bfloat16 leaves as
-`torch.bfloat16` tensors (numpy has no bfloat16).  Writes go to a temp
+`torch.bfloat16` tensors (numpy has no bfloat16), or each leaf placed
+as `restore`'s `shardings` says.  Writes go to a temp
 dir + atomic rename: a crash mid-write never corrupts LATEST.
 """
 from __future__ import annotations
@@ -24,6 +25,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from ..sharding.rules import shard_tensor
 
 
 def _flatten(tree, prefix=""):
@@ -113,10 +116,34 @@ def latest_step(ckpt_dir: str | Path) -> int | None:
     return int(name.split("_")[1])
 
 
-def restore(ckpt_dir: str | Path, step: int | None = None
-            ) -> tuple[int, dict]:
+def _place(leaf, sharding):
+    """One restored leaf placed as its `sharding` entry says: a device
+    (a tensor there), or a (pop mesh, member spec) pair (the leaf split
+    into member blocks on the mesh's devices, `MemberShards`)."""
+    t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(leaf)
+    if isinstance(sharding, tuple):
+        mesh, pspec = sharding
+        return shard_tensor(t, mesh, pspec)
+    return t.to(torch.device(sharding))
+
+
+def _place_tree(state, shardings):
+    if isinstance(state, dict):
+        return {k: _place_tree(v, shardings[k]) for k, v in state.items()}
+    if isinstance(state, tuple):
+        return tuple(_place_tree(v, s) for v, s in zip(state, shardings))
+    return _place(state, shardings)
+
+
+def restore(ckpt_dir: str | Path, step: int | None = None,
+            shardings=None) -> tuple[int, dict]:
     """Load (step, state): numpy leaves, bfloat16 leaves as
-    `torch.bfloat16` tensors on the CPU."""
+    `torch.bfloat16` tensors on the CPU.  `shardings`: optional pytree
+    congruent with the state — each leaf a device (the leaf becomes a
+    tensor there) or a (`launch.mesh.make_pop_mesh` mesh, member spec)
+    pair (the leaf split into member blocks over the mesh's devices):
+    the elastic-rescale path, a checkpoint written at one shard count
+    placed onto another."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -133,4 +160,7 @@ def restore(ckpt_dir: str | Path, step: int | None = None
                 a = torch.from_numpy(
                     a.view(np.int16).copy()).view(torch.bfloat16)
             flat[k] = a
-    return meta["step"], _unflatten(flat)
+    state = _unflatten(flat)
+    if shardings is not None:
+        state = _place_tree(state, shardings)
+    return meta["step"], state

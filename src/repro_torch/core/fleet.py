@@ -20,6 +20,11 @@ Gemmini's 4-level hierarchy has its own.  The fused fleet engine
 (`make_fused_fleet_runner`) runs every segment of a group on the
 device: GD through the shared parametric loss, then rounding and
 ordering re-selection per spec span with each spec's own tables.
+With ``SearchConfig.shards`` > 1 (auto-resolved over the devices the
+caller names) the member axis is split over the "pop" mesh: members
+are permuted to shard-major order, so every shard holds n/shards
+starts of every spec and its per-spec spans stay local, and the
+read-back is permuted back — bit-identical to one shard.
 
 Calibrated targets (``SearchConfig.surrogate = {spec_name:
 TrainedModel}``) descend through their learned latency model instead:
@@ -42,8 +47,10 @@ from typing import Callable, Iterable, NamedTuple
 import numpy as np
 import torch
 
-from ..device import DEFAULT_DEVICE, resolve_device
+from ..device import DEFAULT_DEVICE, resolve_device, resolve_devices
+from ..launch.mesh import auto_pop_shards, make_pop_mesh
 from ..obs import telemetry as _obs
+from ..sharding.rules import member_spec
 from .archspec import (ArchSpec, CompiledSpec, engine_group_key,
                        resolve_spec)
 from .lru import LRUCache
@@ -56,11 +63,11 @@ from .oracle import evaluate_workload
 from .problem import Workload
 from .rounding import (round_population, rounding_tables,
                        _round_population_core)
-from .search import (_Recorder, _adam_segment, _check_ported,
-                     _generate_start_point, _loss_grad, _population_choice,
-                     _segment_lengths, _spatial_cap_penalty, _theta_tensor,
-                     SearchConfig, SearchResult, build_f, dosa_search,
-                     orders_from_population,
+from .search import (_Recorder, _adam_segment, _generate_start_point,
+                     _loss_grad, _population_choice, _segment_lengths,
+                     _spatial_cap_penalty, _theta_tensor, SearchConfig,
+                     SearchResult, build_f, dosa_search,
+                     orders_from_population, run_fused,
                      select_orderings_population_spec,
                      theta_from_population)
 
@@ -279,6 +286,15 @@ def _member_grad(loss) -> Callable:
     return grad
 
 
+def shard_major_order(n: int, n_specs: int, shards: int) -> np.ndarray:
+    """The member permutation that puts a spec-major group (`n` starts
+    of each of `n_specs` specs) in shard-major order: shard i's block
+    holds n/shards starts of every spec, spec-major within it."""
+    b = n // shards
+    return np.array([s_i * n + i * b + j for i in range(shards)
+                     for s_i in range(n_specs) for j in range(b)])
+
+
 def make_fleet_runner(workload: Workload, spec, cfg: SearchConfig,
                       device=DEFAULT_DEVICE) -> Callable:
     """The fleet GD engine of `spec`'s structural group on `device`,
@@ -317,7 +333,9 @@ class FusedFleetEngine:
     runs the shared parametric loss (per-member `SpecParams`); rounding
     and ordering re-selection run per spec span, each projected and
     re-ordered with its own compiled spec, so members never leave the
-    device between segments."""
+    device between segments.  The member axis holds the same number of
+    starts of every spec, spec-major: the whole group's, or one pop
+    shard's block of it."""
 
     cspecs: list
     cfg: SearchConfig
@@ -328,11 +346,11 @@ class FusedFleetEngine:
     tables: object
     free_mask: torch.Tensor
     combos: torch.Tensor
-    n: int                      # start points per spec
 
     def segment(self, theta, orders, sp_stack, best, n_steps: int):
         """Adam -> per-spec rounding -> ordering CD -> best tracking."""
         cfg = self.cfg
+        n = theta.shape[0] // len(self.cspecs)     # starts per spec
         theta = _adam_segment(
             lambda th, o: self.grad_fn(th, o, sp_stack), cfg.lr, theta,
             orders, n_steps)
@@ -340,7 +358,7 @@ class FusedFleetEngine:
             f_cont = build_f(theta, self.dims, self.free_mask)
             f_parts, th_parts, o_parts, edp_parts = [], [], [], []
             for i, cspec in enumerate(self.cspecs):
-                a, b = i * self.n, (i + 1) * self.n
+                a, b = i * n, (i + 1) * n
                 f_r, th_r = _round_population_core(cspec, self.tables,
                                                    f_cont[a:b],
                                                    cspec.pe_cap)
@@ -401,7 +419,7 @@ def make_fused_fleet_runner(workload: Workload, specs: list[ArchSpec],
         grad_fn=_member_grad(loss), dims=dims, strides=strides,
         repeats=repeats, tables=rounding_tables(workload.dims_array(), dev),
         free_mask=group.free_mask_t(dev),
-        combos=group.device_tables(dev)["combos"], n=cfg.n_start_points)
+        combos=group.device_tables(dev)["combos"])
     _FLEET_ENGINE_CACHE.note_build_time(f"fused:{workload.name}",
                                         _obs.finish_build(token))
     _FLEET_ENGINE_CACHE.put(key, engine)
@@ -539,7 +557,6 @@ def _check_cfg(cfg: SearchConfig) -> None:
         raise ValueError(f"fleet ordering_mode must be 'iterative' or "
                          f"'none', got {cfg.ordering_mode!r} (softmax "
                          "ordering runs per-spec via dosa_search)")
-    _check_ported(cfg)
 
 
 _TRACED_CFG_FIELDS = ("lr", "penalty_weight", "ordering_mode",
@@ -564,7 +581,9 @@ def search_group_results(workload: Workload, specs: list[ArchSpec],
     protocol (start-point seeds, budget accounting) — the serving layer
     batches same-structure requests with different seeds this way.
     Fields the engine reads must agree with `cfg`, since all members
-    share its engine."""
+    share its engine.  `device` may name several devices: the fused
+    engine's pop mesh (`cfg.shards`, auto-resolved over them); the
+    host-batched form runs on the first."""
     if cfgs is not None:
         if len(cfgs) != len(specs):
             raise ValueError(f"{len(cfgs)} configs for {len(specs)} specs")
@@ -575,8 +594,8 @@ def search_group_results(workload: Workload, specs: list[ArchSpec],
                 raise ValueError(
                     f"per-member config disagrees with the shared engine "
                     f"config on traced/protocol fields {bad}")
-    _check_ported(cfg)
-    dev = resolve_device(device)
+    devices = resolve_devices(device)
+    dev = devices[0]
     run_segment = None if fused else make_fleet_runner(workload, specs[0],
                                                        cfg, dev)
     group = resolve_spec(specs[0])
@@ -628,18 +647,37 @@ def search_group_results(workload: Workload, specs: list[ArchSpec],
     if fused:
         # ---- the whole group's segment loop on the device; oracle
         # accounting replays from the final read-back in the
-        # host-batched order (per segment, per spec, per member).
-        engine = make_fused_fleet_runner(workload, specs, cfg, dev)
+        # host-batched order (per segment, per spec, per member).  With
+        # shards > 1 the member axis is split over the "pop" mesh:
+        # members permute to shard-major order (every shard gets
+        # n/shards starts of each spec, keeping per-spec spans local)
+        # and the read-back permutes back; per-member ops make the
+        # permutation invisible, so results stay bit-identical.
+        n = cfg.n_start_points
+        shards = auto_pop_shards(n, cfg.shards, devices)
+        mesh = make_pop_mesh(shards, devices)
+        engines = {d: make_fused_fleet_runner(workload, specs, cfg, d)
+                   for d in mesh.devices}
         n_full, rem = divmod(cfg.steps, cfg.round_every)
         tracer = _obs.get_tracer()
         with tracer.span("fleet.fused_dispatch", members=len(params),
-                         specs=len(specs), shards=1):
-            (f_seg, o_seg, _), _best = engine.run(
-                theta, orders, sp_stack, n_full=n_full, rem=rem,
-                seg_len=cfg.round_every)
+                         specs=len(specs), shards=shards):
+            inv = None
+            if shards > 1:
+                perm = shard_major_order(n, len(specs), shards)
+                inv = np.argsort(perm)
+                perm_t = torch.as_tensor(perm, device=dev)
+                theta, orders = theta[perm_t], orders[perm_t]
+                sp_stack = SpecParams(*(x[perm_t] for x in sp_stack))
+            (f_seg, o_seg, _), _best = run_fused(
+                engines, mesh, (theta, orders, sp_stack),
+                (member_spec(4), member_spec(2), member_spec()),
+                n_full=n_full, rem=rem, seg_len=cfg.round_every)
         with tracer.span("fleet.readback"):
             f_seg = f_seg.cpu().numpy().astype(float)
             o_seg = o_seg.cpu().numpy()
+            if inv is not None:
+                f_seg, o_seg = f_seg[:, inv], o_seg[:, inv]
         for s, n_steps in enumerate(seg_lens):
             with tracer.span("fleet.oracle", segment=s):
                 for rec, (a, b) in zip(recs, spans):
@@ -730,12 +768,14 @@ def fleet_search(workloads: Workload | Iterable[Workload],
                  device=DEFAULT_DEVICE) -> FleetResult:
     """Co-search a workload portfolio across a set of ArchSpec targets
     in one run, on `device` (the card unless the caller asks for the
-    CPU).  Specs are grouped by `engine_group_key`; each group's
-    populations batch into one shared engine (numeric spec tables as
-    per-member parameters), different groups run as separate cached
-    engines.  `fused=False` is the host-batched form.  Returns a
-    `FleetResult` of per-(spec, workload) bests and the Pareto frontier.
-    Routes through `api.run_request`, as the reference does."""
+    CPU; a sequence of devices is the pop mesh the fused group engines
+    shard their members over).  Specs are grouped by
+    `engine_group_key`; each group's populations batch into one shared
+    engine (numeric spec tables as per-member parameters), different
+    groups run as separate cached engines.  `fused=False` is the
+    host-batched form.  Returns a `FleetResult` of per-(spec, workload)
+    bests and the Pareto frontier.  Routes through `api.run_request`,
+    as the reference does."""
     from ..api import SearchRequest, run_request
     if isinstance(specs, ArchSpec):
         specs = [specs]
@@ -750,7 +790,7 @@ def execute_fleet_search(workloads, specs, cfg: SearchConfig,
                          device=DEFAULT_DEVICE) -> FleetResult:
     """Fleet dispatch shared by `fleet_search` and `api.run_request`."""
     _check_cfg(cfg)
-    dev = resolve_device(device)
+    dev = resolve_devices(device)
     if isinstance(workloads, Workload):
         workloads = [workloads]
     if isinstance(specs, ArchSpec):

@@ -59,8 +59,19 @@ The engines report the reference's telemetry spans (`obs.telemetry`):
 the fused driver, ``search.gd_segment`` / ``search.rounding`` /
 ``search.ordering`` / ``search.oracle`` in the host-batched one.
 
-Not ported yet, and raising `NotImplementedError` with the ROADMAP
-queue item: population sharding over several cards (``shards > 1``).
+The fused engine shards its population axis over a 1-D "pop" device
+mesh (``SearchConfig.shards``; auto-resolved over the devices the
+caller names, `launch.mesh.auto_pop_shards`).  ``device`` may be a
+sequence of devices, the mesh: ``["cuda:0", "cuda:1"]`` is two cards,
+and a repeated device (``["cpu"] * 4``, ``["cuda:0"] * 2``) holds
+several shards.  A single device (``"cuda"`` is the current card) is a
+one-device mesh: several cards are opt-in, since on them the shards'
+host threads take longer than one shard does (PERF.md).
+Every segment op is per member, so the shards run concurrently, one
+host thread each (`sharding.rules.shard_map`), never talk to each other
+during a chunk, and give read-backs bit-identical to ``shards=1``; the
+per-shard best trackers reduce once after the join
+(`_reduce_population_best`).
 """
 from __future__ import annotations
 
@@ -70,8 +81,11 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..device import DEFAULT_DEVICE, resolve_device
+from ..device import DEFAULT_DEVICE, resolve_device, resolve_devices
+from ..launch.mesh import DeviceMesh, auto_pop_shards, make_pop_mesh
 from ..obs import telemetry as _obs
+from ..sharding.rules import (member_spec, segment_member_spec, shard_map,
+                              shard_tensor)
 from .arch import GemminiHW
 from .archspec import (ArchSpec, CompiledSpec, GEMMINI_SPEC, HWConfig,
                        compile_spec, resolve_spec)
@@ -80,8 +94,8 @@ from .hw_infer import minimal_hw_for, random_hw_for
 from .lru import LRUCache
 from .mapping import TEMPORAL, SPATIAL, Mapping, stack_mappings
 from .mapping import unstack_mappings
-from .model import (SpecHW, _spec_hw_from_params, capacities,
-                    capacity_penalty_spec, infer_hw_spec,
+from .model import (PopulationBest, SpecHW, _spec_hw_from_params,
+                    capacities, capacity_penalty_spec, infer_hw_spec,
                     layer_el_all_orderings_spec,
                     layer_el_all_orderings_population_spec,
                     population_best_init, population_best_update,
@@ -163,8 +177,12 @@ class SearchConfig:
     surrogate: object | None = None    # TrainedModel: GD descends
     #   through the DNN residual/direct latency model (Sec. 6.5),
     #   calibrated for `spec`'s featurization (core.calibration).
-    shards: int | None = None          # population shard count; only
-    #   1 (or None, auto) is ported, larger counts raise
+    shards: int | None = None          # fused-engine population shard
+    #   count over the "pop" device mesh.  None auto-resolves to the
+    #   largest divisor of the population chunk that fits the device
+    #   count (1 on a single device).  Sharded and single-device runs
+    #   are bit-identical per seed; a host driver knob only, never part
+    #   of the engine cache key.
     start_points: str = "cosa"         # "cosa": host CoSA protocol with
     #   rejection (Sec. 5.3.1); "random-device" / "cosa-device": seed the
     #   population on the device (`mapping.seed_population`), fused
@@ -201,17 +219,6 @@ class SearchConfig:
                 and hasattr(sur, "n_features") and hasattr(sur, "spec_name"):
             from .calibration import check_surrogate
             check_surrogate(sur, resolve_spec(self.spec))
-
-
-def _check_ported(cfg: SearchConfig) -> None:
-    """Raise for the reference features this port has not taken yet.
-    Callers run it before any work starts (the service when a request
-    is submitted), since `NotImplementedError` is a `RuntimeError`,
-    which the serving layer's fault taxonomy would retry."""
-    if cfg.shards is not None and cfg.shards > 1:
-        raise NotImplementedError(
-            "shards > 1 is not ported yet (ROADMAP queue 1 item 7: "
-            "Multi-GPU population sharding)")
 
 
 @dataclasses.dataclass
@@ -668,14 +675,76 @@ def make_fused_runner(workload: Workload, cfg: SearchConfig,
     return _cached_engine(workload, cfg, "fused", dev, build)
 
 
-def shard_population(theta, orders, shards: int):
-    """Place a (P, ...) population on the "pop" mesh of `shards` cards.
-    Only ``shards == 1``, where placement is a no-op, is ported."""
+def fused_engines(workload: Workload, cfg: SearchConfig,
+                  mesh: DeviceMesh) -> dict[torch.device, FusedEngine]:
+    """The fused engine of every device of `mesh`, built or fetched in
+    the calling thread, so no shard's worker touches the engine cache
+    or the tracer."""
+    return {dev: make_fused_runner(workload, cfg, dev)
+            for dev in mesh.devices}
+
+
+def shard_population(theta, orders, shards: int, devices=DEFAULT_DEVICE):
+    """Place a (P, ...) population on the "pop" mesh of `shards` of the
+    devices `devices` names: each as `MemberShards`, one member block
+    per device, which `run_fused` takes as placed.  No-op at shards=1.
+    The drivers hand `run_fused` whole tensors and let `shard_map`
+    split them; this is for a caller that places a population once."""
     if shards == 1:
         return theta, orders
-    raise NotImplementedError(
-        "shards > 1 is not ported yet (ROADMAP queue 1 item 7: "
-        "Multi-GPU population sharding)")
+    mesh = make_pop_mesh(shards, devices)
+    return (shard_tensor(theta, mesh, member_spec(theta.dim() - 1)),
+            shard_tensor(orders, mesh, member_spec(orders.dim() - 1)))
+
+
+def _reduce_population_best(blocks) -> PopulationBest:
+    """Cross-shard reduction of per-shard best trackers (shard order) to
+    the single global winner, as the reference's `pmin`-style
+    collective: each shard contributes only its local argmin, the
+    global minimum EDP wins, a tie goes to the lowest-indexed shard,
+    and the winner's factor tensor and orders are copied from its
+    device.  Returns a singleton (leading axis 1) on the first shard's
+    device, with no host read."""
+    dev = blocks[0].edp.device
+    edp, f, orders = [], [], []
+    for b in blocks:
+        i = torch.argmin(b.edp).reshape(1)        # first local minimum
+        edp.append(b.edp.index_select(0, i).to(dev))
+        f.append(b.f.index_select(0, i).to(dev))
+        orders.append(b.orders.index_select(0, i).to(dev))
+    w = torch.argmin(torch.cat(edp)).reshape(1)   # lowest shard on a tie
+    return PopulationBest(edp=torch.cat(edp).index_select(0, w),
+                          f=torch.cat(f).index_select(0, w),
+                          orders=torch.cat(orders).index_select(0, w))
+
+
+# The per-segment outputs of a fused run: (f_rounded (S, P, L, 2, nl,
+# 7), orders (S, P, L, n_levels), model_edp (S, P)).
+SEGMENT_OUT_SPECS = (segment_member_spec(4), segment_member_spec(2),
+                      segment_member_spec(0))
+
+
+def run_fused(engines: dict, mesh: DeviceMesh, args: tuple,
+              in_specs: tuple, **statics):
+    """Run a fused engine (`FusedEngine` or the fleet's) over the pop
+    `mesh`: ``engine.run(*args, **statics)``.  At one shard the engine
+    of the mesh's device runs `args` as they are.  Above, `shard_map`
+    runs the engine of each shard's device on that shard's member
+    blocks (split along `in_specs`), all shards concurrently; every
+    segment op is per member, so the read-back, concatenated in shard
+    order, is bit-identical to one shard.  The per-shard best trackers
+    reduce once after the join (`_reduce_population_best`), so the
+    sharded `best` is the global winner with leading axis 1 (at one
+    shard it stays the per-member tracker)."""
+    if mesh.size == 1:
+        return engines[mesh.devices[0]].run(*args, **statics)
+
+    def per_shard(*blocks):
+        return engines[blocks[0].device].run(*blocks, **statics)
+
+    ys, bests = shard_map(per_shard, mesh=mesh, in_specs=in_specs,
+                          out_specs=(SEGMENT_OUT_SPECS, None))(*args)
+    return ys, _reduce_population_best(bests)
 
 
 def chunk_generator(seed: int, lo: int, device) -> torch.Generator:
@@ -811,11 +880,13 @@ def dosa_search(workload: Workload, cfg: SearchConfig,
                 population: int | None = None, fused: bool = True,
                 device=DEFAULT_DEVICE) -> SearchResult:
     """Run DOSA co-search on `device` (the card unless the caller asks
-    for the CPU).  `population=None` is the sequential reference driver;
-    `population=P` advances the start points P at a time through the
-    fused engine, or with ``fused=False`` through the host-batched one
-    (same protocol, same sample counting, same start points for a given
-    seed).  Routes through `api.run_request`, as the reference does."""
+    for the CPU; a sequence of devices is the fused engine's pop mesh,
+    the other engines run on its first).  `population=None` is the
+    sequential reference driver; `population=P` advances the start
+    points P at a time through the fused engine, or with
+    ``fused=False`` through the host-batched one (same protocol, same
+    sample counting, same start points for a given seed).  Routes
+    through `api.run_request`, as the reference does."""
     from ..api import SearchRequest, run_request
     return run_request(SearchRequest(
         workload=workload, config=cfg, population=population,
@@ -826,18 +897,19 @@ def execute_search(workload: Workload, cfg: SearchConfig,
                    population: int | None = None, fused: bool = True,
                    device=DEFAULT_DEVICE) -> SearchResult:
     """Engine dispatch shared by `dosa_search` and `api.run_request`."""
-    _check_ported(cfg)
     if cfg.start_points != "cosa" and (population is None or not fused):
         raise ValueError(
             f"start_points={cfg.start_points!r} seeds the population on "
             "device and only the fused engine consumes it; pass "
             "population=P with fused=True")
-    dev = resolve_device(device)
+    devices = resolve_devices(device)
+    dev = devices[0]
     if population is not None:
         if population < 1:
             raise ValueError(f"population must be >= 1, got {population}")
         if fused:
-            return _dosa_search_fused(workload, cfg, int(population), dev)
+            return _dosa_search_fused(workload, cfg, int(population),
+                                      devices)
         return _dosa_search_batched(workload, cfg, int(population), dev)
     return _dosa_search_sequential(workload, cfg, dev)
 
@@ -987,7 +1059,7 @@ def _dosa_search_batched(workload: Workload, cfg: SearchConfig,
 
 
 def _dosa_search_fused(workload: Workload, cfg: SearchConfig,
-                       population: int, device: torch.device,
+                       population: int, device,
                        chunk_uniforms: Callable | None = None
                        ) -> SearchResult:
     """Fused driver: per population chunk the device runs every GD
@@ -999,13 +1071,23 @@ def _dosa_search_fused(workload: Workload, cfg: SearchConfig,
     the padding inert) and the padding is masked out of the
     accounting.
 
+    The population axis is sharded over the "pop" mesh of the devices
+    `device` names (`cfg.shards`; auto-resolved by default): each
+    chunk starts on the first device and runs split over the mesh
+    (`run_fused`), with every reported number bit-identical at any
+    shard count.
+
     `cfg.start_points` in {"random-device", "cosa-device"} seeds each
     chunk on the device (`mapping.seed_population`, uniforms from
     `chunk_generator(cfg.seed, lo)`) instead of the host CoSA protocol;
     `chunk_uniforms(lo, population) -> (u_f, u_o)`, when given, supplies
     each chunk's uniforms instead (tests hand in the reference's)."""
     cspec = _cspec(cfg)
-    engine = make_fused_runner(workload, cfg, device)
+    devices = resolve_devices(device)
+    device = devices[0]
+    shards = auto_pop_shards(population, cfg.shards, devices)
+    mesh = make_pop_mesh(shards, devices)
+    engines = fused_engines(workload, cfg, mesh)
     rec = _Recorder(workload, cfg, cspec)
     device_seeded = cfg.start_points != "cosa"
     tracer = _obs.get_tracer()
@@ -1015,7 +1097,6 @@ def _dosa_search_fused(workload: Workload, cfg: SearchConfig,
             starts = _start_points(workload, cfg, rec)
     seg_lens = _segment_lengths(cfg.steps, cfg.round_every)
     n_full, rem = divmod(cfg.steps, cfg.round_every)
-    shards = 1 if cfg.shards is None else cfg.shards
 
     for lo in range(0, cfg.n_start_points, population):
         n_real = min(population, cfg.n_start_points - lo)
@@ -1042,9 +1123,9 @@ def _dosa_search_fused(workload: Workload, cfg: SearchConfig,
         with tracer.span("search.fused_dispatch", chunk=lo,
                          population=population, shards=shards,
                          n_full=n_full, rem=rem):
-            theta, orders = shard_population(theta, orders, shards)
-            (f_seg, o_seg, _), _best = engine.run(
-                theta, orders, n_full=n_full, rem=rem,
+            (f_seg, o_seg, _), _best = run_fused(
+                engines, mesh, (theta, orders),
+                (member_spec(4), member_spec(2)), n_full=n_full, rem=rem,
                 seg_len=cfg.round_every)
 
         # ---- the chunk's one read-back + oracle replay (padding skipped)

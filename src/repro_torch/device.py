@@ -5,6 +5,11 @@ Every entry point (`dosa_search`, `run_request`, `tune_matmul_blocks`,
 defaults to ``"cuda"``: the port runs on the card unless the caller
 asks for the CPU.  A CUDA request on a machine without a usable GPU
 raises; nothing falls back to the CPU.
+
+The co-search entry points (`dosa_search`, `fleet_search`,
+`run_request`, the service and its HTTP server) also take a sequence
+of devices: the population ("pop") mesh its shards run on
+(`resolve_devices`, `launch.mesh.make_pop_mesh`).
 """
 from __future__ import annotations
 
@@ -31,3 +36,16 @@ def canonical_device(device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def resolve_devices(device=DEFAULT_DEVICE) -> tuple[torch.device, ...]:
+    """The devices a co-search entry point's `device` names, in order:
+    a sequence gives its entries (a device may repeat, so one card or
+    the CPU can hold several shards), a single device itself, as
+    `resolve_device` resolves it (``"cuda"`` is the current card).  A
+    mesh over several cards is opt-in: the caller names them."""
+    if isinstance(device, (list, tuple)):
+        if not device:
+            raise ValueError("an empty device sequence names no device")
+        return tuple(resolve_device(d) for d in device)
+    return (resolve_device(device),)

@@ -32,9 +32,7 @@ FATAL = "fatal"
 
 # The fault types a retry can in principle recover from.  A sticky CUDA
 # error is a RuntimeError too and no retry clears it; the reference's
-# taxonomy is kept as it is (ROADMAP open question).  `NotImplementedError`
-# is a RuntimeError as well, so the port raises its "not ported yet"
-# errors when a request is submitted, never inside a segment.
+# taxonomy is kept as it is (ROADMAP open question).
 TRANSIENT_TYPES = (RuntimeError, OSError, FloatingPointError)
 
 # Deterministic-input suspects: retried once, then poison on an
@@ -46,8 +44,11 @@ class ShardLossFault(RuntimeError):
     """A multi-device population shard became unreachable mid-segment.
 
     Transient like any RuntimeError, but carries a degradation hint:
-    the serving layer re-resolves the engine to ``shards=1`` before
-    retrying and flags the outcome ``degraded`` instead of failing."""
+    the serving layer re-resolves the engine to ``shards=1``, rolls the
+    task back to its last checkpoint and continues, flagging the
+    outcome ``degraded`` (``shard_fallback``) instead of failing.  Only
+    the first shard loss of a task degrades; a later one is retried as
+    any transient fault."""
 
 
 class SurrogateFault(RuntimeError):

@@ -2,12 +2,10 @@
 
 The PyTorch port of `repro.serve.cosearch_service`.  Every request
 runs on its own `device` (``"cuda"`` unless the caller asks for the
-CPU); requests batch only with requests on the same device, and a
-request whose device is unusable, or that needs a feature the port has
-not taken yet, is refused when it is submitted.  The population axis
-is never sharded (ROADMAP queue 1 item 7), so the shard-loss degrade
-path of the reference waits for that item: a `ShardLossFault` is a
-transient fault here.
+CPU), a device or a sequence of devices: the "pop" mesh its padded
+population shards over.  Requests batch only with requests on the same
+device tuple, and a request whose device is unusable, or whose
+``shards`` does not fit its devices, is refused when it is submitted.
 
 `CoSearchService` turns the one-loop engine into infrastructure: it
 accepts a stream of `repro.api.SearchRequest`s and answers each one
@@ -54,7 +52,9 @@ Request lifecycle
    quarantined with a structured ``error`` outcome instead of burning
    the batch's retry budget; *fatal* faults propagate immediately.
    Graceful degradation: a failing learned latency model strips to the
-   analytical model, continues, and flags the outcome ``degraded``.
+   analytical model, and a multi-device shard loss re-resolves the
+   engine to ``shards=1`` — both continue and flag the outcome
+   ``degraded``.
 5. **checkpoint / resume / GC** — with `checkpoint_dir` set, the task
    state checkpoints every `checkpoint_every` segments via
    `runtime.search_checkpoint`; a killed server resumes the task
@@ -94,16 +94,18 @@ from ..core.fleet import (_TRACED_CFG_FIELDS, fleet_engine_cache_stats,
 from ..core.mapping import stack_mappings, unstack_mappings
 from ..core.oracle import evaluate_workload
 from ..core.problem import Workload
-from ..core.search import (SearchConfig, _Recorder, _check_ported,
-                           _generate_start_point, _segment_lengths,
-                           engine_cache_stats, make_fused_runner,
-                           orders_from_population, shard_population,
+from ..core.search import (SearchConfig, _Recorder, _generate_start_point,
+                           _segment_lengths, engine_cache_stats,
+                           fused_engines, orders_from_population,
+                           run_fused,
                            theta_from_population)
-from ..device import resolve_device
+from ..device import resolve_devices
+from ..launch.mesh import auto_pop_shards, make_pop_mesh
 from ..obs import telemetry as _obs
 from ..obs.history import HistoryRecorder
 from ..runtime import faults
 from ..runtime import search_checkpoint as sckpt
+from ..sharding.rules import member_spec
 
 
 @dataclasses.dataclass
@@ -219,7 +221,7 @@ class _BatchTask:
         self.workload = workload
         self.requests = sorted(requests, key=lambda r: r.request_id)
         self.cfg0 = self.requests[0].config
-        self.device = resolve_device(self.requests[0].device)
+        self.devices = resolve_devices(self.requests[0].device)
         self.cspec = resolve_spec(self.cfg0.spec)
         self.seg_lens = _segment_lengths(self.cfg0.steps,
                                          self.cfg0.round_every)
@@ -237,6 +239,7 @@ class _BatchTask:
         self.degraded: set[str] = set()
         self.finalized: dict[str, SearchOutcome] = {}   # timed-out rids
         self.checkpoint_hook: Callable | None = None
+        self._force_shards1 = False
         # Observability taps, wired by the service at registration:
         # trace_event(name, **attrs) fans a fault/degrade event out to
         # every member request's root span; history records one row per
@@ -369,9 +372,10 @@ class _BatchTask:
 
         Fault handling (shared taxonomy, `runtime.faults`): transient
         faults roll back to the last checkpoint and retry after
-        exponential backoff; a surrogate failure strips to the
-        analytical model (degraded); deterministic re-failure raises
-        `_SplitBatch` / `_QuarantineTask` for the service to contain."""
+        exponential backoff; a shard loss re-resolves to ``shards=1``
+        (degraded); a surrogate failure strips to the analytical model
+        (degraded); deterministic re-failure raises `_SplitBatch` /
+        `_QuarantineTask` for the service to contain."""
         self.start()
         if self.done:
             return []
@@ -381,6 +385,14 @@ class _BatchTask:
                 self._advance_once(fault_hook)
                 break
             except Exception as exc:   # classified below; fatal re-raised
+                if isinstance(exc, faults.ShardLossFault) \
+                        and not self._force_shards1:
+                    # degrade to the single-shard engine and continue
+                    self._force_shards1 = True
+                    self.degraded.add("shard_fallback")
+                    self._emit("degrade", mode="shard_fallback")
+                    self._rollback()
+                    continue
                 if isinstance(exc, faults.SurrogateFault) \
                         and self._strip_surrogate():
                     self._emit("degrade", mode="surrogate_fallback")
@@ -427,7 +439,6 @@ class _BatchTask:
             fault_hook(self.task_id, self.seg_done,
                        tuple(r.request_id for r in self.requests))
         n_steps = self.seg_lens[self.seg_done]
-        engine = make_fused_runner(self.workload, self.cfg0, self.device)
 
         p_real = self.theta.shape[0]
         p_pad = _pad_size(p_real, self.svc_cfg.member_buckets)
@@ -440,13 +451,23 @@ class _BatchTask:
             theta = np.concatenate([theta, np.repeat(theta[-1:], pad, 0)])
             orders = np.concatenate([orders,
                                      np.repeat(orders[-1:], pad, 0)])
-        # One card: the population is never sharded (ROADMAP queue 1
-        # item 7).  The engine runs one segment of `n_steps`.
-        theta_t, orders_t = shard_population(
-            torch.from_numpy(theta.astype(np.float32)).to(self.device),
-            torch.from_numpy(orders).to(self.device), 1)
-        (f_seg, o_seg, _), _best = engine.run(
-            theta_t, orders_t, n_full=1, rem=0, seg_len=n_steps)
+        # The service rides the sharded engine transparently: the padded
+        # population shards over the "pop" mesh of the request's devices
+        # (per-member ops keep the read-back bit-identical at any shard
+        # count), bounded by the batch config's `shards` knob.  After a
+        # shard loss the task is pinned to the single-device engine
+        # (bit-identical results).
+        shards = 1 if self._force_shards1 else \
+            auto_pop_shards(p_pad, self.cfg0.shards, self.devices)
+        mesh = make_pop_mesh(shards, self.devices)
+        engines = fused_engines(self.workload, self.cfg0, mesh)
+        dev = self.devices[0]
+        (f_seg, o_seg, _), _best = run_fused(
+            engines, mesh,
+            (torch.from_numpy(theta.astype(np.float32)).to(dev),
+             torch.from_numpy(orders).to(dev)),
+            (member_spec(4), member_spec(2)), n_full=1, rem=0,
+            seg_len=n_steps)
         f_seg = f_seg.cpu().numpy().astype(float)[0]  # (P_pad, L, 2, nl, 7)
         o_seg = o_seg.cpu().numpy()[0]                # (P_pad, L, n_levels)
 
@@ -539,7 +560,7 @@ class _GroupTask:
         self.svc_cfg = svc_cfg
         self.workload = workload
         self.requests = sorted(requests, key=lambda r: r.request_id)
-        self.device = resolve_device(self.requests[0].device)
+        self.devices = resolve_devices(self.requests[0].device)
         self.task_id = hashlib.sha256(("grp/" + "/".join(
             r.request_id for r in self.requests)).encode()
             ).hexdigest()[:16]
@@ -573,7 +594,7 @@ class _GroupTask:
                 results = search_group_results(self.workload, specs,
                                                self.requests[0].config,
                                                fused=True, cfgs=cfgs,
-                                               device=self.device)
+                                               device=self.devices)
                 break
             except Exception as exc:   # classified; fatal re-raised
                 action, delay = self.retry.next_action(exc)
@@ -731,17 +752,17 @@ class CoSearchService:
         service always runs the fused population engine
         (`population`/`fused` hints apply to the synchronous API only).
 
-        Refused here, before any work starts: portfolio requests
-        (ValueError), features the port has not taken yet
-        (NotImplementedError, which the fault taxonomy would otherwise
-        retry as a RuntimeError), and a device that cannot run (no GPU
-        for ``"cuda"``)."""
+        Refused here, before any work starts: portfolio requests, a
+        ``shards`` outside the request's devices or not dividing its
+        padded population (ValueError, with `auto_pop_shards`' message),
+        and a device that cannot run (no GPU for ``"cuda"``)."""
         if req.is_fleet:
             raise ValueError("the service batches single-target requests; "
                              "portfolio queries go through "
                              "api.run_request/fleet_search")
-        _check_ported(req.config)
-        resolve_device(req.device)
+        auto_pop_shards(
+            _pad_size(req.config.n_start_points, self.cfg.member_buckets),
+            req.config.shards, req.device)
         fp = req.fingerprint()
         canon = self._fp_to_rid.get(fp)
         if canon is not None:
@@ -788,7 +809,7 @@ class CoSearchService:
         extra = (cfg.fixed_hw, cfg.fix_pe_only, cfg.reject_factor,
                  cfg.max_reject_tries, cfg.latency_model,
                  id(cfg.surrogate) if cfg.surrogate is not None else None)
-        device = str(resolve_device(req.device))
+        device = tuple(str(d) for d in resolve_devices(req.device))
         return (engine_group_key(_spec_of(cfg)), wl, traced, extra, device)
 
     def _trace_event_hook(self, task) -> Callable:

@@ -2,13 +2,15 @@
 
 The PyTorch port of `repro.serve.server`: the same endpoints, payload
 whitelist and 400 messages.  The server takes its `device` at
-construction (``"cuda"`` by default, and it raises there without a
-GPU); every request it accepts runs on that device, and the payload
-whitelist has no device field, so a client cannot move a search
-elsewhere.  HTTP threads parse JSON and enqueue; only the scheduler
-thread runs searches, so only it touches tensors.  A request that
-needs a feature the port has not taken yet gets a 400 when it is
-submitted.
+construction, a device or a sequence of devices (``"cuda"``, the
+current card, by default; it raises there without a GPU); every
+request it accepts runs on those devices, its population sharded over
+them, and the payload whitelist has no device field, so a client
+cannot move a search elsewhere.  HTTP threads parse JSON and enqueue;
+only the scheduler thread runs searches, so only it (and the shard
+workers it starts) touches tensors.  A ``shards`` that does not fit
+the server's devices gets a 400 with `launch.mesh.auto_pop_shards`'
+message when it is submitted.
 
 `CoSearchServer` puts `serve.cosearch_service.CoSearchService` behind a
 network boundary using only the standard library: a
@@ -72,7 +74,7 @@ from ..core.archspec import (EDGE_SPEC, GEMMINI_SPEC, TPU_V5E_SPEC,
                              ArchSpec)
 from ..core.problem import Layer, Workload
 from ..core.search import SearchConfig
-from ..device import DEFAULT_DEVICE, resolve_device
+from ..device import DEFAULT_DEVICE, resolve_devices
 from .cosearch_service import CoSearchService, ServiceConfig
 
 # Named targets a transport payload may ask for.  Resolution compiles
@@ -183,9 +185,9 @@ def _parse_config(obj) -> SearchConfig:
 def parse_search_payload(body: dict,
                          device=DEFAULT_DEVICE) -> SearchRequest:
     """Validate one POST /v1/search payload into a `SearchRequest` on
-    `device` (the server's).  Raises ValueError with an actionable
-    message on any malformed input — the transport maps that to a
-    400."""
+    `device` (the server's device or device tuple).  Raises ValueError
+    with an actionable message on any malformed input — the transport
+    maps that to a 400."""
     if not isinstance(body, dict):
         raise ValueError(f"payload must be a JSON object, "
                          f"got {_type_name(body)}")
@@ -208,7 +210,7 @@ def parse_search_payload(body: dict,
         priority=body.get("priority", 0),
         deadline_s=body.get("deadline_s"),
         segment_budget=body.get("segment_budget"),
-        device=str(device))
+        device=device)
 
 
 def _outcome_json(out) -> dict:
@@ -268,11 +270,10 @@ class _Handler(BaseHTTPRequestHandler):
             n = int(self.headers.get("Content-Length", 0))
             body = json.loads(self.rfile.read(n) or b"null")
             self._reply(202, self.app.submit_json(body))
-        except (ValueError, KeyError, TypeError,
-                NotImplementedError) as exc:
+        except (ValueError, KeyError, TypeError) as exc:
             # boundary rejection: malformed JSON, unknown fields, spec
-            # lint failures (SpecLintError is a ValueError), features
-            # not ported yet
+            # lint failures (SpecLintError is a ValueError), a shards
+            # count that does not fit the server's devices
             self._reply(400, {"error": {"type": type(exc).__name__,
                                         "message": str(exc)}})
 
@@ -314,13 +315,15 @@ class CoSearchServer:
     `port=0` binds an ephemeral port (tests).  All core access is
     serialized under one condition lock; the scheduler thread steps the
     service whenever `busy()` and sleeps on the condition otherwise.
-    Every accepted request runs on `device`, checked here.
+    Every accepted request runs on `device`, checked here: a device or
+    a sequence of devices, the pop mesh of every request's population.
     """
 
     def __init__(self, service_cfg: ServiceConfig | None = None,
                  host: str = "127.0.0.1", port: int = 0,
                  log=lambda msg: None, device=DEFAULT_DEVICE):
-        self.device = str(resolve_device(device))
+        devices = tuple(str(d) for d in resolve_devices(device))
+        self.device = devices[0] if len(devices) == 1 else devices
         self.service = CoSearchService(service_cfg)
         self.log = log
         self._host, self._port = host, port

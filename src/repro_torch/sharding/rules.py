@@ -15,13 +15,26 @@ Parallelism map:
   * EP:          MoE experts over "model"
   * SP:          long-context activations over "data" (sequence dim)
 
-The port runs on one card, so nothing here places a tensor: the
-dry-run (`launch.cells`) reads the specs to divide each leaf's bytes
-per device.  `PartitionSpec` is the port's own: a tuple with one entry
-per tensor dim, each None (replicated), a mesh axis name, or a tuple of
+The model specs place nothing yet (training runs on one card): the
+dry-run (`launch.cells`) reads them to divide each leaf's bytes per
+device.  `PartitionSpec` is the port's own: a tuple with one entry per
+tensor dim, each None (replicated), a mesh axis name, or a tuple of
 axis names, as `jax.sharding.PartitionSpec` holds them.
+
+The "pop" axis does place tensors: `shard_map` runs a function once
+per member block of a population over a `launch.mesh.DeviceMesh`, one
+host thread per shard, each on its shard's device and, on a card, its
+own stream (the co-search engines, `core.search` and `core.fleet`).
 """
 from __future__ import annotations
+
+import contextlib
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable
+
+import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 
 class PartitionSpec(tuple):
@@ -92,6 +105,218 @@ def segment_member_spec(extra_dims: int = 0) -> PartitionSpec:
     """(S, P, ...) per-segment stacked outputs of the fused loop: the
     segment axis leads, the member axis is sharded."""
     return P(None, POP_AXIS, *([None] * extra_dims))
+
+
+class MemberShards:
+    """A member-sharded tensor: one block per device of a pop `mesh`,
+    each on its device, split along the member `axis` in shard order —
+    the port's counterpart of an array placed with a member spec."""
+
+    def __init__(self, blocks, mesh, axis: int = 0):
+        self.blocks = tuple(blocks)
+        self.mesh = mesh
+        self.axis = axis
+        if len(self.blocks) != mesh.size:
+            raise ValueError(f"{len(self.blocks)} blocks for a "
+                             f"{mesh.size}-device mesh")
+
+    @property
+    def shape(self) -> torch.Size:
+        sizes = list(self.blocks[0].shape)
+        sizes[self.axis] = sum(b.shape[self.axis] for b in self.blocks)
+        return torch.Size(sizes)
+
+    def gather(self, device=None) -> torch.Tensor:
+        """The whole tensor on `device` (the mesh's first device by
+        default), blocks concatenated in shard order."""
+        dev = self.mesh.devices[0] if device is None else device
+        return torch.cat([b.to(dev) for b in self.blocks], dim=self.axis)
+
+
+def _member_axis(pspec: PartitionSpec | None) -> int | None:
+    if pspec is None or POP_AXIS not in pspec:
+        return None
+    return pspec.index(POP_AXIS)
+
+
+def shard_tensor(x: torch.Tensor, mesh, pspec: PartitionSpec
+                 ) -> MemberShards:
+    """Split `x` along the member axis `pspec` names into one block per
+    device of `mesh`, each moved to its device."""
+    axis = _member_axis(pspec)
+    if axis is None:
+        raise ValueError(f"{pspec!r} names no {POP_AXIS!r} axis")
+    if isinstance(x, MemberShards):
+        if x.mesh.devices != mesh.devices or x.axis != axis:
+            raise ValueError("the tensor is sharded over another mesh "
+                             "or axis")
+        return x
+    n = mesh.size
+    if x.shape[axis] % n:
+        raise ValueError(f"{n} shards do not divide the "
+                         f"{x.shape[axis]}-member axis evenly")
+    return MemberShards([b.to(d) for b, d in zip(x.chunk(n, dim=axis),
+                                                 mesh.devices)],
+                        mesh, axis)
+
+
+def _is_spec_leaf(spec) -> bool:
+    return spec is None or isinstance(spec, PartitionSpec)
+
+
+def _rebuild(like, parts):
+    return type(like)(*parts) if hasattr(like, "_fields") \
+        else type(like)(parts)
+
+
+def _map_spec(fn, spec, tree):
+    """``fn(spec_leaf, subtree)`` over `tree` along `spec`, a pytree
+    prefix of it (tuples, lists, NamedTuples, dicts) whose leaves are
+    PartitionSpecs or None."""
+    if _is_spec_leaf(spec):
+        return fn(spec, tree)
+    if isinstance(spec, dict):
+        return {k: _map_spec(fn, spec[k], tree[k]) for k in spec}
+    return _rebuild(tree, [_map_spec(fn, s, t) for s, t in zip(spec, tree)])
+
+
+def _transpose(spec, outs: list):
+    """Per-shard output trees -> one tree, down to `spec`'s leaves, of
+    per-shard lists."""
+    if _is_spec_leaf(spec):
+        return list(outs)
+    if isinstance(spec, dict):
+        return {k: _transpose(spec[k], [o[k] for o in outs]) for k in spec}
+    return _rebuild(spec, [_transpose(s, [o[j] for o in outs])
+                           for j, s in enumerate(spec)])
+
+
+def _shard_args(specs, args, mesh) -> list:
+    """One argument tuple per shard: member-spec tensors as that
+    shard's block, other tensors (spec None) moved to its device."""
+    def split(pspec, sub):
+        leaves, treedef = tree_flatten(sub)
+        axis = _member_axis(pspec)
+        per_leaf = []
+        for x in leaves:
+            if axis is not None:
+                per_leaf.append(shard_tensor(x, mesh, pspec).blocks)
+            elif isinstance(x, torch.Tensor):
+                per_leaf.append([x.to(d) for d in mesh.devices])
+            else:
+                per_leaf.append([x] * mesh.size)
+        return [tree_unflatten([blocks[i] for blocks in per_leaf], treedef)
+                for i in range(mesh.size)]
+    per = _map_spec(split, specs, args)
+    return [_map_spec(lambda _, shards, i=i: shards[i], specs, per)
+            for i in range(mesh.size)]
+
+
+def _gather(spec, outs: list, mesh):
+    """The per-shard outputs joined along `spec`: member-spec leaves
+    concatenated in shard order on the mesh's first device, None leaves
+    as the tuple of per-shard values, for the caller to reduce."""
+    def join(pspec, per_shard):
+        axis = _member_axis(pspec)
+        if axis is None:
+            return tuple(per_shard)
+        flat = [tree_flatten(t)[0] for t in per_shard]
+        leaves = [torch.cat([f[j].to(mesh.devices[0]) for f in flat],
+                            dim=axis) for j in range(len(flat[0]))]
+        return tree_unflatten(leaves, tree_flatten(per_shard[0])[1])
+    return _map_spec(join, spec, _transpose(spec, outs))
+
+
+def _shard_context(device: torch.device, stream):
+    """The worker's placement: its card and its own stream (nothing on
+    the CPU)."""
+    if stream is None:
+        return contextlib.nullcontext()
+    ctx = contextlib.ExitStack()
+    ctx.enter_context(torch.cuda.device(device))
+    ctx.enter_context(torch.cuda.stream(stream))
+    return ctx
+
+
+def _record_stream(tree, stream) -> None:
+    """Tell the caching allocator that `stream` uses every tensor of
+    `tree`, so no other stream reuses its memory before that work."""
+    for x in tree_flatten(tree)[0]:
+        if isinstance(x, torch.Tensor) and x.is_cuda:
+            x.record_stream(stream)
+
+
+# (card, shard index) -> the stream that shard's worker runs on, kept so
+# that the caching allocator's per-stream pools stay warm across calls.
+_SHARD_STREAMS: dict = {}
+
+
+def run_shards(fn: Callable, devices, shard_args: list) -> list:
+    """``fn(*shard_args[i])`` for every shard `i`, concurrently: one
+    host thread per shard, each under its device and, on a card, a
+    stream of its own that first waits for the caller's work on that
+    card (the work that made its inputs).  Joined before it returns:
+    the caller's streams then wait for every shard's, and the outputs
+    come back in shard order.  The first exception of a worker, in
+    shard order, is raised here after every worker has ended."""
+    streams = []
+    for i, (dev, args) in enumerate(zip(devices, shard_args)):
+        if dev.type != "cuda":
+            streams.append(None)
+            continue
+        stream = _SHARD_STREAMS.get((dev, i))
+        if stream is None:      # setdefault: one stream if callers race
+            stream = _SHARD_STREAMS.setdefault(
+                (dev, i), torch.cuda.Stream(device=dev))
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        _record_stream(args, stream)
+        streams.append(stream)
+
+    # every worker waits here until all have started: one thread each
+    started = threading.Barrier(len(devices))
+
+    def work(i: int):
+        started.wait()
+        with _shard_context(devices[i], streams[i]):
+            return fn(*shard_args[i])
+
+    with ThreadPoolExecutor(max_workers=len(devices),
+                            thread_name_prefix="pop-shard") as pool:
+        try:
+            futures = [pool.submit(work, i) for i in range(len(devices))]
+        except RuntimeError:    # a thread could not start: free the rest
+            started.abort()
+            raise
+    outs = [f.result() for f in futures]
+    for dev, stream, out in zip(devices, streams, outs):
+        if stream is not None:
+            caller = torch.cuda.current_stream(dev)
+            caller.wait_stream(stream)
+            _record_stream(out, caller)
+    return outs
+
+
+def shard_map(fn: Callable, *, mesh, in_specs: tuple, out_specs):
+    """The port's `shard_map` over a 1-D pop `mesh`: the returned
+    callable splits each argument along the member axis its spec in
+    `in_specs` names (`member_spec`, `segment_member_spec`; a spec
+    covers every tensor of its subtree, `None` passes a value to every
+    shard unsplit), moves each block to its shard's device, runs `fn`
+    once per shard concurrently (`run_shards`) and joins the outputs
+    along `out_specs`: member-spec outputs concatenated in shard order
+    on the mesh's first device, ``None`` outputs as the tuple of
+    per-shard values.  Shards never talk to each other while `fn` runs;
+    what a collective would reduce, the caller reduces after the join.
+    An argument already split over `mesh` (`MemberShards`) keeps its
+    blocks."""
+    def call(*args):
+        if len(args) != len(in_specs):
+            raise ValueError(f"{len(args)} arguments for "
+                             f"{len(in_specs)} in_specs")
+        shard_args = _shard_args(tuple(in_specs), args, mesh)
+        outs = run_shards(fn, mesh.devices, shard_args)
+        return _gather(out_specs, outs, mesh)
+    return call
 
 
 # Activation specs.  Attention uses Ulysses-style sequence parallelism

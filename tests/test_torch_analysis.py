@@ -581,9 +581,11 @@ def test_contracts_section_on_cpu():
     assert sec["device"] == "cpu"
     checks = sec["checks"]
     assert set(checks) == {
-        "search.transfer_free", "search.no_recompile",
-        "search.no_f64_constants", "search.trace_fingerprint",
-        "fleet.no_recompile", "serve.no_recompile"}
+        "search.transfer_free", "search.sharded_transfer_free",
+        "search.no_recompile", "search.no_f64_constants",
+        "search.trace_fingerprint", "fleet.no_recompile",
+        "fleet.transfer_free", "fleet.sharded_transfer_free",
+        "serve.no_recompile"}
     failed = {k: v for k, v in checks.items()
               if isinstance(v, dict) and not v["passed"]}
     assert not failed and sec["ok"]

@@ -192,9 +192,19 @@ def test_fleet_request_and_default_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             pf.fleet_search(wl, PORT_SPECS["edge3"], cfg)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # shards=2: over two CPU devices the same answer as one shard; on
+    # one device the reference's ValueError
+    cfg2 = dataclasses.replace(cfg, n_start_points=2)
+    one = pf.fleet_search(wl, PORT_SPECS["edge3"], cfg2, device="cpu")
+    two = pf.fleet_search(wl, PORT_SPECS["edge3"],
+                          dataclasses.replace(cfg2, shards=2),
+                          device=["cpu", "cpu"])
+    assert two.to_csv() == one.to_csv()
+    assert [e.history for e in two.entries] == \
+        [e.history for e in one.entries]
+    with pytest.raises(ValueError, match=r"shards=2 outside 1\.\.1 "):
         pf.fleet_search(wl, PORT_SPECS["edge3"],
-                        dataclasses.replace(cfg, shards=2), device="cpu")
+                        dataclasses.replace(cfg2, shards=2), device="cpu")
 
 
 def test_calibrated_target_runs_its_own_engine(tmp_path):

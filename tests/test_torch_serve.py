@@ -350,9 +350,22 @@ def test_surrogate_failure_degrades_to_analytical():
 
 
 def test_submission_refuses_what_cannot_run():
+    """``shards=2`` on one device is refused at submission with the
+    reference's `auto_pop_shards` message; on two devices it runs and
+    answers what a direct search answers."""
+    from repro.launch.mesh import auto_pop_shards as ref_auto_pop_shards
     svc = _svc(PORT)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError) as ref:
+        ref_auto_pop_shards(2, 2)        # one jax device in this process
+    with pytest.raises(ValueError) as got:
         svc.submit(_req(PORT, 1, cfg_kw={"shards": 2}))
+    assert str(got.value) == str(ref.value)
+    two = _svc(PORT)
+    rid = two.submit(port_api.SearchRequest(
+        workload=port_workload(WL_A), config=_cfg(PORT, 5, shards=2),
+        device=["cpu", "cpu"]))
+    out = two.drain()[rid]
+    assert out.status == "ok" and _key(out)[3] == _direct(PORT, 5)
     with pytest.raises(ValueError, match="single-target"):
         svc.submit(port_api.SearchRequest(
             workload=port_workload(WL_A), config=_cfg(PORT),

@@ -13,6 +13,7 @@ import torch
 
 from _torch_parity import port_workload
 from repro.core.problem import Layer, Workload
+from repro.launch.mesh import auto_pop_shards as ref_auto_pop_shards
 from repro.serve import server as ref_server
 from repro_torch.core.search import SearchConfig, dosa_search
 from repro_torch.serve import server as port_server
@@ -154,12 +155,15 @@ def test_http_rejects_with_the_reference_messages(server):
                                 "message": str(ref.value)}
     code, out = _post(base, "/v1/search", None, raw=b"{nope")
     assert code == 400 and out["error"]["type"] == "JSONDecodeError"
-    # a feature the port has not taken yet: refused at submission
+    # more shards than the one-device server has: refused at submission
+    # with the reference's `auto_pop_shards` message
     code, out = _post(base, "/v1/search", {"workload": WL_JSON,
                                            "config": {"shards": 2}})
+    with pytest.raises(ValueError) as ref:
+        ref_auto_pop_shards(2, 2)        # one jax device in this process
     assert code == 400
-    assert out["error"]["type"] == "NotImplementedError"
-    assert "item 7" in out["error"]["message"]
+    assert out["error"] == {"type": "ValueError",
+                            "message": str(ref.value)}
 
 
 def test_http_routes_stats_and_metrics(server):
@@ -183,3 +187,39 @@ def test_http_routes_stats_and_metrics(server):
     assert types["serve_request_seconds"] == "histogram"
     assert types["engine_cache_hit_rate"] == "gauge"
     assert types["engine_build_total"] == "counter"
+
+
+def test_two_device_server_answers_sharded_requests():
+    """A server on two CPU devices takes ``shards=2`` (and ``None``, which
+    resolves to 2) and answers what a direct search answers."""
+    srv = port_server.CoSearchServer(ServiceConfig(bucket_workloads=False),
+                                     device=["cpu", "cpu"])
+    assert srv.device == ("cpu", "cpu")
+    host, port = srv.start()
+    base = f"http://{host}:{port}"
+    try:
+        rids = []
+        for shards in (2, None):
+            cfg = dict(CFG_JSON, seed=22, shards=shards)
+            code, sub = _post(base, "/v1/search",
+                              {"workload": WL_JSON, "config": cfg})
+            assert code == 202
+            rids.append(sub["request_id"])
+        code, out = _post(base, "/v1/search", {
+            "workload": WL_JSON, "config": dict(CFG_JSON, shards=3)})
+        assert code == 400 and out["error"]["message"] == \
+            "shards=3 outside 1..2 available devices"
+        assert srv.wait_idle(timeout=300)
+        wl = Workload(layers=(Layer.matmul(16, 16, 16, name="a"),),
+                      name="t")
+        direct = dosa_search(port_workload(wl),
+                             SearchConfig(**dict(CFG_JSON, seed=22)),
+                             population=2, device="cpu")
+        for rid in rids:
+            code, got = _get(base, f"/v1/result/{rid}")
+            assert code == 200 and got["status"] == "ok"
+            assert (got["best_edp"], got["n_evals"]) == \
+                (direct.best_edp, direct.n_evals)
+            assert got["history"] == [[e, v] for e, v in direct.history]
+    finally:
+        srv.stop()
