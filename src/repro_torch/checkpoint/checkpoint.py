@@ -14,6 +14,14 @@ to the host).  `restore` returns numpy arrays, and bfloat16 leaves as
 `torch.bfloat16` tensors (numpy has no bfloat16), or each leaf placed
 as `restore`'s `shardings` says.  Writes go to a temp
 dir + atomic rename: a crash mid-write never corrupts LATEST.
+
+A state of DTensors (training over a mesh of processes) is written in
+the same format, whole: every rank gathers each leaf in turn (the
+reference's `device_get`), rank 0 alone copies them to the host and
+writes them, and every
+rank returns once LATEST names the new step.  So the single-device
+`restore`, and `serve --ckpt-dir`, read it; `restore(shardings=)`
+shards it again.
 """
 from __future__ import annotations
 
@@ -25,8 +33,12 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
-from ..sharding.rules import shard_tensor
+from ..device import canonical_device
+from ..sharding.rules import distribute, shard_tensor
 
 
 def _flatten(tree, prefix=""):
@@ -67,6 +79,8 @@ def _host_array(v) -> tuple[np.ndarray, str]:
     """(the array as stored, its dtype name): bfloat16 tensors as their
     uint16 bit pattern under the name "bfloat16"."""
     if isinstance(v, torch.Tensor):
+        if isinstance(v, DTensor):
+            v = v.full_tensor()
         t = v.detach().cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -79,9 +93,30 @@ def _host_array(v) -> tuple[np.ndarray, str]:
 def save(ckpt_dir: str | Path, step: int, state: dict,
          extra_meta: dict | None = None) -> Path:
     ckpt_dir = Path(ckpt_dir)
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
     flat = _flatten(state)
-    stored = {k: _host_array(v) for k, v in flat.items()}
+    final = ckpt_dir / f"step_{step:08d}"
+    if any(isinstance(v, DTensor) for v in flat.values()):
+        # Every rank gathers each leaf (a collective); rank 0 alone
+        # copies it to the host and writes.
+        writer = dist.get_rank() == 0
+        stored = {}
+        for k, v in flat.items():
+            if writer:
+                stored[k] = _host_array(v)
+            elif isinstance(v, DTensor):
+                v.full_tensor()
+        if writer:
+            _write(ckpt_dir, step, stored, extra_meta)
+        dist.barrier()
+        return final
+    _write(ckpt_dir, step, {k: _host_array(v) for k, v in flat.items()},
+           extra_meta)
+    return final
+
+
+def _write(ckpt_dir: Path, step: int, stored: dict,
+           extra_meta: dict | None) -> None:
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
     meta = {"step": step, "keys": sorted(stored),
             "dtypes": {k: dt for k, (_, dt) in stored.items()},
             **(extra_meta or {})}
@@ -103,7 +138,6 @@ def save(ckpt_dir: str | Path, step: int, state: dict,
     ptr_tmp = ckpt_dir / ".LATEST.tmp"
     ptr_tmp.write_text(final.name)
     os.replace(ptr_tmp, ckpt_dir / "LATEST")
-    return final
 
 
 def latest_step(ckpt_dir: str | Path) -> int | None:
@@ -118,11 +152,16 @@ def latest_step(ckpt_dir: str | Path) -> int | None:
 
 def _place(leaf, sharding):
     """One restored leaf placed as its `sharding` entry says: a device
-    (a tensor there), or a (pop mesh, member spec) pair (the leaf split
-    into member blocks on the mesh's devices, `MemberShards`)."""
+    (a tensor there), a (pop mesh, member spec) pair (the leaf split
+    into member blocks on the mesh's devices, `MemberShards`), or a
+    (training mesh, PartitionSpec) pair (a DTensor: this rank's shard
+    on its device)."""
     t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(leaf)
     if isinstance(sharding, tuple):
         mesh, pspec = sharding
+        if isinstance(mesh, DeviceMesh):
+            return distribute(t.to(canonical_device(mesh.device_type)),
+                              mesh, pspec)
         return shard_tensor(t, mesh, pspec)
     return t.to(torch.device(sharding))
 
@@ -140,10 +179,11 @@ def restore(ckpt_dir: str | Path, step: int | None = None,
     """Load (step, state): numpy leaves, bfloat16 leaves as
     `torch.bfloat16` tensors on the CPU.  `shardings`: optional pytree
     congruent with the state — each leaf a device (the leaf becomes a
-    tensor there) or a (`launch.mesh.make_pop_mesh` mesh, member spec)
+    tensor there), a (`launch.mesh.make_pop_mesh` mesh, member spec)
     pair (the leaf split into member blocks over the mesh's devices):
     the elastic-rescale path, a checkpoint written at one shard count
-    placed onto another."""
+    placed onto another; or a (`launch.mesh.init_train_mesh` mesh,
+    PartitionSpec) pair: a DTensor placed by the spec."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)

@@ -66,6 +66,16 @@ def make_batch(cfg: DataConfig, step: int, host: int = 0,
     return batch
 
 
+def make_batch_rows(cfg: DataConfig, step: int, start: int,
+                    stop: int) -> dict:
+    """Rows [start, stop) of global batch `step` (`make_batch` with one
+    host): a rank of a training mesh builds its own rows of the same
+    batch that one device trains on, so a sharded run and an unsharded
+    one see the same data.  (`make_batch`'s host shards are draws of
+    their own, not rows of the one-host batch.)"""
+    return {k: v[start:stop] for k, v in make_batch(cfg, step).items()}
+
+
 def data_config_for(arch: ArchConfig, shape: ShapeConfig,
                     seed: int = 0) -> DataConfig:
     return DataConfig(seed=seed, vocab_size=arch.vocab_size,

@@ -10,6 +10,10 @@ The co-search entry points (`dosa_search`, `fleet_search`,
 `run_request`, the service and its HTTP server) also take a sequence
 of devices: the population ("pop") mesh its shards run on
 (`resolve_devices`, `launch.mesh.make_pop_mesh`).
+
+Training over several cards runs one process a card
+(`launch.mesh.init_train_mesh`); `rank_device` names the card of a
+process.
 """
 from __future__ import annotations
 
@@ -49,3 +53,22 @@ def resolve_devices(device=DEFAULT_DEVICE) -> tuple[torch.device, ...]:
             raise ValueError("an empty device sequence names no device")
         return tuple(resolve_device(d) for d in device)
     return (resolve_device(device),)
+
+
+def rank_device(device_type: str, rank: int, local_rank: int | None = None
+                ) -> torch.device:
+    """The device of process `rank` in a training mesh: the CPU for
+    ``"cpu"``; for ``"cuda"`` the card of its local rank (`local_rank`,
+    as torchrun's ``LOCAL_RANK`` gives it, else `rank` modulo the
+    visible cards).  A CUDA request without a usable card raises."""
+    if device_type == "cpu":
+        return torch.device("cpu")
+    if device_type != "cuda":
+        raise ValueError(f"a training mesh runs on 'cuda' or 'cpu', not "
+                         f"{device_type!r}")
+    resolve_device("cuda")
+    n = torch.cuda.device_count()
+    index = rank % n if local_rank is None else local_rank
+    if not 0 <= index < n:
+        raise RuntimeError(f"local rank {index} has no card: {n} visible")
+    return torch.device("cuda", index)

@@ -15,8 +15,13 @@ per device:
     leaf's bytes divided dim by dim (ceil) by the mesh axes its
     sanitized PartitionSpec names.  There is no compiler here, so
     `temp_size_in_bytes` and `generated_code_size_in_bytes` are absent.
-  * `collectives`: None.  Collective bytes need the multi-GPU path
-    (ROADMAP queue 1 item 7); no record shows a census of zeros.
+  * `collectives`: None.  The production 16x16 and 2x16x16 meshes
+    `run_cell` counts have no machine here, and no record shows a
+    census of zeros.  Over a training mesh of processes,
+    `measure(..., process_mesh=)` fills its count's `collectives`: the
+    bytes each device sends through collectives, by kind, under the
+    keys of `parse_collective_bytes`, counted by `CollectiveCensus`
+    over one real training step.
 
 The meta step allocates and launches nothing, on any machine: the
 flash kernels are custom ops whose fake kernels give shapes and whose
@@ -32,17 +37,21 @@ import math
 import re
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves as _pytree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
 from ..configs import get_config
 from ..configs.base import SHAPES, ArchConfig, ShapeConfig, shape_applicable
+from ..data.pipeline import data_config_for, make_batch_rows
+from ..device import canonical_device
 from ..models.lm import LM, build_model, param_specs
 from ..obs import telemetry as _obs
 from ..sharding.rules import P, PartitionSpec, sanitize_spec, set_parallelism
 from ..train.optimizer import OptConfig
-from ..train.train_step import TrainConfig, make_train_step, opt_state_specs
+from ..train.train_step import (TrainConfig, init_train_state,
+                                make_train_step, opt_state_specs, rank_rows)
 from .mesh import make_production_mesh, mesh_devices, mesh_name
 
 DTYPE_BYTES = {"f32": 4, "bf16": 2, "f16": 2, "s32": 4, "u32": 4,
@@ -79,6 +88,61 @@ def parse_collective_bytes(hlo_text: str) -> dict[str, float]:
     out["total"] = sum(v for k, v in out.items()
                        if k in COLLECTIVE_FACTOR)
     return out
+
+
+# The collectives DTensor issues, by (namespace, op name), and the HLO
+# kind `parse_collective_bytes` files each under: the `_c10d_functional`
+# ops, and on NCCL the all-to-all of a shard moved between tensor dims
+# (`_dtensor.shard_dim_alltoall`, Ulysses' resharding of q).
+_COLLECTIVE_KINDS = {
+    ("_c10d_functional", "all_gather_into_tensor"): "all-gather",
+    ("_c10d_functional", "all_gather_into_tensor_coalesced"): "all-gather",
+    ("_c10d_functional", "reduce_scatter_tensor"): "reduce-scatter",
+    ("_c10d_functional", "reduce_scatter_tensor_coalesced"):
+        "reduce-scatter",
+    ("_c10d_functional", "all_reduce"): "all-reduce",
+    ("_c10d_functional", "all_reduce_coalesced"): "all-reduce",
+    ("_c10d_functional", "all_to_all_single"): "all-to-all",
+    ("_dtensor", "shard_dim_alltoall"): "all-to-all",
+}
+
+
+class CollectiveCensus(TorchDispatchMode):
+    """While active, counts the collectives DTensor's redistributions
+    issue in this process (`_COLLECTIVE_KINDS`), as
+    `parse_collective_bytes` counts the partitioned HLO's:
+    per kind, each op's output bytes times `COLLECTIVE_FACTOR` (the
+    gathered tensor of an all-gather, the scattered block of a
+    reduce-scatter, twice the tensor of an all-reduce), plus `n_ops`
+    and `total`: bytes per device.  An operation on DTensors is handed
+    back (NotImplemented) so that DTensor runs it and the mode sees the
+    collectives it turns into.  A gloo group has no all-to-all, so
+    DTensor gathers there instead, and the census says so."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = {k: 0.0 for k in COLLECTIVE_FACTOR}
+        self.n_ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        kind = _COLLECTIVE_KINDS.get(
+            (func.namespace, func._schema.name.split("::")[-1]))
+        if kind is not None:
+            moved = sum(tensor_bytes(t) for t in _pytree_leaves(out)
+                        if isinstance(t, torch.Tensor))
+            self.bytes[kind] += moved * COLLECTIVE_FACTOR[kind]
+            self.n_ops += 1
+        return out
+
+    def result(self) -> dict[str, float]:
+        """The counts under `parse_collective_bytes`' keys."""
+        out = dict(self.bytes)
+        out["n_ops"] = self.n_ops
+        out["total"] = sum(self.bytes.values())
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -174,13 +238,15 @@ class OpBytes(TorchDispatchMode):
 class StepCount:
     """One step's counts on one device (no mesh division): FLOPs and
     bytes moved, each in total and by op name, and the step's arguments
-    and outputs."""
+    and outputs; `collectives`, a real step's `CollectiveCensus` over a
+    training mesh of processes, else None."""
     flops: int
     flops_by_op: dict
     bytes_accessed: int
     bytes_by_op: dict
     args: tuple
     outputs: tuple
+    collectives: dict | None = None
 
 
 def flops_by_op(counter: FlopCounterMode) -> dict[str, int]:
@@ -329,15 +395,41 @@ class CellResult:
         return dataclasses.asdict(self)
 
 
+def census_train_step(cfg: ArchConfig, shape: ShapeConfig, process_mesh,
+                      tcfg: TrainConfig, seed: int = 0) -> dict:
+    """`CollectiveCensus` of one real training step of `cfg` at `shape`
+    over `process_mesh` (a training mesh this process belongs to,
+    `launch.mesh.init_train_mesh`): the model drawn on this rank's
+    device from `seed` and placed by its specs, this rank's rows of the
+    pipeline's batch `seed`.  Every rank of the mesh must call it."""
+    dev = canonical_device(process_mesh.device_type)
+    model = build_model(cfg, device=dev, mesh=process_mesh,
+                        generator=torch.Generator(dev).manual_seed(seed))
+    step, _ = make_train_step(model, tcfg, process_mesh)
+    params, opt_state = init_train_state(model, tcfg, process_mesh)
+    rows = make_batch_rows(data_config_for(cfg, shape, seed), 0,
+                           *rank_rows(process_mesh, shape.global_batch))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in rows.items()}
+    with CollectiveCensus() as census:
+        step(params, opt_state, batch)
+    return census.result()
+
+
 def measure(cfg: ArchConfig, shape: ShapeConfig, mesh: dict[str, int],
-            train_overrides: dict | None = None) -> tuple[StepCount, dict]:
+            train_overrides: dict | None = None,
+            process_mesh=None) -> tuple[StepCount, dict]:
     """(count, memory) of `cfg` at `shape` on `mesh`, traced on the meta
-    device: the counter `run_cell` and the card comparison share."""
+    device: the counter `run_cell` and the card comparison share.  With
+    `process_mesh` (a training step over it) the count's `collectives`
+    is the census of one real step there (`census_train_step`)."""
     model = build_model(cfg, device="meta")
     n_dev = mesh_devices(mesh)
     batch_shardable = shape.global_batch % (n_dev // mesh["model"]) == 0
     tcfg = TrainConfig(**{"opt": OptConfig(), **(train_overrides or {})})
     count = count_step(model, shape.mode, shape, tcfg)
+    if process_mesh is not None and shape.mode == "train":
+        count.collectives = census_train_step(cfg, shape, process_mesh,
+                                              tcfg)
     return count, memory_per_device(model, shape.mode, shape, mesh,
                                     batch_shardable, count)
 

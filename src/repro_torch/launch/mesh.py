@@ -3,6 +3,8 @@
 Single pod:  (16, 16)      axes ("data", "model")        = 256 devices
 Multi-pod:   (2, 16, 16)   axes ("pod", "data", "model") = 512 devices
 Population:  (shards,)     axis  ("pop",)  — co-search population axis
+Training:    (pod, data, model) axes ("pod", "data", "model"), one
+             process a card (`init_train_mesh`)
 
 The port of `repro.launch.mesh`.  The production shapes are tables
 that hold no devices: the dry-run (`launch.cells`) reads them to divide
@@ -11,17 +13,24 @@ the device count.  The population mesh and the host mesh hold real
 devices (`DeviceMesh`), named as the co-search entry points name them
 (`device.resolve_devices`): a single device is one device (``"cuda"``
 the current card), and a sequence may repeat a device, so one card or
-the CPU can hold several shards.
+the CPU can hold several shards.  The training mesh is a
+`torch.distributed` DeviceMesh over processes: NCCL between cards,
+gloo between CPU processes.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
+import os
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
 
-from ..device import DEFAULT_DEVICE, resolve_devices
+from ..device import DEFAULT_DEVICE, rank_device, resolve_devices
+
+TRAIN_AXES = ("pod", "data", "model")
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> dict[str, int]:
@@ -107,3 +116,84 @@ def auto_pop_shards(members: int, requested: int | None = None,
         return requested
     return max(s for s in range(1, min(members, n_dev) + 1)
                if members % s == 0)
+
+
+def parse_mesh(text: str) -> tuple[int, int, int]:
+    """"1x2x2" -> (1, 2, 2): the POD x DATA x MODEL sizes."""
+    parts = text.lower().split("x")
+    if len(parts) != len(TRAIN_AXES) or not all(p.isdigit() for p in parts):
+        raise ValueError(f"mesh {text!r} is not POD x DATA x MODEL, "
+                         "e.g. 1x2x2")
+    shape = tuple(int(p) for p in parts)
+    if min(shape) < 1:
+        raise ValueError(f"mesh {text!r} has an empty axis")
+    return shape
+
+
+def init_train_mesh(shape, *, device: str = DEFAULT_DEVICE,
+                    init_method: str = "env://",
+                    world_size: int | None = None, rank: int | None = None):
+    """The training mesh of this process: a `torch.distributed`
+    DeviceMesh of `shape` (pod, data, model) over axes ("pod", "data",
+    "model"), one process a device.  An axis of size 1 shards nothing
+    and is left out of the DeviceMesh (a mesh of one device keeps
+    "data"): the specs are sanitized against the axes present, as the
+    reference's single-pod mesh has no "pod", and DTensor plans each
+    new operation over every mesh dim, which cost a reduced Qwen3's
+    first step 21 s on a CPU rank of a (2, 2, 2) mesh and 1.4-1.8 s
+    over one dim of size 2 or 4 (then 0.2 s a step either way).  It
+    joins the process group from `init_method`
+    (``tcp://localhost:<port>``, or torchrun's ``env://``),
+    `world_size` and `rank` (torchrun's ``WORLD_SIZE`` and ``RANK``
+    when None) unless one is already up.  On ``"cuda"`` the
+    backend is NCCL and the process's card is ``cuda:<local rank>``
+    (`device.rank_device`), on ``"cpu"`` gloo.  A CUDA request without
+    a card or without NCCL raises: nothing falls back to gloo or to the
+    CPU.  `close_train_mesh` leaves the group."""
+    shape = tuple(int(n) for n in shape)
+    if len(shape) != len(TRAIN_AXES):
+        raise ValueError(f"a training mesh has {len(TRAIN_AXES)} axes "
+                         f"{TRAIN_AXES}, got {shape}")
+    dev_type = torch.device(device).type
+    if dev_type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("a cuda training mesh needs a card; "
+                               "torch.cuda.is_available() is False")
+        if not dist.is_nccl_available():
+            raise RuntimeError("a cuda training mesh needs NCCL, which "
+                               "this torch build lacks")
+        backend = "nccl"
+    elif dev_type == "cpu":
+        backend = "gloo"
+    else:
+        raise ValueError(f"a training mesh runs on 'cuda' or 'cpu', not "
+                         f"{dev_type!r}")
+    if world_size is None:
+        world_size = int(os.environ["WORLD_SIZE"])
+    if rank is None:
+        rank = int(os.environ["RANK"])
+    if math.prod(shape) != world_size:
+        raise ValueError(f"mesh {shape} needs {math.prod(shape)} "
+                         f"processes, the world has {world_size}")
+    local = os.environ.get("LOCAL_RANK")
+    dev = rank_device(dev_type, rank, None if local is None else int(local))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        dist.init_process_group(
+            backend, init_method=init_method, world_size=world_size,
+            rank=rank, device_id=dev if dev.type == "cuda" else None)
+    elif dist.get_backend() != backend:
+        raise RuntimeError(f"the process group runs {dist.get_backend()}, "
+                           f"a {dev_type} mesh needs {backend}")
+    kept = [(n, a) for n, a in zip(shape, TRAIN_AXES) if n > 1] \
+        or [(1, "data")]
+    return init_device_mesh(dev_type, tuple(n for n, _ in kept),
+                            mesh_dim_names=tuple(a for _, a in kept))
+
+
+def close_train_mesh() -> None:
+    """Leave the process group `init_train_mesh` joined."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+

@@ -8,6 +8,21 @@ It trains on the card unless `--device cpu` is given (there the flash
 attention runs its plain versions).  Fault tolerance (checkpoint/restart,
 straggler logging) comes from `runtime.fault_tolerance`; a run resumes
 from the newest checkpoint in `--ckpt-dir`.
+
+With `--mesh POD x DATA x MODEL` it is the reference's "runs under the
+production mesh with the shardings from the model's spec tree", in
+torch one process a card: each process joins the group
+(`launch.mesh.init_train_mesh`: NCCL on cards, gloo on the CPU) and
+trains its shards of the model (the dense family).  `--dist-init`,
+`--world-size` and `--rank` default to torchrun's environment, so
+either
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.train --mesh 1x2x2 ...
+
+or one process per rank with `--dist-init tcp://localhost:PORT
+--world-size 4 --rank R` runs it.  Without `--mesh` it trains on one
+device with no process group.
 """
 from __future__ import annotations
 
@@ -18,11 +33,13 @@ import torch
 
 from ..configs import get_config
 from ..data.pipeline import DataConfig
-from ..device import DEFAULT_DEVICE, resolve_device
+from ..device import DEFAULT_DEVICE, canonical_device, resolve_device
 from ..models.lm import build_model
 from ..runtime.fault_tolerance import DriverConfig, train_with_recovery
 from ..train.optimizer import OptConfig
-from ..train.train_step import TrainConfig, make_train_step
+from ..train.train_step import (TrainConfig, init_train_state,
+                                make_train_step)
+from .mesh import close_train_mesh, init_train_mesh, parse_mesh
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -39,6 +56,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=DEFAULT_DEVICE)
+    ap.add_argument("--mesh", type=parse_mesh, default=None,
+                    help="POD x DATA x MODEL, e.g. 1x2x2: train over that "
+                         "mesh, one process a device")
+    ap.add_argument("--dist-init", default="env://",
+                    help="the process group's init method (with --mesh)")
+    ap.add_argument("--world-size", type=int, default=None,
+                    help="processes in the group (torchrun's WORLD_SIZE)")
+    ap.add_argument("--rank", type=int, default=None,
+                    help="this process's rank (torchrun's RANK)")
     return ap.parse_args(argv)
 
 
@@ -46,20 +72,31 @@ def run(args: argparse.Namespace,
         fault_hook: Callable[[int], None] | None = None,
         log: Callable[[str], None] = print):
     """Build the model on `args.device` from `args.seed` and train it
-    through `train_with_recovery`.  Returns (model, report)."""
-    dev = resolve_device(args.device)
+    through `train_with_recovery`; with `args.mesh`, this process's
+    shards of it over the training mesh (joined here, and left only by
+    `main`).  Returns (model, report)."""
+    mesh = None
+    if args.mesh is not None:
+        mesh = init_train_mesh(args.mesh, device=args.device,
+                               init_method=args.dist_init,
+                               world_size=args.world_size, rank=args.rank)
+        dev = canonical_device(mesh.device_type)
+    else:
+        dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
-    model = build_model(cfg, device=dev,
+    model = build_model(cfg, device=dev, mesh=mesh,
                         generator=torch.Generator(dev).manual_seed(args.seed))
-    params = model.params
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"[train] {cfg.name}{' (reduced)' if args.reduced else ''}: "
-        f"{n_params/1e6:.1f}M params, on {dev}")
+    where = f"{dev}" if mesh is None else \
+        f"{'x'.join(map(str, args.mesh))} mesh of {mesh.device_type}"
+    if mesh is None or mesh.get_rank() == 0:
+        log(f"[train] {cfg.name}{' (reduced)' if args.reduced else ''}: "
+            f"{n_params/1e6:.1f}M params, on {where}")
 
     tcfg = TrainConfig(opt=OptConfig(lr=args.lr, warmup_steps=20),
                        microbatches=args.microbatches)
-    train_step, init_opt = make_train_step(model, tcfg)
-    opt_state = init_opt(tcfg.opt, params)
+    train_step, _ = make_train_step(model, tcfg, mesh)
+    params, opt_state = init_train_state(model, tcfg, mesh)
 
     data_cfg = DataConfig(seed=args.seed, vocab_size=cfg.vocab_size,
                           seq_len=args.seq, global_batch=args.batch,
@@ -75,10 +112,17 @@ def run(args: argparse.Namespace,
 
 
 def main(argv=None) -> None:
-    _, report = run(parse_args(argv))
-    print(f"[train] done: {report.steps_run} steps, "
-          f"{report.restarts} restarts, "
-          f"loss {report.losses[0]:.3f} -> {report.losses[-1]:.3f}")
+    args = parse_args(argv)
+    try:
+        _, report = run(args)
+        if args.mesh is None or torch.distributed.get_rank() == 0:
+            print(f"[train] done: {report.steps_run} steps, "
+                  f"{report.restarts} restarts, "
+                  f"loss {report.losses[0]:.3f} -> "
+                  f"{report.losses[-1]:.3f}")
+    finally:
+        if args.mesh is not None:
+            close_train_mesh()
 
 
 if __name__ == "__main__":

@@ -6,9 +6,11 @@ Functions take a nested dict of tensors (the reference's parameter
 tree) and activations.  Parameters live in `param_dtype` and are cast
 to `compute_dtype` at use, as in the reference.  Beside each init, a
 `*_specs` function gives the reference's PartitionSpec tree for the
-same leaves (`sharding.rules`), which the dry-run reads to divide the
-bytes per device; the model itself runs on one device, so the
-reference's activation constraints (`constrain`) have no counterpart.
+same leaves (`sharding.rules`): the dry-run reads them to divide the
+bytes per device, and training over several cards places each leaf by
+them.  The reference's activation constraints are kept where it puts
+them (`sharding.rules.constrain`): they reshard a DTensor and return a
+plain tensor unchanged, so the model runs the same code on one device.
 Parameter init draws from an explicit `torch.Generator` on the
 parameters' device; it gives other numbers than the reference's
 `jax.random` keys (`convert.lm_params_from_numpy` carries the
@@ -17,19 +19,28 @@ reference's parameters over).
 `flash_attention` runs the Hopper flash kernel on CUDA tensors and its
 plain version on CPU tensors; where q, k or v needs a gradient it goes
 through the kernels' `torch.autograd.Function`
-(`kernels.flash_attention.attention`) on either device.
+(`kernels.flash_attention.attention`) on either device.  On DTensors
+(a training mesh) it runs the same on each rank's local shards under
+`local_map`: q sequence-sharded over "model" (Ulysses), K and V whole.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention.flash_attention import (attend, attention,
                                                       flash_fwd)
-from ..sharding.rules import MODEL_AXIS_SIZE, P, spec
+from ..sharding.rules import (ACT_KV_GATHERED, ACT_Q_ULYSSES, ACT_TOKENS,
+                              MODEL_AXIS_SIZE, P, constrain, fsdp_gather,
+                              local_range, spec)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -43,16 +54,35 @@ def dtype_of(name: str) -> torch.dtype:
 # Parameter initialization helpers
 # ---------------------------------------------------------------------------
 
+_PLACE_DRAWN: contextvars.ContextVar = contextvars.ContextVar(
+    "place_drawn", default=None)
+
+
+@contextlib.contextmanager
+def placing_drawn(place: Callable[[torch.Tensor], torch.Tensor]):
+    """While active, every `dense_init` hands its drawn leaf to `place`
+    and returns what `place` returns, so a caller can shard each leaf
+    (and free the whole one) before the next is drawn."""
+    token = _PLACE_DRAWN.set(place)
+    try:
+        yield
+    finally:
+        _PLACE_DRAWN.reset(token)
+
+
 def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
                scale: float | None = None, device=None) -> torch.Tensor:
     """N(0, scale^2) of `shape` on `device` (the generator's unless
     given; ``"meta"`` gives shapes only); `scale` defaults to
-    1/sqrt(fan_in), fan_in = shape[-2] (shape[0] for 1-D)."""
+    1/sqrt(fan_in), fan_in = shape[-2] (shape[0] for 1-D).  Under
+    `placing_drawn` the leaf goes through its `place`."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[0]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     x = torch.randn(tuple(shape), generator=gen,
                     device=gen.device if device is None else device)
-    return (x * scale).to(dtype)
+    x = (x * scale).to(dtype)
+    place = _PLACE_DRAWN.get()
+    return x if place is None else place(x)
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +153,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     card the forward kernel with its log-sum-exp and the backward
     kernel, on the CPU their plain versions.  `attend` alone returns a
     tensor with no gradient, so it never serves such a call."""
+    if isinstance(q, DTensor):
+        return _local_flash_attention(q, k, v, causal=causal, chunk=chunk,
+                                      q_offset=q_offset)
     hq, hkv, sk = q.shape[1], k.shape[1], k.shape[2]
     if hq % hkv:
         raise ValueError(f"query heads {hq} not a multiple of KV heads "
@@ -139,6 +172,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_fwd(q, k, v, causal, q_offset, False)[0]
     return attend(q.contiguous(), k.contiguous(), v.contiguous(),
                   causal=causal, q_offset=q_offset)
+
+
+def _local_flash_attention(q, k, v, *, causal: bool, chunk: int,
+                           q_offset: int):
+    """`flash_attention` on DTensors: each rank runs it on its local
+    shards (`local_map`) and the output keeps q's placements.  q may be
+    sharded over the batch (dim 0) and the sequence (dim 2), k and v
+    over the batch only, alike.  A rank's first query row (its
+    `local_range` start) joins `q_offset`, so the causal mask sees
+    global positions.  Each rank's dK and dV cover its own query rows only, so
+    their gradients are declared ``Partial`` over the mesh dims that
+    shard q's sequence: DTensor sums them there."""
+    mesh = q.device_mesh
+    q_pl, kv_pl = tuple(q.placements), tuple(k.placements)
+    if tuple(v.placements) != kv_pl:
+        raise ValueError(f"k placed {kv_pl}, v {tuple(v.placements)}")
+    for pq, pk in zip(q_pl, kv_pl):
+        if pq not in (Replicate(), Shard(0), Shard(2)) \
+                or pk not in (Replicate(), Shard(0)) \
+                or (pq == Shard(0)) != (pk == Shard(0)):
+            raise ValueError(f"attention on local shards takes q over the "
+                             f"batch and sequence and k, v over the batch "
+                             f"alike; got q {q_pl}, k and v {kv_pl}")
+    kv_grad = tuple(Partial() if pq == Shard(2) else pk
+                    for pq, pk in zip(q_pl, kv_pl))
+    offset = q_offset + local_range(mesh, q_pl, 2, q.shape[2])[0]
+
+    def core(ql, kl, vl):
+        return flash_attention(ql, kl, vl, causal=causal, chunk=chunk,
+                               q_offset=offset)
+
+    return local_map(core, out_placements=(q_pl,),
+                     in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad),
+                     device_mesh=mesh)(q, k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -192,8 +260,29 @@ def attention_specs(cfg: ArchConfig) -> dict:
 
 def _split_heads(x: torch.Tensor, n_heads: int,
                  head_dim: int) -> torch.Tensor:
+    """(B, S, H * hd) -> (B, H, S, hd).  A DTensor whose last dim is
+    sharded over more ways than `n_heads` divides by is gathered there
+    first, so that every shard holds whole heads."""
     b, s, _ = x.shape
+    if isinstance(x, DTensor):
+        ways = math.prod(x.device_mesh.size(i)
+                         for i, p in enumerate(x.placements)
+                         if p == Shard(x.dim() - 1))
+        if n_heads % ways:
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if p == Shard(x.dim() - 1) else p
+                for p in x.placements])
     return x.reshape(b, s, n_heads, head_dim).transpose(1, 2)
+
+
+def merge_heads(out: torch.Tensor) -> torch.Tensor:
+    """(B, H, S, hd) attention output -> (B, S, H * hd), constrained to
+    `ACT_TOKENS`: over a training mesh the rows Ulysses split over
+    "model" are gathered again, so the output projection, its
+    gradients and the residual stream see tokens sharded over the
+    batch alone, where DTensor plans its products quickly."""
+    b, h, s, hd = out.shape
+    return constrain(out.transpose(1, 2).reshape(b, s, h * hd), ACT_TOKENS)
 
 
 def attention_qkv(params: dict, cfg: ArchConfig, x: torch.Tensor,
@@ -201,9 +290,9 @@ def attention_qkv(params: dict, cfg: ArchConfig, x: torch.Tensor,
                   kv_positions: torch.Tensor, use_rope: bool = True):
     """Project to (q, k, v) head tensors: (B, H, S, hd)."""
     cdt = dtype_of(cfg.compute_dtype)
-    q = x @ params["wq"].to(cdt)
-    k = kv_x @ params["wk"].to(cdt)
-    v = kv_x @ params["wv"].to(cdt)
+    q = x @ fsdp_gather(params["wq"]).to(cdt)
+    k = kv_x @ fsdp_gather(params["wk"]).to(cdt)
+    v = kv_x @ fsdp_gather(params["wv"]).to(cdt)
     if cfg.qkv_bias:
         q = q + params["bq"].to(cdt)
         k = k + params["bk"].to(cdt)
@@ -217,6 +306,10 @@ def attention_qkv(params: dict, cfg: ArchConfig, x: torch.Tensor,
     if use_rope:
         q = rope(q, positions[:, None, :], cfg.rope_theta)
         k = rope(k, kv_positions[:, None, :], cfg.rope_theta)
+    # Ulysses resharding: q sequence-sharded over "model", K/V gathered.
+    q = constrain(q, ACT_Q_ULYSSES)
+    k = constrain(k, ACT_KV_GATHERED)
+    v = constrain(v, ACT_KV_GATHERED)
     return q, k, v
 
 
@@ -237,9 +330,8 @@ def attention_apply(params: dict, cfg: ArchConfig, x: torch.Tensor,
                             use_rope=not cross)
     out = flash_attention(q, k, v, causal=causal and not cross,
                           chunk=min(chunk, k.shape[2]))
-    b, h, s, hd = out.shape
-    out = out.transpose(1, 2).reshape(b, s, h * hd)
-    return out @ params["wo"].to(dtype_of(cfg.compute_dtype))
+    return merge_heads(out) @ fsdp_gather(params["wo"]).to(
+        dtype_of(cfg.compute_dtype))
 
 
 def attention_decode(params: dict, cfg: ArchConfig, x: torch.Tensor,
@@ -315,10 +407,11 @@ def _activate(name: str, u: torch.Tensor,
 
 def mlp_apply(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     cdt = dtype_of(cfg.compute_dtype)
-    u = x @ params["w_up"].to(cdt)
-    g = x @ params["w_gate"].to(cdt) if "w_gate" in params else None
+    u = x @ fsdp_gather(params["w_up"]).to(cdt)
+    g = x @ fsdp_gather(params["w_gate"]).to(cdt) if "w_gate" in params \
+        else None
     h = _activate(cfg.activation, u, g)
-    return h @ params["w_down"].to(cdt)
+    return h @ fsdp_gather(params["w_down"]).to(cdt)
 
 
 # ---------------------------------------------------------------------------
@@ -350,10 +443,17 @@ def embed(params: dict, cfg: ArchConfig,
           tokens: torch.Tensor) -> torch.Tensor:
     """Rows of the token table in the compute type.  The reference
     casts the whole table, then gathers; gathering first gives the same
-    values without a copy of the table."""
-    return params["tok"][tokens].to(dtype_of(cfg.compute_dtype))
+    values without a copy of the table.  Over a training mesh the table
+    is gathered whole first (`constrain` to `P()`): DTensor's
+    vocab-parallel lookup leaves a masked partial sum whose backward
+    does not meet the residual stream's partial-sum gradient, and
+    indexing's backward has no plan over a mesh in every torch version,
+    so the lookup is `F.embedding` on the whole table and its gradient
+    is reduce-scattered back to the shards."""
+    return F.embedding(tokens, constrain(params["tok"], P())).to(
+        dtype_of(cfg.compute_dtype))
 
 
 def unembed(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     # logits in f32 for a stable softmax-xent
-    return (x @ params["unembed"].to(x.dtype)).float()
+    return (x @ fsdp_gather(params["unembed"]).to(x.dtype)).float()

@@ -20,6 +20,12 @@ for the VLM's cross-attention cadence.  Three entry points:
     serve step against the KV and SSM caches.
 The serving entry points run under `torch.no_grad`.
 
+Under a training mesh (`launch.mesh.init_train_mesh`; the dense family
+only, ROADMAP item 7) each parameter is a DTensor placed by
+`param_specs` (`LM(..., mesh=)` draws them leaf by leaf,
+`init_params_placed`), and `constrain` reshards the token activations
+where the reference constrains them.
+
 Batches hold `tokens` (B, S), or `frames` (B, S, D) for the audio
 encoder (whose front-end is a stub, as in the reference), and
 `image_embeds` (B, n_image_tokens, D) for the vision-language model.
@@ -27,15 +33,18 @@ encoder (whose front-end is a stub, as in the reference), and
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import DEFAULT_DEVICE, resolve_device
-from ..sharding.rules import P, PartitionSpec
+from ..sharding.rules import (ACT_TOKENS, P, PartitionSpec, constrain,
+                              distribute, distribute_tree, fsdp_gather)
 from . import layers as L
 from . import moe as M
 from . import ssm as S
@@ -148,6 +157,58 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
                    for si, slot in enumerate(slots)}}
 
 
+# The families whose training runs over a mesh of several cards.
+MESH_FAMILIES = ("dense",)
+
+
+def check_mesh_family(cfg: ArchConfig, mesh) -> None:
+    """Raise unless `cfg` may train over `mesh`: a mesh of one device
+    takes every family, a larger one only `MESH_FAMILIES`."""
+    if mesh is not None and mesh.size() > 1 \
+            and cfg.family not in MESH_FAMILIES:
+        raise ValueError(
+            f"{cfg.name}: the {cfg.family} family does not train over a "
+            f"mesh of several cards yet (ROADMAP item 7); only "
+            f"{', '.join(MESH_FAMILIES)} models do")
+
+
+def _leaves_with_paths(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves_with_paths(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def init_params_placed(cfg: ArchConfig, gen: torch.Generator, mesh) -> dict:
+    """`init_params(cfg, gen)` with every leaf a DTensor on `mesh`,
+    placed by `param_specs`.  The leaves are drawn in the single-device
+    order from the same generator, so they equal the single-device
+    draw, and each is sharded as soon as it is drawn: the whole leaf is
+    freed before the next, so the peak is one whole leaf above the
+    shards.  A pass on the meta device tells which spec each draw
+    takes."""
+    drawn: list = []
+    with L.placing_drawn(lambda t: drawn.append(t) or t):
+        abstract = init_params(cfg, torch.Generator("cpu"), device="meta")
+    order = {id(t): i for i, t in enumerate(drawn)}
+    paths: list = [None] * len(drawn)
+    for path, leaf in _leaves_with_paths(abstract):
+        if id(leaf) in order:
+            paths[order[id(leaf)]] = path
+    specs = param_specs(cfg)
+    next_spec = iter([_at(specs, path) for path in paths])
+    with L.placing_drawn(lambda t: distribute(t, mesh, next(next_spec))):
+        params = init_params(cfg, gen)
+    return distribute_tree(params, specs, mesh)
+
+
 def abstract_params(cfg: ArchConfig) -> dict:
     """`init_params`' tree on the meta device: names, shapes and types
     without storage."""
@@ -200,14 +261,31 @@ def _slot_apply(p: dict, cfg: ArchConfig, slot: SlotSpec, x: torch.Tensor,
             k, v = kv_out
         out = L.flash_attention(q, k, v, causal=causal,
                                 chunk=min(1024, k.shape[2]))
-        bs, hh, ss, hd = out.shape
-        out = out.transpose(1, 2).reshape(bs, ss, hh * hd)
-        x = x + out @ p["attn"]["wo"].to(h.dtype)
+        x = x + L.merge_heads(out) @ fsdp_gather(p["attn"]["wo"]).to(
+            h.dtype)
     else:
         x = x + S.ssd_forward(p["ssm"], cfg, h)
     if slot.cross:
         x = x + _cross_attention(p, cfg, x, image_embeds)
-    return _ffn(p, cfg, x)
+    x, aux = _ffn(p, cfg, x)
+    return constrain(x, ACT_TOKENS), aux
+
+
+def _unbind_periods(t: torch.Tensor) -> tuple:
+    """A stacked leaf's periods (`t.unbind(0)`).  A DTensor (its period
+    axis is never sharded) is unbound on its local tensor and each
+    period made a DTensor again, so the backward stacks each rank's
+    local gradients with no redistribution planned in between: a whole
+    stacked leaf is 7.88 GiB of float32 for Gemma-7B's FFN."""
+    if not isinstance(t, DTensor):
+        return t.unbind(0)
+    pl = [Shard(p.dim - 1) if isinstance(p, Shard) else p
+          for p in t.placements]
+    shape = t.shape[1:]
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return tuple(DTensor.from_local(u, t.device_mesh, pl, run_check=False,
+                                    shape=shape, stride=stride)
+                 for u in t.to_local().unbind(0))
 
 
 def _tree_map(fn, tree):
@@ -241,35 +319,65 @@ class _ParamTree(nn.Module):
 # ---------------------------------------------------------------------------
 
 class LM(nn.Module):
-    """The LM on one device.  Parameters come from `params` (a tree like
-    `init`'s, e.g. from `convert.lm_params_from_numpy`) or else are
-    drawn by `init` from `generator` (seed 0 on `device` when none is
-    given).  On the meta device the parameters are `abstract_params`:
-    shapes without storage, for the dry-run."""
+    """The LM on one device, or over a training `mesh`.  Parameters come
+    from `params` (a tree like `init`'s, e.g. from
+    `convert.lm_params_from_numpy`) or else are drawn by `init` from
+    `generator` (seed 0 on `device` when none is given).  On the meta
+    device the parameters are `abstract_params`: shapes without
+    storage, for the dry-run.  With `mesh` (`launch.mesh.
+    init_train_mesh`; `device` is this process's device in it) every
+    parameter is a DTensor placed by `param_specs`: drawn leaf by leaf
+    (`init_params_placed`), or `params` placed (`shard`)."""
 
     def __init__(self, cfg: ArchConfig, device=DEFAULT_DEVICE,
                  generator: torch.Generator | None = None,
-                 params: dict | None = None):
+                 params: dict | None = None, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.slots = period_layout(cfg)
         self.n_periods = cfg.n_layers // len(self.slots)
         self.device = resolve_device(device)
+        self.mesh = None
+        check_mesh_family(cfg, mesh)
         if params is None and self.device.type == "meta":
             params = abstract_params(cfg)
         elif params is None:
             if generator is None:
                 generator = torch.Generator(self.device).manual_seed(0)
-            params = self.init(generator)
+            if mesh is not None:
+                self._check_generator(generator)
+                params = init_params_placed(cfg, generator, mesh)
+                self.mesh = mesh
+            else:
+                params = self.init(generator)
         self.weights = _ParamTree(params)
+        if mesh is not None and self.mesh is None:
+            self.shard(mesh)
+
+    def shard(self, mesh) -> None:
+        """Place the parameters over the training `mesh` by
+        `param_specs` (each a DTensor; each rank keeps its shards and
+        the whole tensors go).  A model already on `mesh` is left as it
+        is; one on another mesh raises."""
+        if self.mesh is mesh:
+            return
+        if self.mesh is not None:
+            raise ValueError("the model is placed over another mesh")
+        check_mesh_family(self.cfg, mesh)
+        placed = distribute_tree(self.params, param_specs(self.cfg), mesh)
+        self.weights = _ParamTree(placed)
+        self.mesh = mesh
+
+    def _check_generator(self, gen: torch.Generator) -> None:
+        if resolve_device(gen.device) != self.device:
+            raise ValueError(f"generator on {gen.device}, model on "
+                             f"{self.device}")
 
     # ---- init ------------------------------------------------------------
     def init(self, gen: torch.Generator) -> dict:
         """A fresh parameter tree (`init_params`) drawn from `gen`, which
         must be on the model's device."""
-        if resolve_device(gen.device) != self.device:
-            raise ValueError(f"generator on {gen.device}, model on "
-                             f"{self.device}")
+        self._check_generator(gen)
         return init_params(self.cfg, gen)
 
     def abstract_init(self) -> tuple[dict, dict]:
@@ -312,7 +420,7 @@ class LM(nn.Module):
         else:
             x = L.embed(params["embed"], self.cfg, batch["tokens"])
         img = batch.get("image_embeds")
-        return x, None if img is None else img.to(cdt)
+        return constrain(x, ACT_TOKENS), None if img is None else img.to(cdt)
 
     # ---- forward over the stack -------------------------------------------
     def _period(self, period: dict, j: int, x: torch.Tensor,
@@ -335,7 +443,7 @@ class LM(nn.Module):
         once along its period axis, so the backward pass stacks the
         periods' gradients once; indexing `t[j]` per period would build
         a full-size zero gradient for every period and add them up."""
-        unbound = _tree_map(lambda t: t.unbind(0), params["blocks"])
+        unbound = _tree_map(_unbind_periods, params["blocks"])
         return [_tree_map(lambda u: u[j], unbound)
                 for j in range(self.n_periods)]
 
@@ -471,5 +579,6 @@ class LM(nn.Module):
 
 def build_model(cfg: ArchConfig, device=DEFAULT_DEVICE,
                 generator: torch.Generator | None = None,
-                params: dict | None = None) -> LM:
-    return LM(cfg, device=device, generator=generator, params=params)
+                params: dict | None = None, mesh=None) -> LM:
+    return LM(cfg, device=device, generator=generator, params=params,
+              mesh=mesh)

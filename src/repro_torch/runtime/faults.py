@@ -14,7 +14,10 @@ The PyTorch port of `repro.runtime.faults`, the same classification:
   Poison work is quarantined, never retried — one bad request must not
   exhaust a batch's restart budget or take sibling requests down.
 * **fatal** — programming errors (`AttributeError`, `TypeError`, ...)
-  and anything unrecognized: propagate immediately, loudly.
+  and anything unrecognized: propagate immediately, loudly.  So does a
+  failed collective (`torch.distributed.DistError`, `DistBackendError`
+  among them), though it is a RuntimeError: a retry on one rank leaves
+  the others of its group blocked in the collective (`FATAL_TYPES`).
 
 Deadlines (`Deadline`) and backoff (`backoff_s`) take an *injected*
 clock so engine-path code never reads the wall clock directly (rule
@@ -23,6 +26,8 @@ ND202); the serving layer defaults the clock at its boundary.
 from __future__ import annotations
 
 import dataclasses
+
+import torch.distributed as dist
 
 # Fault classes ------------------------------------------------------------
 
@@ -34,6 +39,11 @@ FATAL = "fatal"
 # error is a RuntimeError too and no retry clears it; the reference's
 # taxonomy is kept as it is (ROADMAP open question).
 TRANSIENT_TYPES = (RuntimeError, OSError, FloatingPointError)
+
+# Faults no retry on one process may answer: a collective failed, and
+# the other ranks of its group wait in it.  Checked before the
+# transient types they belong to.
+FATAL_TYPES = (dist.DistError,)
 
 # Deterministic-input suspects: retried once, then poison on an
 # identical re-failure (see module doc).
@@ -67,6 +77,8 @@ def classify(exc: BaseException, seen_before: bool = False) -> str:
     """Map one raised fault to its class.  `seen_before` says whether
     this exact `fault_signature` already failed a replay of the same
     work — which proves the failure deterministic."""
+    if isinstance(exc, FATAL_TYPES):
+        return FATAL
     if isinstance(exc, POISON_SUSPECT_TYPES) and not isinstance(
             exc, TRANSIENT_TYPES):
         return POISON if seen_before else TRANSIENT

@@ -15,11 +15,18 @@ Parallelism map:
   * EP:          MoE experts over "model"
   * SP:          long-context activations over "data" (sequence dim)
 
-The model specs place nothing yet (training runs on one card): the
-dry-run (`launch.cells`) reads them to divide each leaf's bytes per
-device.  `PartitionSpec` is the port's own: a tuple with one entry per
-tensor dim, each None (replicated), a mesh axis name, or a tuple of
-axis names, as `jax.sharding.PartitionSpec` holds them.
+`PartitionSpec` is the port's own: a tuple with one entry per tensor
+dim, each None (replicated), a mesh axis name, or a tuple of axis
+names, as `jax.sharding.PartitionSpec` holds them.  The dry-run
+(`launch.cells`) reads the model specs to divide each leaf's bytes per
+device.  Training over several cards places by them: one process a
+card over a ("pod", "data", "model") `torch.distributed` device mesh
+(`launch.mesh.init_train_mesh`), each parameter and optimizer moment a
+DTensor whose `placements` its spec gives (`distribute_tree`), and
+`constrain` reshards activations as the reference's
+`with_sharding_constraint` does.  Outside such a mesh (a plain tensor)
+`constrain` returns its argument: prefill, decode, serving and
+single-card training run the same code and move nothing.
 
 The "pop" axis does place tensors: `shard_map` runs a function once
 per member block of a population over a `launch.mesh.DeviceMesh`, one
@@ -34,6 +41,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 
@@ -373,3 +382,113 @@ def sanitize_spec(pspec: PartitionSpec, axis_names) -> PartitionSpec:
         else:
             out.append(entry if entry in axis_names else None)
     return P(*out)
+
+
+# ---------------------------------------------------------------------------
+# Training placements: PartitionSpecs over a torch.distributed device mesh
+# ---------------------------------------------------------------------------
+
+def placements(pspec: PartitionSpec, mesh) -> tuple:
+    """DTensor placements of a sanitized `pspec` over `mesh` (a
+    `torch.distributed` DeviceMesh with named dims): ``Shard(d)`` on
+    every mesh dim that tensor dim `d`'s entry names, ``Replicate()``
+    on the others.  A tuple entry such as ("pod", "data") shards one
+    dim over both, major to minor as JAX orders them, which is the mesh
+    dims' own order; a tuple out of mesh order raises, as does an axis
+    the mesh lacks or names twice."""
+    names = mesh.mesh_dim_names
+    out: list = [Replicate()] * len(names)
+    for d, entry in enumerate(pspec):
+        if entry is None:
+            continue
+        axes = tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+        idx = []
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"{pspec!r}: the mesh {names} has no "
+                                 f"axis {a!r}")
+            i = names.index(a)
+            if out[i] != Replicate():
+                raise ValueError(f"{pspec!r} names mesh axis {a!r} twice")
+            out[i] = Shard(d)
+            idx.append(i)
+        if idx != sorted(idx):
+            raise ValueError(f"{pspec!r}: {axes} is not in the mesh's "
+                             f"axis order {names}")
+    return tuple(out)
+
+
+def mesh_placements(pspec: PartitionSpec, mesh) -> tuple:
+    """`placements` of `pspec` after `sanitize_spec` against the mesh's
+    axis names (the parallelism mode applied, absent axes dropped)."""
+    return placements(sanitize_spec(pspec, set(mesh.mesh_dim_names)), mesh)
+
+
+def local_range(mesh, placements_, dim: int, size: int) -> tuple[int, int]:
+    """(start, stop) of this rank's block of tensor dim `dim`, of
+    `size`, under `placements_` over `mesh`: DTensor's chunks
+    (`torch.chunk`'s sizes), mesh dim by mesh dim, major to minor."""
+    start, n = 0, size
+    for i, pl in enumerate(placements_):
+        if pl == Shard(dim):
+            ways = mesh.size(i)
+            per = -(-n // ways)
+            c = mesh.get_local_rank(i)
+            start += c * per
+            n = max(0, min(per, n - c * per))
+    return start, start + n
+
+
+def distribute(x: torch.Tensor, mesh, pspec: PartitionSpec) -> DTensor:
+    """`x`, whole on every rank, as a DTensor placed by `pspec` over
+    `mesh`: each rank keeps a copy of its own shard (nothing is sent),
+    so `x` itself may be freed."""
+    pl = mesh_placements(pspec, mesh)
+    local = distribute_tensor(x.detach(), mesh, pl,
+                              src_data_rank=None).to_local()
+    return DTensor.from_local(local.clone(), mesh, pl, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def distribute_tree(tree, specs, mesh):
+    """`distribute` over a nested dict of tensors beside a congruent
+    tree of PartitionSpecs (a spec where the tree has a subtree covers
+    all of it).  A leaf that is already a DTensor is redistributed to
+    its spec's placements."""
+    if isinstance(tree, dict):
+        return {k: distribute_tree(v, specs if _is_spec_leaf(specs)
+                                   else specs[k], mesh)
+                for k, v in tree.items()}
+    if isinstance(tree, DTensor):
+        return tree.redistribute(mesh, mesh_placements(specs, mesh))
+    return distribute(tree, mesh, specs)
+
+
+def fsdp_gather(w):
+    """A stored parameter as a product takes it: over a training mesh
+    its "data" shards (FSDP, ZeRO-3) gathered and its "model" shards
+    (tensor parallelism) kept, so DTensor runs the reference's
+    column- and row-parallel products; the gather's backward
+    reduce-scatters the gradient back to the shards.  A plain tensor
+    is returned unchanged."""
+    if not isinstance(w, DTensor):
+        return w
+    names = w.device_mesh.mesh_dim_names
+    pl = tuple(Replicate() if names[i] == "data" else p
+               for i, p in enumerate(w.placements))
+    if pl == tuple(w.placements):
+        return w
+    return w.redistribute(w.device_mesh, pl)
+
+
+def constrain(x, pspec: PartitionSpec):
+    """The reference's `constrain`: `x` resharded to `pspec` when it is
+    a DTensor (a tensor of a training mesh), `x` unchanged otherwise.
+    The spec is sanitized against the mesh's axes first (the
+    parallelism mode; "pod" dropped on a mesh without it)."""
+    if not isinstance(x, DTensor):
+        return x
+    pl = mesh_placements(pspec, x.device_mesh)
+    if tuple(x.placements) == pl:
+        return x
+    return x.redistribute(x.device_mesh, pl)

@@ -3,25 +3,35 @@ gradient accumulation (microbatching) and optional int8 gradient
 compression.  The port of `repro.train.train_step`.
 
 The step keeps the reference's signature, `train_step(params,
-opt_state, batch) -> (params, opt_state, metrics)`, on one device: the
-parameters are the model's own tensors (they require gradients), the
-gradients come from `torch.autograd.grad` of `LM.train_loss`, and the
-optimizer writes the new values into the same tensors in place.
-`opt_state_specs` gives the optimizer state's PartitionSpecs, congruent
-with the state tree (ZeRO: each moment inherits its parameter's spec);
-the dry-run (`launch.cells`) reads them to divide the state's bytes per
-device.  Placing the state over several cards is multi-GPU work
-(ROADMAP queue 1 item 7).
+opt_state, batch) -> (params, opt_state, metrics)`: the parameters are
+the model's own tensors (they require gradients), the gradients come
+from `torch.autograd.grad` of `LM.train_loss`, and the optimizer writes
+the new values into the same tensors in place.
+
+On one device every tensor is a plain one.  Over a training mesh
+(`launch.mesh.init_train_mesh`, one process a card) the step is the
+reference's sharded step: each parameter is a DTensor placed by its
+spec (`LM(..., mesh=)`, or `init_train_state(..., mesh=)` placing a
+model built whole), the optimizer state inherits its parameter's
+placements (ZeRO: `opt_state_specs`), each rank hands the step its own
+rows of the global batch (`rank_rows`, `data.pipeline.make_batch_rows`),
+which the step places by `batch_spec`, and the collectives are DTensor's:
+gradients reduce-scattered to their parameter's shards, the clip norm
+summed over the whole mesh.  Only the dense family trains over a mesh
+of several cards (ROADMAP item 7).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
-from ..models.lm import LM
-from ..sharding.rules import P
+from ..models.lm import LM, check_mesh_family
+from ..sharding.rules import P, batch_spec, local_range, mesh_placements
 from .optimizer import (OptConfig, clip_by_global_norm, make_optimizer,
                         tree_leaves, tree_map)
 
@@ -54,11 +64,72 @@ def _unflatten_like(tree, leaves: list):
     return take(tree)
 
 
-def make_train_step(model: LM, tcfg: TrainConfig) -> tuple[Callable,
-                                                          Callable]:
+def _on_mesh(mesh):
+    """The context a step runs in over `mesh`: plain tensors that meet
+    DTensors (positions, the step count, the learning rate) count as
+    replicated, the same on every rank.  Nothing without a mesh."""
+    return contextlib.nullcontext() if mesh is None \
+        else implicit_replication()
+
+
+def _place_batch(batch: dict, mesh) -> dict:
+    """This rank's rows of the global batch as DTensors placed by
+    `batch_spec`; DTensors pass as they are."""
+    def place(x):
+        if isinstance(x, DTensor):
+            return x
+        pl = mesh_placements(batch_spec(x.dim() - 1), mesh)
+        return DTensor.from_local(x, mesh, pl, run_check=False)
+    return {k: place(x) for k, x in batch.items()}
+
+
+def rank_rows(mesh, global_batch: int) -> tuple[int, int]:
+    """(start, stop): the rows of a `global_batch`-row batch that this
+    rank of `mesh` holds under `batch_spec` (ranks that share the batch
+    axes' coordinates hold the same rows)."""
+    return local_range(mesh, mesh_placements(batch_spec(1), mesh), 0,
+                       global_batch)
+
+
+def _microbatch(x, mb: int, i: int):
+    """Microbatch `i` of `mb` of a batch leaf.  A DTensor splits its
+    local rows, so each microbatch keeps the batch's placements: its
+    rows are another partition of the global batch than the
+    single-device split's, and the mean over all microbatches is the
+    same."""
+    if isinstance(x, DTensor):
+        local = x.to_local()
+        if local.shape[0] % mb:
+            raise ValueError(f"{mb} microbatches do not divide this "
+                             f"rank's {local.shape[0]} rows")
+        part = local.reshape((mb, local.shape[0] // mb)
+                             + tuple(local.shape[1:]))[i]
+        return DTensor.from_local(part, x.device_mesh, x.placements,
+                                  run_check=False)
+    return x.reshape((mb, x.shape[0] // mb) + tuple(x.shape[1:]))[i]
+
+
+def _like_param(g, p):
+    """A gradient in its parameter's placements (a reduce-scatter from
+    a partial sum, a local slice from a replica)."""
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _plain(x):
+    """A metric as a plain tensor, the same on every rank."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def make_train_step(model: LM, tcfg: TrainConfig, mesh=None
+                    ) -> tuple[Callable, Callable]:
     """(train_step, init_opt) for `model` under `tcfg`: the optimizer is
-    the model config's (`cfg.optimizer`)."""
+    the model config's (`cfg.optimizer`).  With `mesh` (a training
+    mesh; the model's parameters placed on it, `init_train_state`) the
+    step takes each rank's rows of the batch and runs sharded."""
     init_opt, update_opt = make_optimizer(model.cfg.optimizer, tcfg.opt)
+    check_mesh_family(model.cfg, mesh)
 
     def loss_and_grads(params, batch):
         leaves = tree_leaves(params)
@@ -67,22 +138,20 @@ def make_train_step(model: LM, tcfg: TrainConfig) -> tuple[Callable,
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         # A leaf the loss never reads (the audio encoder's token table)
         # gets a zero gradient, as under jax.grad.
-        grads = [torch.zeros_like(p) if g is None else g
+        grads = [torch.zeros_like(p) if g is None else _like_param(g, p)
                  for p, g in zip(leaves, grads)]
         return loss.detach(), metrics, _unflatten_like(params, grads)
 
-    def train_step(params, opt_state, batch):
+    def step(params, opt_state, batch):
         mb = tcfg.microbatches
         if mb > 1:
             # split the batch along its batch axis; accumulate grads
             # in float32
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             loss = 0.0
             for i in range(mb):
-                part = {k: x.reshape((mb, x.shape[0] // mb)
-                                     + tuple(x.shape[1:]))[i]
-                        for k, x in batch.items()}
+                part = {k: _microbatch(x, mb, i) for k, x in batch.items()}
                 loss_i, metrics, g = loss_and_grads(params, part)
                 grads = tree_map(torch.add, grads, g)
                 loss = loss + loss_i
@@ -95,17 +164,32 @@ def make_train_step(model: LM, tcfg: TrainConfig) -> tuple[Callable,
             grads = tree_map(_compress_decompress, grads)
         grads, gnorm = clip_by_global_norm(grads, tcfg.opt.grad_clip)
         params, opt_state = update_opt(tcfg.opt, params, grads, opt_state)
-        metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
-                   for k, v in metrics.items()}
-        metrics.update(loss=loss, grad_norm=gnorm)
+        metrics = {k: _plain(v.detach()) if isinstance(v, torch.Tensor)
+                   else v for k, v in metrics.items()}
+        metrics.update(loss=_plain(loss), grad_norm=_plain(gnorm))
         return params, opt_state, metrics
+
+    def train_step(params, opt_state, batch):
+        if mesh is not None:
+            if model.mesh is not mesh:
+                raise ValueError("the model's parameters are not on the "
+                                 "step's mesh: init_train_state(model, "
+                                 "tcfg, mesh) places them")
+            batch = _place_batch(batch, mesh)
+        with _on_mesh(mesh):
+            return step(params, opt_state, batch)
 
     return train_step, init_opt
 
 
-def init_train_state(model: LM, tcfg: TrainConfig):
+def init_train_state(model: LM, tcfg: TrainConfig, mesh=None):
     """(params, opt_state): the model's parameter tree (drawn when the
-    model was built) and a fresh optimizer state for it."""
+    model was built) and a fresh optimizer state for it.  With `mesh`
+    the parameters are first placed on it (`LM.shard`; a model built
+    with `mesh` is already), and each moment takes its parameter's
+    placements."""
+    if mesh is not None:
+        model.shard(mesh)
     params = model.params
     init_opt, _ = make_optimizer(model.cfg.optimizer, tcfg.opt)
     return params, init_opt(tcfg.opt, params)

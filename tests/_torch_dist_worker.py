@@ -1,0 +1,205 @@
+"""One rank of a gloo training mesh on the CPU, for
+`tests/test_torch_dist_train.py`.  It imports torch and the port only
+(no jax), so each rank starts quickly.
+
+    python tests/_torch_dist_worker.py SPEC.json RANK
+
+SPEC.json holds the mesh shape, the init method, the world size, the
+jobs to run in order and the output directory; rank 0 writes each
+job's results there as `<job name>.pt` (whole tensors, `torch.save`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
+
+from repro_torch.checkpoint import checkpoint as ckpt
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.data.pipeline import DataConfig
+from repro_torch.launch import cells
+from repro_torch.launch.mesh import close_train_mesh, init_train_mesh
+from repro_torch.models.lm import LM, param_specs
+from repro_torch.runtime.fault_tolerance import (DriverConfig,
+                                                 train_with_recovery)
+from repro_torch.sharding.rules import (batch_spec, mesh_placements,
+                                        set_parallelism)
+from repro_torch.train.optimizer import OptConfig, tree_leaves
+from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                          make_train_step, opt_state_specs,
+                                          rank_rows)
+
+
+def whole(x):
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def config(job: dict):
+    return dataclasses.replace(get_config(job.get("arch", "qwen3_0_6b"),
+                                          reduced=True),
+                               compute_dtype="float32",
+                               optimizer=job.get("optimizer", "adam"))
+
+
+def load_params(path: str) -> dict:
+    tree: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            node = tree
+            *parents, leaf = key.split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = torch.from_numpy(z[key].copy())
+    return tree
+
+
+def local_rows(mesh, tokens: torch.Tensor) -> torch.Tensor:
+    return tokens[slice(*rank_rows(mesh, tokens.shape[0]))]
+
+
+def parity(mesh, spec: dict, job: dict) -> dict:
+    """Loss and gradients at the carried parameters (the job's own
+    files, if it names them, else the spec's), then three steps on the
+    same batch; the first step under `CollectiveCensus`."""
+    set_parallelism(job.get("parallelism", "tp"))
+    cfg = config(job)
+    model = LM(cfg, device="cpu",
+               params=load_params(job.get("params", spec["params"])),
+               mesh=mesh)
+    tokens = torch.from_numpy(np.load(job.get("tokens", spec["tokens"])))
+    rows = local_rows(mesh, tokens)
+    placed = {"tokens": DTensor.from_local(
+        rows, mesh, mesh_placements(batch_spec(1), mesh), run_check=False)}
+    leaves = tree_leaves(model.params)
+    with implicit_replication():
+        loss, _ = model.train_loss(placed, model.params)
+        grads = torch.autograd.grad(loss, leaves)
+    out = {"loss": whole(loss).item(),
+           "grads": [whole(g).detach() for g in grads]}
+    tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2),
+                       microbatches=job.get("microbatches", 1),
+                       compress_grads=job.get("compress_grads", False))
+    step, _ = make_train_step(model, tcfg, mesh)
+    params, opt_state = init_train_state(model, tcfg, mesh)
+    out["losses"], out["grad_norms"] = [], []
+    for i in range(3):
+        census = cells.CollectiveCensus()
+        with census:
+            params, opt_state, met = step(params, opt_state,
+                                          {"tokens": rows})
+        if i == 0:
+            out["census"] = census.result()
+        out["losses"].append(met["loss"].item())
+        out["grad_norms"].append(met["grad_norm"].item())
+    out["params"] = [whole(p).detach() for p in tree_leaves(params)]
+    out["opt_placements_match"] = all(
+        tuple(m.placements) == tuple(p.placements)
+        for m, p in zip(tree_leaves(opt_state["m"]), tree_leaves(params))
+    ) if "m" in opt_state else None
+    set_parallelism("tp")
+    return out
+
+
+def faults(mesh, spec: dict, job: dict) -> dict:
+    """`train_with_recovery` over the mesh, 4 steps, a checkpoint every
+    2: uninterrupted, then a fault at step 3 on every rank, then on
+    rank 1 alone; each run from the same seed."""
+    cfg = config(job)
+    data = DataConfig(seed=0, vocab_size=cfg.vocab_size, seq_len=32,
+                      global_batch=4)
+    out = {}
+    rank = torch.distributed.get_rank()
+    for name, ranks in (("clean", ()), ("every", None), ("one", (1,))):
+        fired = []
+
+        def hook(step, ranks=ranks, fired=fired):
+            if name != "clean" and step == 3 and not fired:
+                fired.append(step)
+                if ranks is None or rank in ranks:
+                    raise RuntimeError(f"injected fault at {step}")
+
+        model = LM(cfg, device="cpu", mesh=mesh,
+                   generator=torch.Generator("cpu").manual_seed(0))
+        tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2))
+        step, _ = make_train_step(model, tcfg, mesh)
+        params, opt_state = init_train_state(model, tcfg, mesh)
+        ckpt_dir = Path(spec["out"]) / f"ckpt_{name}"
+        _, _, report = train_with_recovery(
+            step, params, opt_state, data,
+            DriverConfig(total_steps=4, ckpt_every=2, ckpt_dir=str(ckpt_dir),
+                         log_every=1),
+            fault_hook=hook, log=lambda _m: None)
+        out[name] = {"losses": report.losses, "restarts": report.restarts,
+                     "steps_run": report.steps_run,
+                     "ckpt": str(ckpt_dir),
+                     "params": [whole(p).detach()
+                                for p in tree_leaves(params)]}
+    # The clean run's checkpoint placed on the mesh again by the specs.
+    specs = param_specs(cfg)
+
+    def on_mesh(tree):
+        return {k: on_mesh(v) for k, v in tree.items()} \
+            if isinstance(tree, dict) else (mesh, tree)
+
+    _, state = ckpt.restore(out["clean"]["ckpt"], shardings={
+        "params": on_mesh(specs),
+        "opt": on_mesh(opt_state_specs(specs, cfg.optimizer))})
+    placed = tree_leaves(state["params"])
+    out["restored_on_mesh"] = {
+        "all_dtensors": all(isinstance(x, DTensor) for x in placed),
+        "params": [whole(x) for x in placed]}
+    return out
+
+
+def census_cell(mesh, spec: dict, job: dict) -> dict:
+    """`cells.measure` over the process mesh at the reduced widths: the
+    census of one real step fills the count's `collectives`."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    count, memory = cells.measure(
+        get_config("qwen3_0_6b", reduced=True),
+        ShapeConfig("tiny_train", 32, 4, "train"),
+        {a: sizes.get(a, 1) for a in ("pod", "data", "model")},
+        process_mesh=mesh)
+    return {"collectives": count.collectives, "flops": count.flops,
+            "memory": memory}
+
+
+def outside_family(mesh, spec: dict, job: dict) -> dict:
+    """A family outside the slice under this mesh: the error's text."""
+    cfg = get_config("phi3_5_moe_42b", reduced=True)
+    try:
+        LM(cfg, device="cpu", mesh=mesh,
+           generator=torch.Generator("cpu").manual_seed(0))
+    except ValueError as e:
+        return {"error": str(e)}
+    return {"error": None}
+
+
+JOBS = {"parity": parity, "faults": faults, "census_cell": census_cell,
+        "outside_family": outside_family}
+
+
+def main(spec_path: str, rank: int) -> None:
+    torch.set_num_threads(1)
+    spec = json.loads(Path(spec_path).read_text())
+    mesh = init_train_mesh(tuple(spec["shape"]), device="cpu",
+                           init_method=spec["init_method"],
+                           world_size=spec["world_size"], rank=rank)
+    try:
+        for job in spec["jobs"]:
+            out = JOBS[job["kind"]](mesh, spec, job)
+            if rank == 0:
+                torch.save(out, Path(spec["out"]) / f"{job['name']}.pt")
+    finally:
+        close_train_mesh()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]))
