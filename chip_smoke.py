@@ -46,15 +46,19 @@ phase's unsharded reference run and its DTensor run, so that they count
 the DTensor path alone:
 
 - `dist_train_one_card`: Qwen3-0.6B at full width, 3 AdamW steps of 8
-  x 512 (bf16 compute, remat) through the DTensor path
-  (`make_train_step(model, tcfg, mesh)`) over an NCCL world of one
-  process, mesh (1, 1, 1), against the same 3 steps of the unsharded
-  step from the same seed: losses within the bf16 step bound of
-  tests/test_torch_train.py (rtol 1e-3; the largest difference
-  printed), 56 forward (remat) and 28 backward flash launches a step,
-  all wgmma, and exactly 3 steps' worth in the path's counts, the
-  collective census 0.  `chip_dist_train.py` runs the
-  mesh over four cards.
+  x 512 (bf16 compute, remat), then the reduced configs of the five
+  other families (Phi-3.5-MoE, Mamba-2, Jamba, Llama-3.2-Vision,
+  HuBERT-XLarge) in float32 compute, 3 steps of 4 x 128 each on their
+  configs' optimizers, through the DTensor path
+  (`make_train_step(model, tcfg, mesh)`: the MoE's experts and the
+  SSD's heads on local shards) over an NCCL world of one process,
+  mesh (1, 1, 1), each against the same 3 steps of the unsharded step
+  from the same seed: losses bit-equal (and the reduced configs'
+  parameters), per attention call 2 forward (remat) and 1 backward
+  flash launches a step (wgmma for bf16, simt for float32), exactly 3
+  steps' worth of each in the path's counts, the collective census 0,
+  the phase within 45 s.  `chip_dist_train.py` runs the mesh over
+  four cards.
 
 The other families train next at their configs' published widths,
 counts set to 0 before each, 4 steps of 8 x 512 tokens (HuBERT: frames)
@@ -339,13 +343,17 @@ TRAIN_CARD_CPU = dict(loss_rtol=1e-5, param_tol=1e-4)
 # a factor.  tests/torch_adam_drift_card.py read every leaf within
 # 3.8e-5 (NVIDIA H100 80GB HBM3, 700.00 W).
 TRAIN_GRAD_CARD_CPU = dict(grad_norm_rtol=1e-5, grad_share=1e-4)
-# The DTensor path on one card: Qwen3-0.6B, DIST_STEPS steps of 8 x 512
-# (bf16, remat) over a (1, 1, 1) NCCL mesh against the unsharded step,
-# losses within tests/test_torch_train.py's bf16 step bound; the phase
-# within DIST_BUDGET_S.
+# The DTensor path on one card over a (1, 1, 1) NCCL mesh against the
+# unsharded step, DIST_STEPS steps each, bit-equal (a one-device mesh
+# moves nothing, and each rank runs the unsharded step's operations):
+# Qwen3-0.6B at full width, 8 x 512 (bf16, remat), then the reduced
+# configs of DIST_FAMILIES in float32 compute, DIST_FAMILY_B x
+# DIST_FAMILY_S (two SSD chunks); the phase within DIST_BUDGET_S.
 DIST_STEPS = 3
-DIST_LOSS_RTOL = 1e-3
-DIST_BUDGET_S = 30.0
+DIST_FAMILIES = ("phi3_5_moe_42b", "mamba2_1_3b", "jamba_v0_1_52b",
+                 "llama_3_2_vision_90b", "hubert_xlarge")
+DIST_FAMILY_B, DIST_FAMILY_S = 4, 128
+DIST_BUDGET_S = 45.0
 # Teacher-forced decode against prefill at full width, float32 compute:
 # logits and K/V stacks within this (rtol and atol).
 DECODE_TOL_F32 = 1e-3
@@ -2373,14 +2381,17 @@ def _launches(fa_mod) -> tuple[dict, dict]:
             dict(fa_mod.attend_backward.launches_by_variant))
 
 
-def _check_step_launches(fa_mod, before, calls, case, train=True):
+def _check_step_launches(fa_mod, before, calls, case, train=True,
+                         variant="wgmma"):
     """One step's flash launches since `before`: per attention call 2
     forward (remat) and 1 backward in training, 1 forward in prefill,
-    all on wgmma."""
+    all on `variant`."""
     after = _launches(fa_mod)
     diff = [{v: a[v] - b[v] for v in a} for a, b in zip(after, before)]
-    want = [{"wgmma": (2 if train else 1) * calls, "simt": 0},
-            {"wgmma": calls if train else 0, "simt": 0}]
+    want = [{v: (2 if train else 1) * calls * (v == variant)
+             for v in ("wgmma", "simt")},
+            {v: (calls if train else 0) * (v == variant)
+             for v in ("wgmma", "simt")}]
     check(diff == want, f"{case}: flash launches (forward, backward) "
           f"{diff}, expected {want}")
 
@@ -2489,41 +2500,61 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+def attention_calls(cfg) -> int:
+    """Attention calls of one forward pass: a self-attention call a
+    layer that has one, and a cross-attention call a cross layer."""
+    return sum(int(cfg.is_attn_layer(i)) + int(cfg.is_cross_attn_layer(i))
+               for i in range(cfg.n_layers))
+
+
 def phase_dist_train_one_card(torch, lm_mod, configs, train_step_mod,
                               optimizer, pipeline, mesh_mod, cells, fa_mod,
                               reset):
-    """`dist_train_one_card`: Qwen3-0.6B at full width, DIST_STEPS AdamW
-    steps of 8 x 512 through the DTensor path over an NCCL world of one
-    process (mesh (1, 1, 1)), against the unsharded `make_train_step`
-    from the same seed on the same batches.  Gates: losses within
-    DIST_LOSS_RTOL (bit-equality is predicted: a one-device mesh moves
-    nothing, and each rank's operations are the unsharded step's),
-    every step's flash launches (2 forward a layer with remat, 1
-    backward, all wgmma), no collective, the phase within
-    DIST_BUDGET_S.  `reset` sets every launch count to 0; it is called
-    between the unsharded run and the DTensor run, so the counts read
-    after the phase are the DTensor path's alone.  Returns the number
-    of attention calls a step (the model's layers)."""
+    """`dist_train_one_card`: DIST_STEPS steps through the DTensor path
+    over an NCCL world of one process (mesh (1, 1, 1)) against the
+    unsharded `make_train_step` from the same seed on the same batches,
+    for Qwen3-0.6B at full width (8 x 512, bf16, AdamW) and the reduced
+    configs of DIST_FAMILIES (DIST_FAMILY_B x DIST_FAMILY_S, float32
+    compute, each config's optimizer).  Gates: losses bit-equal to the
+    unsharded step's (and the reduced configs' final parameters),
+    every step's flash launches (2 forward an attention call with
+    remat, 1 backward, on the variant the compute type picks), no
+    collective, the phase within DIST_BUDGET_S.  `reset` sets every
+    launch count to 0; it is called between the unsharded runs and the
+    DTensor runs, so the counts read after the phase are the DTensor
+    path's alone.  Returns the launches the path must count
+    ({"wgmma": (forward, backward), "simt": (forward, backward)})."""
+    import dataclasses
+
     t_phase = now()
-    cfg = configs.get_config("qwen3_0_6b")
+    cases = [("qwen3_0_6b", configs.get_config("qwen3_0_6b"),
+              TRAIN_FAMILY_B, TRAIN_FAMILY_S)]
+    cases += [(arch, dataclasses.replace(
+        configs.get_config(arch, reduced=True), compute_dtype="float32"),
+        DIST_FAMILY_B, DIST_FAMILY_S) for arch in DIST_FAMILIES]
     opt_cfg = optimizer.OptConfig(lr=3e-4, warmup_steps=20)
     tcfg = train_step_mod.TrainConfig(opt=opt_cfg)
-    data = pipeline.DataConfig(seed=0, vocab_size=cfg.vocab_size,
-                               seq_len=TRAIN_FAMILY_S,
-                               global_batch=TRAIN_FAMILY_B)
-    batches = [{k: torch.from_numpy(v).to("cuda")
-                for k, v in pipeline.make_batch(data, i).items()}
-               for i in range(DIST_STEPS)]
 
-    def run(mesh):
+    def whole(x):
+        return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+    def run(arch, cfg, b, s, mesh):
+        data = pipeline.DataConfig(
+            seed=0, vocab_size=cfg.vocab_size, seq_len=s, global_batch=b,
+            modality=cfg.modality, d_model=cfg.d_model,
+            n_image_tokens=cfg.n_image_tokens)
         model = lm_mod.build_model(
             cfg, device="cuda", mesh=mesh,
             generator=torch.Generator(device="cuda").manual_seed(0))
         step, _ = train_step_mod.make_train_step(model, tcfg, mesh)
         params, opt = train_step_mod.init_train_state(model, tcfg, mesh)
+        calls = attention_calls(cfg)
+        var = "wgmma" if cfg.compute_dtype == "bfloat16" else "simt"
         losses, step_s = [], []
         census = cells.CollectiveCensus()
-        for i, batch in enumerate(batches):
+        for i in range(DIST_STEPS):
+            batch = {k: torch.from_numpy(v).to("cuda")
+                     for k, v in pipeline.make_batch(data, i).items()}
             before = _launches(fa_mod)
             torch.cuda.synchronize()
             t0 = now()
@@ -2533,48 +2564,73 @@ def phase_dist_train_one_card(torch, lm_mod, configs, train_step_mod,
                 params, opt, met = step(params, opt, batch)
             losses.append(float(met["loss"]))
             step_s.append(now() - t0)
-            _check_step_launches(fa_mod, before, cfg.n_layers,
-                                 "dist_train_one_card")
+            _check_step_launches(fa_mod, before, calls,
+                                 f"dist_train_one_card {arch}", variant=var)
+        final = None if arch == "qwen3_0_6b" else [
+            whole(p).detach().clone()
+            for p in optimizer.tree_leaves(params)]
         del model, params, opt
         torch.cuda.empty_cache()
-        return losses, step_s, census.result()
+        return {"losses": losses, "step_s": step_s,
+                "census": census.result(), "params": final,
+                "calls": calls, "variant": var}
 
-    plain, plain_s, _ = run(None)
+    plain = {arch: run(arch, cfg, b, s, None) for arch, cfg, b, s in cases}
     reset()
     mesh = mesh_mod.init_train_mesh(
         (1, 1, 1), device="cuda", init_method=f"tcp://localhost:{free_port()}",
         world_size=1, rank=0)
+    sharded = {}
     try:
-        torch.cuda.reset_peak_memory_stats()
-        sharded, sharded_s, census = run(mesh)
-        peak = torch.cuda.max_memory_allocated()
+        for arch, cfg, b, s in cases:
+            torch.cuda.reset_peak_memory_stats()
+            sharded[arch] = run(arch, cfg, b, s, mesh)
+            sharded[arch]["peak"] = torch.cuda.max_memory_allocated()
+        mesh_dims = list(mesh.mesh_dim_names)
     finally:
         mesh_mod.close_train_mesh()
-    diffs = [abs(a - b) / abs(b) for a, b in zip(sharded, plain)]
-    check(all(x == x and abs(x) < float("inf") for x in sharded),
-          f"dist_train_one_card: non-finite losses {sharded}")
-    check(max(diffs) <= DIST_LOSS_RTOL,
-          f"dist_train_one_card: losses {sharded} against the unsharded "
-          f"step's {plain} (rel {diffs})")
-    check(census["total"] == 0,
-          f"dist_train_one_card: collectives on one device {census}")
+    want = {"wgmma": [0, 0], "simt": [0, 0]}
+    for arch, cfg, b, s in cases:
+        got, ref = sharded[arch], plain[arch]
+        check(all(x == x and abs(x) < float("inf") for x in got["losses"]),
+              f"dist_train_one_card {arch}: non-finite losses "
+              f"{got['losses']}")
+        check(got["losses"] == ref["losses"],
+              f"dist_train_one_card {arch}: losses {got['losses']} "
+              f"against the unsharded step's {ref['losses']}")
+        params_equal = None
+        if ref["params"] is not None:
+            params_equal = all(torch.equal(x, y) for x, y in
+                               zip(got["params"], ref["params"]))
+            check(params_equal, f"dist_train_one_card {arch}: parameters "
+                  "differ from the unsharded step's")
+        check(got["census"]["total"] == 0,
+              f"dist_train_one_card {arch}: collectives on one device "
+              f"{got['census']}")
+        want[got["variant"]][0] += DIST_STEPS * 2 * got["calls"]
+        want[got["variant"]][1] += DIST_STEPS * got["calls"]
+        emit({"phase": "dist_train_one_card", "arch": arch,
+              "reduced": arch != "qwen3_0_6b", "mesh": [1, 1, 1],
+              "mesh_dims": mesh_dims, "backend": "nccl",
+              "steps": DIST_STEPS, "batch": [b, s],
+              "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
+              "optimizer": cfg.optimizer,
+              "losses_dtensor": got["losses"],
+              "losses_unsharded": ref["losses"], "bit_equal": True,
+              "params_bit_equal": params_equal,
+              "step_s_dtensor": got["step_s"],
+              "step_s_unsharded": ref["step_s"],
+              "max_memory_allocated_bytes": got["peak"],
+              "census": got["census"], "variant": got["variant"],
+              "flash_fwd_launches_per_step": 2 * got["calls"],
+              "flash_bwd_launches_per_step": got["calls"]})
     seconds = now() - t_phase
-    emit({"phase": "dist_train_one_card", "mesh": [1, 1, 1],
-          "mesh_dims": list(mesh.mesh_dim_names), "backend": "nccl",
-          "steps": DIST_STEPS, "batch": [TRAIN_FAMILY_B, TRAIN_FAMILY_S],
-          "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
-          "losses_dtensor": sharded, "losses_unsharded": plain,
-          "max_rel_loss_diff": max(diffs), "bit_equal": sharded == plain,
-          "loss_rtol": DIST_LOSS_RTOL,
-          "step_s_dtensor": sharded_s, "step_s_unsharded": plain_s,
-          "max_memory_allocated_bytes": peak, "census": census,
-          "flash_fwd_launches_per_step": 2 * cfg.n_layers,
-          "flash_bwd_launches_per_step": cfg.n_layers,
+    emit({"phase": "dist_train_one_card", "archs": [c[0] for c in cases],
           "seconds": seconds, "budget_s": DIST_BUDGET_S})
     check(seconds <= DIST_BUDGET_S,
           f"dist_train_one_card took {seconds:.1f} s, over its "
           f"{DIST_BUDGET_S} s")
-    return cfg.n_layers
+    return {v: tuple(n) for v, n in want.items()}
 
 
 def reset_counts(matmul, flash, fa_mod) -> None:
@@ -3424,14 +3480,12 @@ def main() -> int:
     # ---- main path 5b: the DTensor training path over a one-card NCCL
     # mesh, counts from 0 between the phase's unsharded reference run and
     # the DTensor run (the phase calls the reset), read after it.
-    dist_calls = phase_dist_train_one_card(
+    dist_want = phase_dist_train_one_card(
         torch, lm_mod, configs, train_step_mod, optimizer, pipeline,
         mesh_mod, cells, fa_mod,
         lambda: reset_counts(matmul, flash_attention, fa_mod))
-    want = {"flash_attention": {"wgmma": DIST_STEPS * 2 * dist_calls,
-                                "simt": 0},
-            "flash_attention_bwd": {"wgmma": DIST_STEPS * dist_calls,
-                                    "simt": 0}}
+    want = {"flash_attention": {v: n[0] for v, n in dist_want.items()},
+            "flash_attention_bwd": {v: n[1] for v, n in dist_want.items()}}
     got = {"flash_attention": dict(flash_attention.launches_by_variant),
            "flash_attention_bwd":
                dict(fa_mod.attend_backward.launches_by_variant)}

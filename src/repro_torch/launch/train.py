@@ -13,7 +13,9 @@ With `--mesh POD x DATA x MODEL` it is the reference's "runs under the
 production mesh with the shardings from the model's spec tree", in
 torch one process a card: each process joins the group
 (`launch.mesh.init_train_mesh`: NCCL on cards, gloo on the CPU) and
-trains its shards of the model (the dense family).  `--dist-init`,
+trains its shards of the model (any family: the MoE's experts and the
+SSD's heads over "model"; HuBERT's frames and labels, and the VLM's
+image embeddings, a rank's rows of the batch).  `--dist-init`,
 `--world-size` and `--rank` default to torchrun's environment, so
 either
 

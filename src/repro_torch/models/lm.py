@@ -20,11 +20,14 @@ for the VLM's cross-attention cadence.  Three entry points:
     serve step against the KV and SSM caches.
 The serving entry points run under `torch.no_grad`.
 
-Under a training mesh (`launch.mesh.init_train_mesh`; the dense family
-only, ROADMAP item 7) each parameter is a DTensor placed by
-`param_specs` (`LM(..., mesh=)` draws them leaf by leaf,
-`init_params_placed`), and `constrain` reshards the token activations
-where the reference constrains them.
+Under a training mesh (`launch.mesh.init_train_mesh`; every family)
+each parameter is a DTensor placed by `param_specs` (`LM(..., mesh=)`
+draws them leaf by leaf, `init_params_placed`), and `constrain`
+reshards the token activations where the reference constrains them.
+The attention runs Ulysses on local shards (`layers`), the MoE's
+experts are sharded over "model" (`moe`), and so are the SSD's heads
+(`ssm`); a mesh whose "model" axis cannot split a config's SSD heads
+raises where the split is made.
 
 Batches hold `tokens` (B, S), or `frames` (B, S, D) for the audio
 encoder (whose front-end is a stub, as in the reference), and
@@ -155,21 +158,6 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
         "final_norm": L.rmsnorm_init(cfg, device=dev),
         "blocks": {f"slot{si}": _slot_init(gen, cfg, slot, n_periods, dev)
                    for si, slot in enumerate(slots)}}
-
-
-# The families whose training runs over a mesh of several cards.
-MESH_FAMILIES = ("dense",)
-
-
-def check_mesh_family(cfg: ArchConfig, mesh) -> None:
-    """Raise unless `cfg` may train over `mesh`: a mesh of one device
-    takes every family, a larger one only `MESH_FAMILIES`."""
-    if mesh is not None and mesh.size() > 1 \
-            and cfg.family not in MESH_FAMILIES:
-        raise ValueError(
-            f"{cfg.name}: the {cfg.family} family does not train over a "
-            f"mesh of several cards yet (ROADMAP item 7); only "
-            f"{', '.join(MESH_FAMILIES)} models do")
 
 
 def _leaves_with_paths(tree, path=()):
@@ -338,7 +326,6 @@ class LM(nn.Module):
         self.n_periods = cfg.n_layers // len(self.slots)
         self.device = resolve_device(device)
         self.mesh = None
-        check_mesh_family(cfg, mesh)
         if params is None and self.device.type == "meta":
             params = abstract_params(cfg)
         elif params is None:
@@ -363,7 +350,6 @@ class LM(nn.Module):
             return
         if self.mesh is not None:
             raise ValueError("the model is placed over another mesh")
-        check_mesh_family(self.cfg, mesh)
         placed = distribute_tree(self.params, param_specs(self.cfg), mesh)
         self.weights = _ParamTree(placed)
         self.mesh = mesh

@@ -22,15 +22,27 @@ once.  The Switch-style auxiliary load-balance loss is returned for
 training.  Expert weights are cast to the compute type at every call,
 as in the reference (at Jamba's width that is 1.9 GB of transient
 memory per bf16 weight).
+
+Over a training mesh the reference's expert parallelism: the groups
+(batch rows) are sharded over ("pod", "data") with the capacity per
+row, the experts over "model", and each model rank gathers, computes
+and scatters only its own experts' slots, on local tensors
+(`local_map`).  Its output is a partial sum over "model", which the
+constraint back to `ACT_TOKENS` all-reduces.  The load-balance loss is
+a product of two means over all groups, so both are reduced over the
+mesh before the product.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ArchConfig
-from ..sharding.rules import spec
+from ..sharding.rules import (ACT_GROUPS, ACT_TOKENS, P, constrain,
+                              fsdp_gather, local_range, spec)
 from .layers import _activate, dense_init, dtype_of
 
 
@@ -120,37 +132,111 @@ def dispatch(gate_i: torch.Tensor, gate_w: torch.Tensor, n_experts: int,
             w[:, :-1].reshape(g, n_experts, cap))
 
 
-def moe_apply(params: dict, cfg: ArchConfig, x: torch.Tensor):
-    """x: (G, T, D); G is the group axis (the batch).  Returns (out
-    (G, T, D) in the compute type, aux loss, a float32 scalar)."""
+def _moe_groups(x: torch.Tensor, router: torch.Tensor, w_up: torch.Tensor,
+               w_gate, w_down: torch.Tensor, *, cfg: ArchConfig,
+               experts: tuple[int, int], n_groups: int):
+    """`moe_apply` on plain tensors: x (G, T, D) holds `G` of the
+    batch's `n_groups` groups, and the expert weights hold experts
+    [`experts`) of the expert axis.  Every group is routed over all
+    experts; only the held experts' slots are gathered, computed and
+    scattered back, so `out` (G, T, D) sums those experts' outputs
+    alone.  Returns (out, mean router probability (E,), assignment
+    fraction (E,)): both are this call's share of the means over all
+    `n_groups` groups, so summing them over the calls that together
+    hold the batch gives the Switch statistics."""
     cdt = dtype_of(cfg.compute_dtype)
     g, t, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
+    e0, e1 = experts
     cap = _capacity(cfg, t)
-    probs, gate_w, gate_i = route(params, cfg, x)
+    probs, gate_w, gate_i = route({"router": router}, cfg, x)
 
     # Switch aux loss: mean prob x mean assignment fraction per expert.
-    me = probs.mean(dim=(0, 1))
+    me = probs.sum(dim=(0, 1)) / (n_groups * t)
     ce = torch.zeros((e,), dtype=torch.float32, device=x.device).index_add(
         0, gate_i.reshape(-1),
-        torch.full((g * t * k,), 1.0 / (g * t * k), device=x.device))
-    aux = e * torch.sum(me * ce)
+        torch.full((g * t * k,), 1.0 / (n_groups * t * k), device=x.device))
 
     idx, w = dispatch(gate_i, gate_w, e, cap)
+    idx, w = idx[:, e0:e1], w[:, e0:e1]                      # held experts
+    el = e1 - e0
     x_pad = torch.cat([x, x.new_zeros((g, 1, d))], dim=1)    # (G, T+1, D)
-    x_ec = torch.gather(x_pad, 1, idx.reshape(g, e * cap, 1)
-                        .expand(-1, -1, d))                   # (G, E*C, D)
-    # Experts lead: (E, G*C, D) @ (E, D, F).
-    xe = x_ec.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
-    u = torch.bmm(xe, params["w_up"].to(cdt))
-    gt = torch.bmm(xe, params["w_gate"].to(cdt)) \
-        if "w_gate" in params else None
+    x_ec = torch.gather(x_pad, 1, idx.reshape(g, el * cap, 1)
+                        .expand(-1, -1, d))                   # (G, El*C, D)
+    # Experts lead: (El, G*C, D) @ (El, D, F).
+    xe = x_ec.reshape(g, el, cap, d).transpose(0, 1).reshape(el, g * cap, d)
+    u = torch.bmm(xe, w_up.to(cdt))
+    gt = torch.bmm(xe, w_gate.to(cdt)) if w_gate is not None else None
     h = _activate(cfg.activation, u, gt)
-    y = torch.bmm(h, params["w_down"].to(cdt))               # (E, G*C, D)
-    y = y.reshape(e, g, cap, d).transpose(0, 1) \
-        * w[..., None].to(cdt)                                # (G, E, C, D)
+    y = torch.bmm(h, w_down.to(cdt))                         # (El, G*C, D)
+    y = y.reshape(el, g, cap, d).transpose(0, 1) \
+        * w[..., None].to(cdt)                                # (G, El, C, D)
     rows = (idx + torch.arange(g, device=x.device)[:, None, None]
             * (t + 1)).reshape(-1)
     out = torch.zeros((g * (t + 1), d), dtype=cdt, device=x.device) \
         .index_add(0, rows, y.reshape(-1, d))
-    return out.reshape(g, t + 1, d)[:, :t], aux
+    return out.reshape(g, t + 1, d)[:, :t], me, ce
+
+
+def _moe_on_mesh(params: dict, cfg: ArchConfig, x: DTensor):
+    """`_moe_groups` on each rank's shards (`local_map`): its rows of
+    the batch (x's groups, over the batch axes) and its experts (the
+    expert axis over "model", expert parallelism).  The router and the
+    expert weights come whole over "data" (`fsdp_gather`).  Over the
+    mesh dims that shard the experts, each rank's output and its x
+    gradient cover its experts only, so both are declared ``Partial``
+    there, and only the rank at coordinate 0 counts the statistics;
+    the weights' gradients are ``Partial`` over the batch axes (each
+    rank's rows).  DTensor plans no sort, scatter or `index_add`, so
+    the routing runs on local tensors.  Returns (out over
+    `ACT_TOKENS`: the partial sums all-reduced, the two statistics
+    reduced over the whole mesh)."""
+    x = constrain(x, ACT_GROUPS)
+    mesh = x.device_mesh
+    names = [n for n in ("w_up", "w_gate", "w_down") if n in params]
+    ws = [fsdp_gather(params[n]) for n in names]
+    w_pl = tuple(ws[0].placements)     # the three share one spec
+    router = constrain(params["router"], P())
+    x_pl = tuple(x.placements)
+    ep = [i for i, p in enumerate(w_pl) if p == Shard(0)]
+    batch = [i for i, p in enumerate(x_pl) if p == Shard(0)]
+    part = tuple(Partial() if i in ep else p for i, p in enumerate(x_pl))
+    stats = tuple(Partial() if i in ep or i in batch else Replicate()
+                  for i in range(len(x_pl)))
+    w_grad = tuple(Partial() if i in batch else p
+                   for i, p in enumerate(w_pl))
+    lead = all(mesh.get_local_rank(i) == 0 for i in ep)
+
+    def core(xl, rl, *wl):
+        held = dict(zip(names, wl))
+        out, me, ce = _moe_groups(
+            xl, rl, held["w_up"], held.get("w_gate"), held["w_down"],
+            cfg=cfg, experts=local_range(mesh, w_pl, 0, cfg.n_experts),
+            n_groups=x.shape[0])
+        if not lead:        # its statistics, and their gradient, are 0
+            me, ce = me * 0.0, ce * 0.0
+        return out, me, ce
+
+    out, me, ce = local_map(
+        core, out_placements=(part, stats, stats),
+        in_placements=(x_pl, tuple(router.placements))
+        + (w_pl,) * len(ws),
+        in_grad_placements=(part, stats) + (w_grad,) * len(ws),
+        device_mesh=mesh)(x, router, *ws)
+    return (constrain(out, ACT_TOKENS), constrain(me, P(None)),
+            constrain(ce, P(None)))
+
+
+def moe_apply(params: dict, cfg: ArchConfig, x: torch.Tensor):
+    """x: (G, T, D); G is the group axis (the batch).  Returns (out
+    (G, T, D) in the compute type, aux loss, a float32 scalar).  Over a
+    training mesh (x a DTensor) each rank routes its rows and computes
+    its experts (`_moe_on_mesh`)."""
+    if isinstance(x, DTensor):
+        out, me, ce = _moe_on_mesh(params, cfg, x)
+    else:
+        out, me, ce = _moe_groups(
+            x, params["router"], params["w_up"], params.get("w_gate"),
+            params["w_down"], cfg=cfg, experts=(0, cfg.n_experts),
+            n_groups=x.shape[0])
+    return out, cfg.n_experts * torch.sum(me * ce)

@@ -16,6 +16,10 @@ Mamba-2 1.3B at 4 x 4096 tokens.  Sums run in another order than the
 reference's, within float32 rounding.
 
 The decode path is the exact recurrence h <- a h + dt B x^T, y = C h.
+
+Over a training mesh the heads are sharded over "model": each model
+rank scans its `ssm_heads // model` heads on local tensors
+(`local_map`), and the output product is a partial sum over "model".
 """
 from __future__ import annotations
 
@@ -23,9 +27,12 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ArchConfig
-from ..sharding.rules import spec
+from ..sharding.rules import (ACT_TOKENS, P, constrain, fsdp_gather,
+                              local_range, spec)
 from .layers import dense_init, dtype_of, rmsnorm, rmsnorm_specs
 
 
@@ -65,11 +72,28 @@ def ssm_specs() -> dict:
             "d_skip": spec("ssm_heads"), "norm": rmsnorm_specs()}
 
 
-def _project(params: dict, cfg: ArchConfig, x: torch.Tensor):
-    """(z, x, B, C in the compute type; dt float32)."""
+def _project(params: dict, cfg: ArchConfig, x: torch.Tensor,
+             heads: tuple[int, int] | None = None):
+    """(z, x, B, C in the compute type; dt float32) of heads [`heads`)
+    (all by default): `w_in`'s columns are [z | x | B | C | dt], so a
+    block of heads reads its own z, x and dt columns and all of B and
+    C.  `params["dt_bias"]` holds those heads' biases."""
     cdt = dtype_of(cfg.compute_dtype)
-    di, ds = cfg.d_inner, cfg.ssm_state
-    zxbcdt = x @ params["w_in"].to(cdt)
+    di, ds, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
+        cfg.ssm_head_dim
+    h0, h1 = (0, nh) if heads is None else heads
+    w = params["w_in"]
+    if (h0, h1) != (0, nh):
+        inner = torch.arange(h0 * hd, h1 * hd, device=w.device)
+        cols = torch.cat([inner, di + inner,
+                          torch.arange(2 * di, 2 * di + 2 * ds,
+                                       device=w.device),
+                          torch.arange(2 * di + 2 * ds + h0,
+                                       2 * di + 2 * ds + h1,
+                                       device=w.device)])
+        w = w.index_select(-1, cols)
+        di = (h1 - h0) * hd
+    zxbcdt = x @ w.to(cdt)
     z = zxbcdt[..., :di]
     xs = zxbcdt[..., di:2 * di]
     b = zxbcdt[..., 2 * di:2 * di + ds]
@@ -91,20 +115,24 @@ def _segsum(a: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, out, -torch.inf)
 
 
-def ssd_forward(params: dict, cfg: ArchConfig,
-                x: torch.Tensor) -> torch.Tensor:
-    """Chunked SSD.  x: (B, S, D) -> (B, S, D).  S must be a multiple of
-    the chunk min(cfg.ssm_chunk, S)."""
+def _ssd_gated(params: dict, cfg: ArchConfig, x: torch.Tensor,
+               heads: tuple[int, int] | None = None) -> torch.Tensor:
+    """The chunked scan of heads [`heads`) (all by default) on plain
+    tensors, gated: y * silu(z), (B, S, heads * head_dim) in the
+    compute type, before the norm.  `params` holds `w_in` whole and
+    those heads' `a_log`, `dt_bias` and `d_skip`."""
     cdt = dtype_of(cfg.compute_dtype)
     bsz, s, _ = x.shape
-    nh, hd, ds = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    hd, ds = cfg.ssm_head_dim, cfg.ssm_state
+    h0, h1 = (0, cfg.ssm_heads) if heads is None else heads
+    nh = h1 - h0
     ck = min(cfg.ssm_chunk, s)
     nc = s // ck
     if nc * ck != s:
         raise ValueError(f"sequence {s} is not a multiple of the SSD "
                          f"chunk {ck}")
 
-    z, xs, b, c, dt = _project(params, cfg, x)
+    z, xs, b, c, dt = _project(params, cfg, x, heads)
     xh = xs.reshape(bsz, nc, ck, nh, hd).float()
     bm = b.reshape(bsz, nc, ck, ds).float()
     cm = c.reshape(bsz, nc, ck, ds).float()
@@ -144,9 +172,69 @@ def ssd_forward(params: dict, cfg: ArchConfig,
     y = (y_intra + y_inter).reshape(bsz, s, nh, hd)
     y = y + xs.reshape(bsz, s, nh, hd).float() \
         * params["d_skip"][None, None, :, None]
-    y = y.reshape(bsz, s, cfg.d_inner).to(cdt)
-    y = rmsnorm(params["norm"], y * F.silu(z))
-    return y @ params["w_out"].to(cdt)
+    y = y.reshape(bsz, s, nh * hd).to(cdt)
+    return y * F.silu(z)
+
+
+def check_heads_split(cfg: ArchConfig, ways: int) -> None:
+    """Raise unless the SSD's heads split evenly over `ways` ranks."""
+    if cfg.ssm_heads % ways:
+        raise ValueError(f"{cfg.name}: {cfg.ssm_heads} SSD heads do not "
+                         f"split over {ways} ranks of the 'model' axis "
+                         f"(ssm_heads % model = "
+                         f"{cfg.ssm_heads % ways})")
+
+
+def _ssd_on_mesh(params: dict, cfg: ArchConfig, x: DTensor) -> DTensor:
+    """`_ssd_gated` on each rank's shards (`local_map`): its rows of the
+    batch and its heads, those of its `a_log` shard (the heads over
+    "model").  `w_in` comes whole (its columns [z | x | B | C | dt]
+    do not split by head), the per-head leaves as they are stored.
+    The gated output is sharded over "model" along d_inner, in line
+    with `w_out`'s rows, so the norm (over all of d_inner: DTensor sums
+    the mean square over "model") and the output product (a partial
+    sum over "model", all-reduced by the constraint to `ACT_TOKENS`)
+    are DTensor's.  Each rank's x gradient covers its heads, so it is
+    ``Partial`` over "model"; the leaves' gradients are ``Partial``
+    over the batch axes."""
+    x = constrain(x, ACT_TOKENS)
+    mesh = x.device_mesh
+    head_names = ("a_log", "dt_bias", "d_skip")     # one spec
+    a_pl = tuple(params["a_log"].placements)
+    hp = [i for i, p in enumerate(a_pl) if p == Shard(0)]
+    check_heads_split(cfg, math.prod(mesh.size(i) for i in hp))
+    x_pl = tuple(x.placements)
+    batch = [i for i, p in enumerate(x_pl) if p == Shard(0)]
+    w_in = constrain(params["w_in"], P())
+    heads = local_range(mesh, a_pl, 0, cfg.ssm_heads)
+    out_pl = tuple(Shard(2) if i in hp else p for i, p in enumerate(x_pl))
+    x_grad = tuple(Partial() if i in hp else p for i, p in enumerate(x_pl))
+    w_grad = tuple(Partial() if i in hp or i in batch else Replicate()
+                   for i in range(len(x_pl)))
+    h_grad = tuple(Partial() if i in batch else p
+                   for i, p in enumerate(a_pl))
+
+    def core(xl, wl, *per_head):
+        return _ssd_gated({"w_in": wl, **dict(zip(head_names, per_head))},
+                          cfg, xl, heads)
+
+    return local_map(
+        core, out_placements=(out_pl,),
+        in_placements=(x_pl, tuple(w_in.placements)) + (a_pl,) * 3,
+        in_grad_placements=(x_grad, w_grad) + (h_grad,) * 3,
+        device_mesh=mesh)(x, w_in, *(params[n] for n in head_names))
+
+
+def ssd_forward(params: dict, cfg: ArchConfig,
+                x: torch.Tensor) -> torch.Tensor:
+    """Chunked SSD.  x: (B, S, D) -> (B, S, D).  S must be a multiple of
+    the chunk min(cfg.ssm_chunk, S).  Over a training mesh (x a
+    DTensor) each rank scans its heads (`_ssd_on_mesh`)."""
+    cdt = dtype_of(cfg.compute_dtype)
+    gated = _ssd_on_mesh(params, cfg, x) if isinstance(x, DTensor) \
+        else _ssd_gated(params, cfg, x)
+    y = rmsnorm(params["norm"], gated)
+    return constrain(y @ fsdp_gather(params["w_out"]).to(cdt), ACT_TOKENS)
 
 
 def ssd_decode(params: dict, cfg: ArchConfig, x: torch.Tensor,

@@ -17,8 +17,9 @@ placements (ZeRO: `opt_state_specs`), each rank hands the step its own
 rows of the global batch (`rank_rows`, `data.pipeline.make_batch_rows`),
 which the step places by `batch_spec`, and the collectives are DTensor's:
 gradients reduce-scattered to their parameter's shards, the clip norm
-summed over the whole mesh.  Only the dense family trains over a mesh
-of several cards (ROADMAP item 7).
+summed over the whole mesh.  Every family trains over a mesh: the
+MoE's experts and the SSD's heads over "model", image embeddings,
+frames and labels placed over the batch axes with the tokens.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
 
-from ..models.lm import LM, check_mesh_family
+from ..models.lm import LM
 from ..sharding.rules import P, batch_spec, local_range, mesh_placements
 from .optimizer import (OptConfig, clip_by_global_norm, make_optimizer,
                         tree_leaves, tree_map)
@@ -129,7 +130,6 @@ def make_train_step(model: LM, tcfg: TrainConfig, mesh=None
     mesh; the model's parameters placed on it, `init_train_state`) the
     step takes each rank's rows of the batch and runs sharded."""
     init_opt, update_opt = make_optimizer(model.cfg.optimizer, tcfg.opt)
-    check_mesh_family(model.cfg, mesh)
 
     def loss_and_grads(params, batch):
         leaves = tree_leaves(params)

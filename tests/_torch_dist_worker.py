@@ -1,5 +1,6 @@
 """One rank of a gloo training mesh on the CPU, for
-`tests/test_torch_dist_train.py`.  It imports torch and the port only
+`tests/test_torch_dist_*.py` (`tests/_torch_dist_harness.py` starts
+the ranks).  It imports torch and the port only
 (no jax), so each rank starts quickly.
 
     python tests/_torch_dist_worker.py SPEC.json RANK
@@ -42,9 +43,11 @@ def whole(x):
 
 
 def config(job: dict):
+    """The job's reduced config in float32 compute and parameters."""
     return dataclasses.replace(get_config(job.get("arch", "qwen3_0_6b"),
                                           reduced=True),
                                compute_dtype="float32",
+                               param_dtype="float32",
                                optimizer=job.get("optimizer", "adam"))
 
 
@@ -60,8 +63,19 @@ def load_params(path: str) -> dict:
     return tree
 
 
-def local_rows(mesh, tokens: torch.Tensor) -> torch.Tensor:
-    return tokens[slice(*rank_rows(mesh, tokens.shape[0]))]
+def load_batch(path: str) -> dict:
+    """The batch a job reads: an npz of named arrays (tokens, frames,
+    labels, image embeddings), or a .npy of tokens."""
+    if path.endswith(".npy"):
+        return {"tokens": torch.from_numpy(np.load(path))}
+    with np.load(path) as z:
+        return {k: torch.from_numpy(z[k].copy()) for k in z.files}
+
+
+def local_rows(mesh, batch: dict) -> dict:
+    """This rank's rows of every leaf of the global `batch`."""
+    rows = slice(*rank_rows(mesh, next(iter(batch.values())).shape[0]))
+    return {k: v[rows] for k, v in batch.items()}
 
 
 def parity(mesh, spec: dict, job: dict) -> dict:
@@ -73,16 +87,19 @@ def parity(mesh, spec: dict, job: dict) -> dict:
     model = LM(cfg, device="cpu",
                params=load_params(job.get("params", spec["params"])),
                mesh=mesh)
-    tokens = torch.from_numpy(np.load(job.get("tokens", spec["tokens"])))
-    rows = local_rows(mesh, tokens)
-    placed = {"tokens": DTensor.from_local(
-        rows, mesh, mesh_placements(batch_spec(1), mesh), run_check=False)}
+    rows = local_rows(mesh, load_batch(job.get("batch", spec["batch"])))
+    placed = {k: DTensor.from_local(
+        v, mesh, mesh_placements(batch_spec(v.dim() - 1), mesh),
+        run_check=False) for k, v in rows.items()}
     leaves = tree_leaves(model.params)
     with implicit_replication():
-        loss, _ = model.train_loss(placed, model.params)
-        grads = torch.autograd.grad(loss, leaves)
-    out = {"loss": whole(loss).item(),
-           "grads": [whole(g).detach() for g in grads]}
+        loss, metrics = model.train_loss(placed, model.params)
+        # A leaf the loss never reads (the audio encoder's token table)
+        # has no gradient.
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    out = {"loss": whole(loss).item(), "aux": float(whole(metrics["aux"])),
+           "grads": [torch.zeros(p.shape) if g is None else
+                     whole(g).detach() for p, g in zip(leaves, grads)]}
     tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2),
                        microbatches=job.get("microbatches", 1),
                        compress_grads=job.get("compress_grads", False))
@@ -92,8 +109,7 @@ def parity(mesh, spec: dict, job: dict) -> dict:
     for i in range(3):
         census = cells.CollectiveCensus()
         with census:
-            params, opt_state, met = step(params, opt_state,
-                                          {"tokens": rows})
+            params, opt_state, met = step(params, opt_state, rows)
         if i == 0:
             out["census"] = census.result()
         out["losses"].append(met["loss"].item())
@@ -113,7 +129,9 @@ def faults(mesh, spec: dict, job: dict) -> dict:
     rank 1 alone; each run from the same seed."""
     cfg = config(job)
     data = DataConfig(seed=0, vocab_size=cfg.vocab_size, seq_len=32,
-                      global_batch=4)
+                      global_batch=4, modality=cfg.modality,
+                      d_model=cfg.d_model,
+                      n_image_tokens=cfg.n_image_tokens)
     out = {}
     rank = torch.distributed.get_rank()
     for name, ranks in (("clean", ()), ("every", None), ("one", (1,))):
@@ -171,19 +189,28 @@ def census_cell(mesh, spec: dict, job: dict) -> dict:
             "memory": memory}
 
 
-def outside_family(mesh, spec: dict, job: dict) -> dict:
-    """A family outside the slice under this mesh: the error's text."""
-    cfg = get_config("phi3_5_moe_42b", reduced=True)
+def heads_split(mesh, spec: dict, job: dict) -> dict:
+    """A config whose SSD heads the mesh's "model" axis cannot split
+    (the job's `override` of the reduced config): the error's text,
+    raised by the training loss where the heads are split."""
+    cfg = dataclasses.replace(config(job), **job["override"])
+    model = LM(cfg, device="cpu", mesh=mesh,
+               generator=torch.Generator("cpu").manual_seed(0))
+    rows = local_rows(mesh, {"tokens": torch.zeros((4, 64),
+                                                   dtype=torch.int32)})
+    placed = {k: DTensor.from_local(
+        v, mesh, mesh_placements(batch_spec(1), mesh), run_check=False)
+        for k, v in rows.items()}
     try:
-        LM(cfg, device="cpu", mesh=mesh,
-           generator=torch.Generator("cpu").manual_seed(0))
+        with implicit_replication():
+            model.train_loss(placed)
     except ValueError as e:
         return {"error": str(e)}
     return {"error": None}
 
 
 JOBS = {"parity": parity, "faults": faults, "census_cell": census_cell,
-        "outside_family": outside_family}
+        "heads_split": heads_split}
 
 
 def main(spec_path: str, rank: int) -> None:

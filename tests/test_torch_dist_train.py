@@ -27,32 +27,25 @@ errors in brackets:
 - a rollback after a fault equals the uninterrupted run exactly (the
   same operations run again on the restored state).
 """
-import dataclasses
-import json
-import math
 import os
-import socket
 import subprocess
 import sys
-import time
 import types
-from pathlib import Path
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.configs import get_config as R_get_config
-from repro.models.lm import build_model as R_build
-from repro_torch import convert
+from _torch_dist_harness import (GRAD_F32_SHARE, LOSS_F32,
+                                 ROOT, assert_leaves_within_share,
+                                 assert_steps_match, config, free_port,
+                                 port_env, reference, run_world,
+                                 single_process)
 from repro_torch.checkpoint import checkpoint as T_ckpt
-from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, make_batch, make_batch_rows
 from repro_torch.launch import cells
 from repro_torch.launch.mesh import init_train_mesh, parse_mesh
-from repro_torch.models.lm import LM, check_mesh_family
+from repro_torch.models.lm import LM
 from repro_torch.runtime import faults
 from repro_torch.runtime.fault_tolerance import (DriverConfig,
                                                  train_with_recovery)
@@ -62,12 +55,6 @@ from repro_torch.train.optimizer import OptConfig, tree_leaves
 from repro_torch.train.train_step import (TrainConfig, init_train_state,
                                           make_train_step)
 
-ROOT = Path(__file__).resolve().parents[1]
-WORKER = Path(__file__).with_name("_torch_dist_worker.py")
-
-LOSS_F32 = dict(rtol=1e-5, atol=0.0)
-GRAD_F32_SHARE = 1e-5
-PARAMS_F32 = dict(rtol=1e-4, atol=1e-4)
 PARAMS_COMPRESSED = dict(rtol=1e-4, atol=2e-3)
 MESHES = [(2, 2, 2), (1, 4, 1), (1, 1, 2)]
 
@@ -86,152 +73,32 @@ def _one_intra_op_thread():
 FAMILIES = ["gemma_7b", "qwen2_7b"]
 
 
-def _config(optimizer="adam", arch="qwen3_0_6b"):
-    return dataclasses.replace(get_config(arch, reduced=True),
-                               compute_dtype="float32", optimizer=optimizer)
-
-
-def _flat(tree, prefix=""):
-    if isinstance(tree, dict):
-        out = {}
-        for k, v in tree.items():
-            out.update(_flat(v, f"{prefix}{k}/"))
-        return out
-    return {prefix[:-1]: tree}
-
-
-def _single_process(params: dict, tokens: np.ndarray, optimizer="adam",
-                    arch="qwen3_0_6b", **train):
-    """The port on one process: loss and gradients at `params`, then
-    three steps on `tokens` (what each world is held to); `train`:
-    `TrainConfig` fields."""
-    model = convert.lm_params_from_numpy(_config(optimizer, arch), params,
-                                         device="cpu")
-    batch = {"tokens": torch.from_numpy(tokens)}
-    loss, _ = model.train_loss(batch)
-    grads = torch.autograd.grad(loss, tree_leaves(model.params))
-    tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2), **train)
-    step, _ = make_train_step(model, tcfg)
-    p, o = init_train_state(model, tcfg)
-    losses, norms = [], []
-    for _ in range(3):
-        p, o, met = step(p, o, batch)
-        losses.append(met["loss"].item())
-        norms.append(met["grad_norm"].item())
-    return {"loss": loss.item(), "grads": [g.detach() for g in grads],
-            "losses": losses, "grad_norms": norms,
-            "params": [t.detach().clone() for t in tree_leaves(p)]}
-
-
-def _reference(arch: str, d: Path) -> tuple[dict, np.ndarray, dict]:
-    """The reference's reduced `arch` in float32: its `LM.init(PRNGKey(0))`
-    parameters, 4 x 64 tokens from `np.random.default_rng(0)` and its
-    single-device loss; the files the worlds read, written under `d`."""
-    rcfg = dataclasses.replace(R_get_config(arch, reduced=True),
-                               compute_dtype="float32")
-    rmodel = R_build(rcfg)
-    params, _ = rmodel.init(jax.random.PRNGKey(0))
-    params = jax.tree.map(np.asarray, params)
-    tokens = np.random.default_rng(0).integers(
-        0, rcfg.vocab_size, (4, 64)).astype(np.int32)
-    ref_loss, _ = jax.jit(rmodel.train_loss)(
-        jax.tree.map(jnp.asarray, params), {"tokens": jnp.asarray(tokens)})
-    np.savez(d / "params.npz", **_flat(params))
-    np.save(d / "tokens.npy", tokens)
-    return params, tokens, {"ref_loss": float(ref_loss),
-                            "params": str(d / "params.npz"),
-                            "tokens": str(d / "tokens.npy")}
-
-
 @pytest.fixture(scope="module")
 def carried(tmp_path_factory):
     """The reference's parameters and batch, its single-device loss, and
     the single-process port's runs; the files the worlds read.  Under
     each of `FAMILIES`, the same for that family (AdamW only)."""
-    params, tokens, files = _reference("qwen3_0_6b",
-                                       tmp_path_factory.mktemp("carried"))
+    params, batch, files = reference("qwen3_0_6b",
+                                     tmp_path_factory.mktemp("carried"))
     families = {}
     for arch in FAMILIES:
-        a_params, a_tokens, families[arch] = _reference(
+        a_params, a_batch, families[arch] = reference(
             arch, tmp_path_factory.mktemp(f"carried_{arch}"))
-        families[arch]["adam"] = _single_process(a_params, a_tokens,
+        families[arch]["adam"] = single_process(a_params, a_batch,
                                                  arch=arch)
     return {**files, **families,
-            "adam": _single_process(params, tokens),
-            "adafactor": _single_process(params, tokens, "adafactor"),
-            "mb2": _single_process(params, tokens, microbatches=2),
-            "compress": _single_process(params, tokens,
-                                        compress_grads=True)}
+            "adam": single_process(params, batch),
+            "adafactor": single_process(params, batch, "adafactor"),
+            "mb2": single_process(params, batch, microbatches=2),
+            "compress": single_process(params, batch,
+                                       compress_grads=True)}
 
 
-def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _wait_all(procs, timeout: float) -> list:
-    """Exit codes once every process has ended; the rest are killed as
-    soon as one fails (they would wait in a collective) or at
-    `timeout`."""
-    t_end = time.monotonic() + timeout
-    while True:
-        rcs = [p.poll() for p in procs]
-        if all(rc is not None for rc in rcs):
-            return rcs
-        if any(rc not in (None, 0) for rc in rcs) \
-                or time.monotonic() > t_end:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-            return [p.wait() for p in procs]
-        time.sleep(0.2)
-
-
-def _run_world(shape, jobs, carried, out: Path, timeout=300) -> dict:
-    """Run `jobs` in a gloo world of `shape`, a process a rank; returns
-    rank 0's results by job name."""
-    out.mkdir(parents=True, exist_ok=True)
-    n = math.prod(shape)
-    spec = {"shape": list(shape), "world_size": n, "jobs": jobs,
-            "init_method": f"tcp://localhost:{_free_port()}",
-            "out": str(out), "params": carried["params"],
-            "tokens": carried["tokens"]}
-    spec_path = out / "spec.json"
-    spec_path.write_text(json.dumps(spec))
-    env = dict(os.environ, OMP_NUM_THREADS="1",
-               PYTHONPATH=os.pathsep.join(
-                   [str(ROOT / "src")]
-                   + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    logs = [open(out / f"rank{r}.log", "w") for r in range(n)]
-    procs = [subprocess.Popen([sys.executable, str(WORKER), str(spec_path),
-                               str(r)], stdout=logs[r],
-                              stderr=subprocess.STDOUT, env=env, cwd=ROOT)
-             for r in range(n)]
-    try:
-        rcs = _wait_all(procs, timeout)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in logs:
-            f.close()
-    failed = sorted((rc < 0, r) for r, rc in enumerate(rcs) if rc)
-    if failed:      # a rank that failed by itself first, not a killed one
-        r = failed[0][1]
-        raise AssertionError((r, rcs, (out / f"rank{r}.log").read_text()
-                              [-3000:]))
-    return {job["name"]: torch.load(out / f"{job['name']}.pt",
-                                    weights_only=False) for job in jobs}
-
-
-# Jobs of each world of `MESHES`: the parity job and a family outside
-# the slice; (1, 1, 2) also runs AdamW in the "dp" mode, where the
-# batch takes the "model" axis too, with 2 microbatches and with int8
-# gradient compression (one mesh dim keeps DTensor's planning short).
-MESH_JOBS = [{"name": "adam", "kind": "parity"},
-             {"name": "outside", "kind": "outside_family"}]
+# Jobs of each world of `MESHES`: the parity job; (1, 1, 2) also runs
+# AdamW in the "dp" mode, where the batch takes the "model" axis too,
+# with 2 microbatches and with int8 gradient compression (one mesh dim
+# keeps DTensor's planning short).
+MESH_JOBS = [{"name": "adam", "kind": "parity"}]
 JOBS_112 = [{"name": "dp", "kind": "parity", "parallelism": "dp"},
             {"name": "mb2", "kind": "parity", "microbatches": 2},
             {"name": "compress", "kind": "parity", "compress_grads": True}]
@@ -247,7 +114,7 @@ def worlds(carried, tmp_path_factory):
             jobs = MESH_JOBS + (JOBS_112 if shape == (1, 1, 2) else [])
             out = tmp_path_factory.mktemp("world_"
                                           + "x".join(map(str, shape)))
-            done[shape] = _run_world(shape, jobs, carried, out)
+            done[shape] = run_world(shape, jobs, carried, out)
         return done[shape]
     return get
 
@@ -268,9 +135,9 @@ def world_122(carried, tmp_path_factory):
             {"name": "cell", "kind": "census_cell"}]
     jobs += [{"name": arch, "kind": "parity", "arch": arch,
               "params": carried[arch]["params"],
-              "tokens": carried[arch]["tokens"]} for arch in FAMILIES]
+              "batch": carried[arch]["batch"]} for arch in FAMILIES]
     out = tmp_path_factory.mktemp("world_1x2x2")
-    return _run_world((1, 2, 2), jobs, carried, out)
+    return run_world((1, 2, 2), jobs, carried, out)
 
 
 @pytest.fixture(scope="module")
@@ -278,24 +145,7 @@ def world_111(carried, tmp_path_factory):
     jobs = [{"name": "adam", "kind": "parity"},
             {"name": "cell", "kind": "census_cell"}]
     out = tmp_path_factory.mktemp("world_1x1x1")
-    return _run_world((1, 1, 1), jobs, carried, out)
-
-
-def _assert_leaves_within_share(got, want, share):
-    assert len(got) == len(want)
-    for g, w in zip(got, want):
-        assert g.shape == w.shape
-        err = (g - w).abs().max().item()
-        assert err <= share * w.abs().max().item(), (err, w.abs().max())
-
-
-def _assert_steps_match(got, want):
-    np.testing.assert_allclose(got["losses"], want["losses"], **LOSS_F32)
-    np.testing.assert_allclose(got["grad_norms"], want["grad_norms"],
-                               **LOSS_F32)
-    assert len(got["params"]) == len(want["params"])
-    for g, w in zip(got["params"], want["params"]):
-        np.testing.assert_allclose(g.numpy(), w.numpy(), **PARAMS_F32)
+    return run_world((1, 1, 1), jobs, carried, out)
 
 
 # ---------------------------------------------------------------------------
@@ -310,13 +160,13 @@ def test_sharded_loss_matches_the_reference(world, carried):
 
 def test_sharded_gradients_match_the_single_process_port(world, carried):
     _, res = world
-    _assert_leaves_within_share(res["adam"]["grads"],
+    assert_leaves_within_share(res["adam"]["grads"],
                                 carried["adam"]["grads"], GRAD_F32_SHARE)
 
 
 def test_three_sharded_adamw_steps_match(world, carried):
     _, res = world
-    _assert_steps_match(res["adam"], carried["adam"])
+    assert_steps_match(res["adam"], carried["adam"])
     assert res["adam"]["opt_placements_match"] is True
 
 
@@ -325,11 +175,6 @@ def test_census_counts_collectives_over_the_mesh(world):
     census = res["adam"]["census"]
     assert census["total"] > 0 and census["n_ops"] > 0
     assert census["total"] == sum(census[k] for k in cells.COLLECTIVE_FACTOR)
-
-
-def test_a_family_outside_the_slice_raises_under_a_mesh(world):
-    _, res = world
-    assert "ROADMAP item 7" in res["outside"]["error"]
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
@@ -341,31 +186,31 @@ def test_other_dense_family_loss_matches_the_reference(world_122, carried,
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_other_dense_family_gradients_match(world_122, carried, arch):
-    _assert_leaves_within_share(world_122[arch]["grads"],
+    assert_leaves_within_share(world_122[arch]["grads"],
                                 carried[arch]["adam"]["grads"],
                                 GRAD_F32_SHARE)
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_other_dense_family_steps_match(world_122, carried, arch):
-    _assert_steps_match(world_122[arch], carried[arch]["adam"])
+    assert_steps_match(world_122[arch], carried[arch]["adam"])
     assert world_122[arch]["opt_placements_match"] is True
 
 
 def test_three_sharded_adafactor_steps_match(world_122, carried):
-    _assert_steps_match(world_122["adafactor"], carried["adafactor"])
+    assert_steps_match(world_122["adafactor"], carried["adafactor"])
 
 
 def test_dp_mode_steps_match(worlds, carried):
     res = worlds((1, 1, 2))["dp"]
     np.testing.assert_allclose(res["loss"], carried["ref_loss"], **LOSS_F32)
-    _assert_steps_match(res, carried["adam"])
+    assert_steps_match(res, carried["adam"])
 
 
 def test_microbatched_steps_match(worlds, carried):
     """Each rank splits its own rows: other microbatches than one
     process's, the same mean."""
-    _assert_steps_match(worlds((1, 1, 2))["mb2"], carried["mb2"])
+    assert_steps_match(worlds((1, 1, 2))["mb2"], carried["mb2"])
 
 
 def test_compressed_gradient_steps_match(worlds, carried):
@@ -394,7 +239,7 @@ def test_one_device_mesh_runs_no_collective(world_111, carried):
     res = world_111["adam"]
     assert res["census"]["total"] == 0
     np.testing.assert_allclose(res["loss"], carried["ref_loss"], **LOSS_F32)
-    _assert_steps_match(res, carried["adam"])
+    assert_steps_match(res, carried["adam"])
 
 
 # ---------------------------------------------------------------------------
@@ -439,7 +284,7 @@ def test_a_collective_fault_is_fatal(tmp_path):
     """`DistError` is never retried: the driver raises it at once."""
     err = torch.distributed.DistBackendError("peer gone")
     assert faults.classify(err) == faults.FATAL
-    model = LM(_config(), device="cpu",
+    model = LM(config(), device="cpu",
                generator=torch.Generator("cpu").manual_seed(0))
     tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2))
     step, _ = make_train_step(model, tcfg)
@@ -461,17 +306,14 @@ def test_a_collective_fault_is_fatal(tmp_path):
 def test_train_cli_under_torchrun(tmp_path):
     """`launch.train --mesh` from torchrun's environment: two gloo
     processes, one log, one checkpoint that one device restores."""
-    env = dict(os.environ, OMP_NUM_THREADS="1",
-               PYTHONPATH=os.pathsep.join(
-                   [str(ROOT / "src")]
-                   + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     r = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
-         "2", "--master-port", str(_free_port()), "-m",
+         "2", "--master-port", str(free_port()), "-m",
          "repro_torch.launch.train", "--device", "cpu", "--reduced",
          "--mesh", "1x1x2", "--steps", "2", "--batch", "2", "--seq", "16",
          "--ckpt-dir", str(tmp_path / "ckpt")],
-        capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+        capture_output=True, text=True, env=port_env(), cwd=ROOT,
+        timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.count("[train] done: 2 steps, 0 restarts") == 1, r.stdout
     assert "1x1x2 mesh of cpu" in r.stdout
@@ -503,15 +345,6 @@ def test_constrain_returns_a_plain_tensor_unchanged():
     x = torch.ones(2, 4, 8, 16)
     assert constrain(x, ACT_Q_ULYSSES) is x
     assert constrain(x[0], ACT_TOKENS) is not x
-
-
-def test_families_outside_the_slice_raise_only_on_several_devices():
-    moe = get_config("phi3_5_moe_42b", reduced=True)
-    with pytest.raises(ValueError, match="ROADMAP item 7"):
-        check_mesh_family(moe, types.SimpleNamespace(size=lambda: 4))
-    check_mesh_family(moe, types.SimpleNamespace(size=lambda: 1))
-    check_mesh_family(moe, None)
-    check_mesh_family(_config(), types.SimpleNamespace(size=lambda: 8))
 
 
 def test_parse_mesh():
