@@ -17,7 +17,13 @@ gates the results here:
   of its 28 layers, over meshes 1x4x1, 1x1x4 and 2x2x1; Gemma-7B at
   full width, 2 of its 28 layers (one card holds no more of it in
   float32 with AdamW), over 1x2x2 and 1x1x4: head dim 256 on the local
-  shards, MHA, the untied 256k head.  `--archs` picks the models;
+  shards, MHA, the untied 256k head.  `--archs` picks the models.
+  After each mesh run the same step (the config, the optimizer, rank
+  0's rows) is counted again in a fresh process on a fake mesh of the
+  same shape and device type (`launch.mesh.fake_production_mesh`,
+  meta tensors, no card), and that census must equal rank 0's NCCL
+  census kind by kind and in operations: the dry-run's census counts
+  what NCCL runs;
 - (b) Qwen3-0.6B whole, bf16 compute, over mesh 1x2x2 through
   `launch.train` (`train_with_recovery`, a checkpoint of the whole
   state at the end, written by rank 0) against the single-card CLI's
@@ -175,6 +181,15 @@ def attention_calls(cfg) -> int:
                for i in range(cfg.n_layers))
 
 
+def _tcfg():
+    """The training config of every run: the config's optimizer at lr
+    3e-4, warmup 20."""
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import TrainConfig
+
+    return TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=20))
+
+
 def _train(torch, cfg, mesh, dev, keep_params: bool = True,
            perturb: float = 0.0) -> dict:
     """STEPS steps of the pipeline's batches (seed 0: tokens, HuBERT's
@@ -189,8 +204,8 @@ def _train(torch, cfg, mesh, dev, keep_params: bool = True,
     from repro_torch.kernels.flash_attention import flash_attention as fa_mod
     from repro_torch.launch.cells import CollectiveCensus
     from repro_torch.models.lm import build_model
-    from repro_torch.train.optimizer import OptConfig, tree_leaves
-    from repro_torch.train.train_step import (TrainConfig, init_train_state,
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.train_step import (init_train_state,
                                               make_train_step, rank_rows)
 
     if DEVICE == "cuda":
@@ -204,7 +219,7 @@ def _train(torch, cfg, mesh, dev, keep_params: bool = True,
             for p in tree_leaves(model.params):
                 p.mul_(1 + perturb * torch.randn(p.shape, generator=noise,
                                                  device=dev))
-    tcfg = TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=20))
+    tcfg = _tcfg()
     step, _ = make_train_step(model, tcfg, mesh)
     params, opt = init_train_state(model, tcfg, mesh)
     _sync(torch)
@@ -329,6 +344,27 @@ def rank_main(run: str, rank: int, world: int, port: int) -> None:
         torch.save([p.cpu() for p in params], OUT / f"{run}.pt")
 
 
+def fake_census_main(run: str) -> None:
+    """The step of mesh run `run` (part (a)) counted in this process
+    alone: rank 0 of a fake mesh of the run's shape and DEVICE's type,
+    the model, optimizer state and rank 0's rows as meta tensors, one
+    step under `CollectiveCensus` (`cells.fake_census`, as the dry-run
+    counts a cell).  Writes OUT/<run>.fake.json."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.cells import fake_census
+    from repro_torch.launch.mesh import TRAIN_AXES
+
+    key, mesh_name = run.rsplit("_", 1)
+    shape = tuple(int(n) for n in mesh_name.split("x"))
+    _, arch, over, _, _ = CASES[key]
+    t0 = now()
+    census = fake_census(
+        _config(arch, **over), ShapeConfig(run, SEQ, BATCH, "train"),
+        dict(zip(TRAIN_AXES, shape)), _tcfg(), DEVICE)
+    (OUT / f"{run}.fake.json").write_text(json.dumps(
+        {"census": census, "seconds": now() - t0}))
+
+
 # ---------------------------------------------------------------------------
 # The driver: one process a rank, gates here
 # ---------------------------------------------------------------------------
@@ -389,6 +425,22 @@ def spawn(run: str, world: int) -> list[dict]:
           "seconds": now() - t0})
     return [json.loads((OUT / f"{run}.rank{r}.json").read_text())
             for r in range(world)]
+
+
+def fake_census(run: str) -> dict:
+    """`fake_census_main(run)` in a fresh process: its census and
+    seconds."""
+    with open(OUT / f"{run}.fake.log", "w") as log:
+        r = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--fake-census",
+             run], stdout=log, stderr=subprocess.STDOUT, cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            timeout=RANK_TIMEOUT_S)
+    if r.returncode:
+        print((OUT / f"{run}.fake.log").read_text()[-4000:],
+              file=sys.stderr, flush=True)
+        check(False, f"{run}: the fake-mesh census exited {r.returncode}")
+    return json.loads((OUT / f"{run}.fake.json").read_text())
 
 
 def _check_launches(run: str, ranks: list[dict], calls: int,
@@ -461,6 +513,13 @@ def run_case(key: str) -> None:
         check(all(r["census"]["total"] > 0 for r in ranks),
               f"{run}: a rank's census counted no collective")
         line = _summary(run, ranks, ranks[0]["layers"])
+        if key.startswith("a_"):
+            fake = fake_census(run)
+            line.update(census_fake_mesh=fake["census"],
+                        census_fake_mesh_s=fake["seconds"])
+            check(fake["census"] == ranks[0]["census"],
+                  f"{run}: the fake mesh's census {fake['census']} is not "
+                  f"rank 0's {ranks[0]['census']}")
         if single is not None:
             rel = [abs(a - b) / abs(b) for a, b in
                    zip(ranks[0]["losses"], single[0]["losses"])]
@@ -551,10 +610,14 @@ def main() -> int:
     ap.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--world", type=int, default=1, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--fake-census", help=argparse.SUPPRESS)
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
     if args.rank_of:
         rank_main(args.rank_of, args.rank, args.world, args.port)
+        return 0
+    if args.fake_census:
+        fake_census_main(args.fake_census)
         return 0
 
     import torch

@@ -107,10 +107,10 @@ The paper's Sec. 6 experiments come next, with the counts again set to
 - `calibration_train`: the Fig. 10 training set (AlexNet, ResNeXt-50,
   VGG-16, DeepBench; 31 random mappings a layer) labelled by the RTL
   stand-in, the residual and direct latency models trained on the card
-  (600 epochs each), their held-out Spearman beside the analytical
+  (300 epochs each), their held-out Spearman beside the analytical
   model's, and 20 epochs on the card against the CPU;
 - `calibrated_search_unet`: the Fig. 12 protocol on UNet (16x16 array
-  frozen; 500 GD steps rounded every 250, cut from the paper's 1490
+  frozen; 250 GD steps rounded every 125, cut from the paper's 1490
   for time) with the analytical, DNN-only and combined latency models,
   judged by the RTL stand-in against the default Gemmini; the combined
   search's fused and host-batched engines held equal on a short config;
@@ -126,7 +126,7 @@ Then the co-search service, counts again set to 0:
   on the card under set_sync_debug_mode("error"), against the CPU and
   the host twin on the same uniforms;
 - `device_seeded_search_resnet50`: 256 starts seeded on the card
-  (start_points="cosa-device"), 500 GD steps rounded every 250 (cut
+  (start_points="cosa-device"), 250 GD steps rounded every 125 (cut
   from the paper's 1490 for time), GD steps profiled at P=256;
 - `fleet_resnet50`: ResNet-50 over Gemmini, TPU v5e and the edge spec
   (two engine groups), then fleet against single-target search on the
@@ -174,10 +174,15 @@ meta device) runs in three phases:
 
 - `dryrun_cells` and `hillclimb_qwen3` (host, right after the lint):
   `run_cell` on the 16x16 mesh for DRYRUN_CELLS, every applicable cell
-  counted and every skip with the reference's reason, within
+  counted and every skip with the reference's reason, the counts within
   DRYRUN_BUDGET_S, each with its per-device FLOPs, bytes, memory and
-  H100 roofline terms; `hillclimb.run`'s "baseline" and "no_remat" on
-  Qwen3-0.6B train_4k, whose compute term must fall;
+  H100 roofline terms; each train cell (Qwen3-0.6B, Kimi K2,
+  Nemotron-4) also with its collective census by kind, taken over a
+  fake "cuda" production mesh (NCCL's plans; no card used: the card's
+  allocated and peak bytes are gated unchanged), Qwen3's all-to-all >
+  0, the censuses within DRYRUN_CENSUS_BUDGET_S; `hillclimb.run`'s
+  "baseline" and "no_remat" on Qwen3-0.6B train_4k, whose compute
+  term must fall and whose collective term must be above 0;
 - `dryrun_vs_card` on a one-device mesh, for Qwen3-0.6B training (8 x
   512) and prefill (4 x 4096) after the Qwen3 training section, and for
   Gemma-7B's 4-layer training on the model `lm_train_gemma_7b` built:
@@ -216,6 +221,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+_T0 = time.perf_counter()
 sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.core.arch import H100_SXM  # noqa: E402
 
@@ -419,38 +425,41 @@ TRAIN_FAMILY_PROFILED = "gemma_7b"
 
 # Fig. 10's training set (benchmarks/fig10_11_pred_accuracy.py): the
 # training networks' 50 layers at published dims, 1567 // 50 = 31
-# random mappings a layer, seed 0, every 5th sample held out; 600
-# epochs a model.  Training on the card against the CPU: 20 epochs from
-# the same initial weights, predictions within TRAIN_CARD_CPU_RTOL.
+# random mappings a layer, seed 0, every 5th sample held out; 300
+# epochs a model, half the benchmark's 600 (`CUTS`).  Training on the
+# card against the CPU: 20 epochs from the same initial weights,
+# predictions within TRAIN_CARD_CPU_RTOL.
 TRAIN_NETS = ("alexnet", "resnext50", "vgg16", "deepbench")
 TRAIN_SAMPLES = 1567
-TRAIN_EPOCHS = 600
+TRAIN_EPOCHS = 300
 TRAIN_CARD_CPU_RTOL = 1e-4
 # Fig. 12's protocol (benchmarks/fig12_rtl_opt.py) on UNet, fused with
 # population 3, its GD steps cut as the device-seeded search's are; its
 # short form holds the fused engine to the host-batched one.
-FIG12 = dict(steps=500, round_every=250, n_start_points=3, seed=17)
+FIG12 = dict(steps=250, round_every=125, n_start_points=3, seed=17)
 FIG12_SHORT = dict(steps=160, round_every=80, n_start_points=3, seed=17)
 # Cuts from the paper's scale above.
 CUTS: list = [
-    "calibrated_search_unet: 500 GD steps rounded every 250, not the "
-    "paper's 1490 every 500: its three searches took 150-188 s of the "
-    "script's 1200 (on an H100 host that dispatched 25-60% slower the "
-    "script took 1191 s)"]
+    "calibrated_search_unet: 250 GD steps rounded every 125, not the "
+    "paper's 1490 every 500: at 500 every 250 its three searches took "
+    "150-188 s of the script's 1200, and on an H100 host that "
+    "dispatched 25-60% slower the whole script took 1191-1300 s",
+    "calibration_train: 300 epochs a model, not the benchmark's 600: "
+    "its two models took 78.8 s of a 1103 s run on such a host"]
 
 # The co-search service slice.  Device seeding: ResNet-50's dims on
 # Gemmini, 1024 members.  The device-seeded search: 256 CoSA-seeded
-# starts in one chunk, 500 GD steps rounded every 250 (the paper runs
+# starts in one chunk, 250 GD steps rounded every 125 (the paper runs
 # 1490, every 500: cut to fit the script's time budget).  The fleet:
 # ResNet-50 over the three shipped specs, 2 starts each, the same
 # schedule.  The service: 8 requests over HTTP on the small config
 # (20 steps, round every 10) and one ResNet-50 request of 250 steps.
 SEED_N = 1024
-DEVICE_SEEDED = dict(steps=500, round_every=250, n_start_points=256,
+DEVICE_SEEDED = dict(steps=250, round_every=125, n_start_points=256,
                      seed=0, start_points="cosa-device")
-DEVICE_SEEDED_CUT = ("500 GD steps rounded every 250, not the paper's "
+DEVICE_SEEDED_CUT = ("250 GD steps rounded every 125, not the paper's "
                      "1490 every 500: the script's time budget")
-FLEET = dict(steps=500, round_every=250, n_start_points=2, seed=0)
+FLEET = dict(steps=250, round_every=125, n_start_points=2, seed=0)
 SMALL = dict(steps=20, round_every=10)
 SERVE_RESNET50 = dict(steps=250, round_every=125, n_start_points=2, seed=0)
 # Population sharding (`pop_shards`): the ResNet-50 device-seeded fused
@@ -485,6 +494,11 @@ DRYRUN_SKIPS = {("qwen3_0_6b", "long_500k"): _LONG_SKIP,
                 ("hubert_xlarge", "decode_32k"):
                     "encoder-only arch has no decode step"}
 DRYRUN_BUDGET_S = 90.0
+# The train cells' censuses (`CellResult.compile_s`, DTensor planning
+# one step over a fake 256-rank "cuda" mesh), summed: about twice the
+# 25-31 s they took on an H100 host, whose speed has moved 25-60%
+# between runs.
+DRYRUN_CENSUS_BUDGET_S = 60.0
 # `dryrun_vs_card`: the one-device mesh on which the meta count is held
 # against real steps, and the family whose training model it reuses.
 ONE_DEVICE = {"data": 1, "model": 1}
@@ -515,7 +529,10 @@ REF_REQUEST_EVENTS = ("submitted", "batch_join", "drain")
 
 def emit(obj) -> None:
     # default=float: the DNN-only model's predicted EDP is a numpy
-    # float32, as in the reference.
+    # float32, as in the reference.  A phase's line carries the script's
+    # seconds so far (`t_s`): where its time goes.
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj, default=float), flush=True)
 
 
@@ -2215,18 +2232,27 @@ def phase_analysis_contracts(torch, an_report, contracts):
           "seconds_card": card_s, "seconds_cpu": cpu_s})
 
 
-def phase_dryrun_cells(cells, tpu_model):
+def phase_dryrun_cells(torch, cells, tpu_model):
     """The dry-run on the host: `run_cell` on the 16x16 mesh for
     DRYRUN_CELLS, each step traced on the meta device (nothing
-    allocated or launched).  Gates: every applicable cell counted, every
-    other skipped with the reference's reason, within DRYRUN_BUDGET_S.
-    Prints per device the FLOPs, bytes, memory and the three roofline
-    terms on the H100 (the collective term 0: no census yet) with their
-    bound."""
+    allocated or launched), each train cell's collective census over a
+    fake "cuda" production mesh (NCCL's plans).  Gates: every
+    applicable cell counted, every other skipped with the reference's
+    reason; every train cell's census under `parse_collective_bytes`'
+    keys with a total above 0, Qwen3-0.6B's all-to-all above 0; the
+    card's allocated and peak bytes unchanged; the counts (`lower_s`)
+    within DRYRUN_BUDGET_S and the censuses (`compile_s`) within
+    DRYRUN_CENSUS_BUDGET_S.  Prints per device the FLOPs, bytes,
+    memory, the census and the three roofline terms on the H100 with
+    their bound."""
     t0 = now()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    allocated = torch.cuda.memory_allocated()
+    keys = set(cells.parse_collective_bytes(""))
     rows = []
     for arch, shape in DRYRUN_CELLS:
-        res = cells.run_cell(arch, shape, multi_pod=False)
+        res = cells.run_cell(arch, shape, multi_pod=False, device="cuda")
         skip = DRYRUN_SKIPS.get((arch, shape), "")
         check(res.ok == (not skip) and res.skip_reason == skip,
               f"dryrun {arch} {shape}: ok {res.ok}, skip "
@@ -2235,31 +2261,62 @@ def phase_dryrun_cells(cells, tpu_model):
         row = {"arch": arch, "shape": shape, "mode": res.mode,
                "ok": res.ok, "skip_reason": res.skip_reason}
         if res.ok:
-            terms = tpu_model.step_roofline(res.flops, res.bytes_accessed,
-                                            0.0, target=H100_SXM)
+            coll = res.collectives
+            if res.mode == "train":
+                check(coll is not None and set(coll) == keys
+                      and coll["total"] > 0,
+                      f"dryrun {arch} {shape}: census {coll}")
+            else:
+                check(coll is None, f"dryrun {arch} {shape}: a census "
+                      f"{coll} on a cell with no mesh path")
+            terms = tpu_model.step_roofline(
+                res.flops, res.bytes_accessed,
+                0.0 if coll is None else coll["total"], target=H100_SXM)
             mem = res.memory
             row.update(
-                trace_s=res.lower_s, flops_per_device=res.flops,
+                trace_s=res.lower_s, census_s=res.compile_s,
+                flops_per_device=res.flops,
                 bytes_per_device=res.bytes_accessed, memory=mem,
                 fits_hbm=mem["argument_size_in_bytes"]
                 + mem["output_size_in_bytes"] <= H100_SXM.hbm_bytes,
-                collectives=res.collectives,
+                collectives=coll,
+                collectives_gb={k: v / 1e9 for k, v in coll.items()
+                                if k != "n_ops"} if coll else None,
                 compute_s=terms.compute_s, memory_s=terms.memory_s,
                 collective_s=terms.collective_s, bound=terms.bound,
                 step_s=terms.step_s)
         rows.append(row)
-    secs = now() - t0
-    check(secs <= DRYRUN_BUDGET_S,
-          f"dryrun_cells took {secs:.1f} s, budget {DRYRUN_BUDGET_S} s")
+    qwen = next(r for r in rows if (r["arch"], r["shape"])
+                == ("qwen3_0_6b", "train_4k"))
+    check(qwen["collectives"]["all-to-all"] > 0,
+          f"Qwen3-0.6B train_4k: no all-to-all in NCCL's plans "
+          f"{qwen['collectives']}")
+    torch.cuda.synchronize()
+    check(torch.cuda.memory_allocated() == allocated
+          and torch.cuda.max_memory_allocated() == allocated,
+          f"the dry-run allocated on the card: {allocated} B before, "
+          f"{torch.cuda.memory_allocated()} after, peak "
+          f"{torch.cuda.max_memory_allocated()}")
+    count_s = sum(r.get("trace_s", 0.0) for r in rows)
+    census_s = sum(r.get("census_s", 0.0) for r in rows)
+    check(count_s <= DRYRUN_BUDGET_S,
+          f"dryrun_cells counts took {count_s:.1f} s, budget "
+          f"{DRYRUN_BUDGET_S} s")
+    check(census_s <= DRYRUN_CENSUS_BUDGET_S,
+          f"dryrun_cells censuses took {census_s:.1f} s, budget "
+          f"{DRYRUN_CENSUS_BUDGET_S} s")
     emit({"phase": "dryrun_cells", "mesh": "16x16", "devices": 256,
-          "target": "H100_SXM", "cells": rows, "seconds": secs,
-          "budget_s": DRYRUN_BUDGET_S})
+          "target": "H100_SXM", "census_plans": "cuda (NCCL)",
+          "cells": rows, "count_s": count_s, "census_s": census_s,
+          "seconds": now() - t0, "budget_s": DRYRUN_BUDGET_S,
+          "census_budget_s": DRYRUN_CENSUS_BUDGET_S})
 
 
 def phase_hillclimb_qwen3(hillclimb):
     """`hillclimb.run` of "baseline" and "no_remat" on Qwen3-0.6B
-    train_4k, 16x16, H100 terms; its JSON goes under build/.  Gate: the
-    recompute removed, the compute term falls."""
+    train_4k, 16x16, H100 terms, the census over a fake "cuda" mesh;
+    its JSON goes under build/.  Gates: the recompute removed, the
+    compute term falls; each variant's collective term is above 0."""
     import os
 
     out = ROOT / "build" / "chip_smoke_hillclimb"
@@ -2268,13 +2325,18 @@ def phase_hillclimb_qwen3(hillclimb):
     t0 = now()
     os.chdir(out)
     try:
-        recs = {v: hillclimb.run("qwen3_0_6b", "train_4k", v)
+        recs = {v: hillclimb.run("qwen3_0_6b", "train_4k", v,
+                                 device="cuda")
                 for v in ("baseline", "no_remat")}
     finally:
         os.chdir(prev)
     check(recs["no_remat"]["compute_s"] < recs["baseline"]["compute_s"],
           f"no_remat compute {recs['no_remat']['compute_s']} s not below "
           f"baseline {recs['baseline']['compute_s']} s")
+    for v, rec in recs.items():
+        check(rec["collective_s"] > 0,
+              f"hillclimb {v}: collective term {rec['collective_s']} s "
+              f"from census {rec['coll']}")
     emit({"phase": "hillclimb_qwen3", "arch": "qwen3_0_6b",
           "shape": "train_4k", "mesh": "16x16", "target": "H100_SXM",
           "records": recs, "seconds": now() - t0,
@@ -3399,7 +3461,7 @@ def main() -> int:
 
     build_all(build, ["matmul", "flash_attention", "flash_attention_bwd"])
     phase_analysis_lint(an_report)
-    phase_dryrun_cells(cells, tpu_model)
+    phase_dryrun_cells(torch, cells, tpu_model)
     phase_hillclimb_qwen3(hillclimb)
     phase_kernel_vs_plain(torch, matmul, matmul_ref)
     phase_flash_vs_plain(torch, attend, attention_ref, flash_attention)

@@ -15,15 +15,20 @@ per device:
     leaf's bytes divided dim by dim (ceil) by the mesh axes its
     sanitized PartitionSpec names.  There is no compiler here, so
     `temp_size_in_bytes` and `generated_code_size_in_bytes` are absent.
-  * `collectives`: None.  The production 16x16 and 2x16x16 meshes
-    `run_cell` counts have no machine here, and no record shows a
-    census of zeros.  Over a training mesh of processes,
-    `measure(..., process_mesh=)` fills its count's `collectives`: the
-    bytes each device sends through collectives, by kind, under the
-    keys of `parse_collective_bytes`, counted by `CollectiveCensus`
-    over one real training step.
+  * `collectives` (train cells): the bytes each device sends through
+    collectives, by kind, under the keys of `parse_collective_bytes`,
+    counted by `CollectiveCensus` over one meta-device training step of
+    rank 0 of the production mesh, planned by DTensor over a fake
+    process group of its 256 or 512 ranks (`launch.mesh.
+    fake_production_mesh`): the counterpart of the reference's census
+    of the partitioned HLO.  `device` picks the plans: ``"cuda"``
+    NCCL's, ``"cpu"`` gloo's, which do every all-to-all as an
+    all-gather and a chunk and file it so.  Prefill and decode cells
+    keep None: the port's prefill and decode do not run over a mesh
+    yet (ROADMAP.md, item 7.2b).  Over a training mesh of processes,
+    `measure(..., process_mesh=)` counts one real step instead.
 
-The meta step allocates and launches nothing, on any machine: the
+The meta steps allocate and launch nothing, on any machine: the
 flash kernels are custom ops whose fake kernels give shapes and whose
 FLOP formulas count the pairs the kernel computes.  The model's Python
 loop runs every period, so the counts cover the whole depth; the
@@ -35,8 +40,10 @@ from __future__ import annotations
 import dataclasses
 import math
 import re
+import traceback
 
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves as _pytree_leaves
@@ -45,14 +52,15 @@ from torch.utils.flop_counter import FlopCounterMode
 from ..configs import get_config
 from ..configs.base import SHAPES, ArchConfig, ShapeConfig, shape_applicable
 from ..data.pipeline import data_config_for, make_batch_rows
-from ..device import canonical_device
+from ..device import DEFAULT_DEVICE, canonical_device
 from ..models.lm import LM, build_model, param_specs
 from ..obs import telemetry as _obs
 from ..sharding.rules import P, PartitionSpec, sanitize_spec, set_parallelism
 from ..train.optimizer import OptConfig
 from ..train.train_step import (TrainConfig, init_train_state,
                                 make_train_step, opt_state_specs, rank_rows)
-from .mesh import make_production_mesh, mesh_devices, mesh_name
+from .mesh import (fake_production_mesh, make_production_mesh, mesh_devices,
+                   mesh_name)
 
 DTYPE_BYTES = {"f32": 4, "bf16": 2, "f16": 2, "s32": 4, "u32": 4,
                "s8": 1, "u8": 1, "pred": 1, "f64": 8, "s64": 8,
@@ -395,24 +403,61 @@ class CellResult:
         return dataclasses.asdict(self)
 
 
-def census_train_step(cfg: ArchConfig, shape: ShapeConfig, process_mesh,
-                      tcfg: TrainConfig, seed: int = 0) -> dict:
-    """`CollectiveCensus` of one real training step of `cfg` at `shape`
-    over `process_mesh` (a training mesh this process belongs to,
-    `launch.mesh.init_train_mesh`): the model drawn on this rank's
-    device from `seed` and placed by its specs, this rank's rows of the
-    pipeline's batch `seed`.  Every rank of the mesh must call it."""
-    dev = canonical_device(process_mesh.device_type)
-    model = build_model(cfg, device=dev, mesh=process_mesh,
-                        generator=torch.Generator(dev).manual_seed(seed))
-    step, _ = make_train_step(model, tcfg, process_mesh)
-    params, opt_state = init_train_state(model, tcfg, process_mesh)
-    rows = make_batch_rows(data_config_for(cfg, shape, seed), 0,
-                           *rank_rows(process_mesh, shape.global_batch))
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in rows.items()}
+def train_step_inputs(cfg: ArchConfig, shape: ShapeConfig, mesh,
+                      tcfg: TrainConfig, seed: int = 0,
+                      meta: bool = False) -> tuple:
+    """(step, params, opt_state, batch): one training step of `cfg` at
+    `shape` over `mesh`, for this process's rank of it.  Over a
+    training mesh of processes (`launch.mesh.init_train_mesh`) the
+    inputs are real: the model drawn on this rank's device from `seed`
+    and placed by its specs, this rank's rows of the pipeline's batch
+    `seed`.  With `meta` (a fake mesh, `launch.mesh.
+    fake_production_mesh`) the parameters, optimizer state and this
+    rank's rows are meta tensors: DTensor plans the step and nothing is
+    allocated or sent."""
+    dev = torch.device("meta") if meta \
+        else canonical_device(mesh.device_type)
+    gen = None if meta else torch.Generator(dev).manual_seed(seed)
+    model = build_model(cfg, device=dev, mesh=mesh, generator=gen)
+    step, _ = make_train_step(model, tcfg, mesh)
+    params, opt_state = init_train_state(model, tcfg, mesh)
+    start, stop = rank_rows(mesh, shape.global_batch)
+    if meta:
+        batch = batch_struct(cfg, dataclasses.replace(
+            shape, global_batch=stop - start), dev)
+    else:
+        rows = make_batch_rows(data_config_for(cfg, shape, seed), 0,
+                               start, stop)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in rows.items()}
+    return step, params, opt_state, batch
+
+
+def census_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh,
+                      tcfg: TrainConfig, seed: int = 0,
+                      meta: bool = False) -> dict:
+    """`CollectiveCensus` of the training step `train_step_inputs`
+    gives (the same arguments), under `parse_collective_bytes`' keys.
+    Every rank of `mesh` must call it."""
+    step, *args = train_step_inputs(cfg, shape, mesh, tcfg, seed, meta)
     with CollectiveCensus() as census:
-        step(params, opt_state, batch)
+        step(*args)
     return census.result()
+
+
+def train_config(train_overrides: dict | None = None) -> TrainConfig:
+    """The cells' `TrainConfig`: `OptConfig()` and the overrides."""
+    return TrainConfig(**{"opt": OptConfig(), **(train_overrides or {})})
+
+
+def fake_census(cfg: ArchConfig, shape: ShapeConfig, mesh: dict[str, int],
+                tcfg: TrainConfig, device=DEFAULT_DEVICE) -> dict:
+    """The collective census of one meta training step of rank 0 of a
+    fake process group shaped as `mesh` (`fake_production_mesh`):
+    DTensor plans the step with `device`'s collectives (``"cuda"``
+    NCCL's, ``"cpu"`` gloo's) and nothing is allocated or sent.  A
+    process already in a process group raises a ValueError."""
+    with fake_production_mesh(mesh, device) as fake:
+        return census_train_step(cfg, shape, fake, tcfg, meta=True)
 
 
 def measure(cfg: ArchConfig, shape: ShapeConfig, mesh: dict[str, int],
@@ -425,7 +470,7 @@ def measure(cfg: ArchConfig, shape: ShapeConfig, mesh: dict[str, int],
     model = build_model(cfg, device="meta")
     n_dev = mesh_devices(mesh)
     batch_shardable = shape.global_batch % (n_dev // mesh["model"]) == 0
-    tcfg = TrainConfig(**{"opt": OptConfig(), **(train_overrides or {})})
+    tcfg = train_config(train_overrides)
     count = count_step(model, shape.mode, shape, tcfg)
     if process_mesh is not None and shape.mode == "train":
         count.collectives = census_train_step(cfg, shape, process_mesh,
@@ -434,14 +479,29 @@ def measure(cfg: ArchConfig, shape: ShapeConfig, mesh: dict[str, int],
                                     batch_shardable, count)
 
 
+# What a cell's count or census raises where the model or DTensor's
+# planning fails on its shapes: `run_cell` and the dry-run's sweep
+# record it and go on to the next cell.
+CELL_ERRORS = (RuntimeError, ValueError, TypeError, KeyError, IndexError,
+               AttributeError, AssertionError)
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              cfg_overrides: dict | None = None,
              train_overrides: dict | None = None,
-             parallelism: str = "tp") -> CellResult:
+             parallelism: str = "tp",
+             device=DEFAULT_DEVICE) -> CellResult:
     """Count one cell on the production mesh (the reference's skip
     rules, overrides and parallelism mode).  `lower_s` is the meta
-    trace's seconds on the telemetry clock; `compile_s` is 0.0, since
-    nothing is compiled."""
+    count's seconds on the telemetry clock.  A train cell then takes
+    its collective census on a fake production mesh of `device`'s type
+    (`fake_production_mesh`; ``"cuda"``, NCCL's plans, needs a torch
+    built with CUDA but no card): `collectives`, and its seconds in
+    `compile_s` (DTensor's planning over the mesh is the port's
+    counterpart of XLA's partitioning).  A census that raises fails the
+    cell with its traceback in `error`.  A process already in a process
+    group raises a ValueError.  Prefill and decode cells keep
+    `collectives` None and `compile_s` 0.0 (no mesh path yet)."""
     set_parallelism(parallelism)
     cfg = get_config(arch)
     if cfg_overrides:
@@ -454,6 +514,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     if not ok:
         res.skip_reason = why
         return res
+    if shape.mode == "train" and dist.is_initialized():
+        raise ValueError("a process group is already up in this "
+                         "process; a train cell's census runs over a "
+                         "fake one of its own")
     res.n_params = float(cfg.n_params())
     tracer = _obs.get_tracer()
     t0 = _obs.default_clock()
@@ -463,6 +527,21 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     n_dev = mesh_devices(mesh)
     res.flops = count.flops / n_dev
     res.bytes_accessed = count.bytes_accessed / n_dev
+    if shape.mode == "train":
+        t1 = _obs.default_clock()
+        with tracer.span("engine.compile", arch=arch, shape=shape_name):
+            # A census that raises (the model's error, or DTensor's
+            # planning) fails the cell with its traceback, and a sweep
+            # goes on to the next cell.
+            try:
+                res.collectives = fake_census(
+                    cfg, shape, mesh, train_config(train_overrides), device)
+            except CELL_ERRORS as e:
+                res.error = (f"census: {e!r}\n"
+                             + traceback.format_exc()[-3000:])
+        res.compile_s = _obs.default_clock() - t1
+        if res.error:
+            return res
     res.ok = True
     return res
 

@@ -1,20 +1,24 @@
 """Dry-run driver: counts every (architecture x input-shape) cell on
 the production meshes, 16x16 single-pod and 2x16x16 multi-pod, on the
-meta device, and records per-device FLOPs, bytes and memory.  The port
-of `repro.launch.dryrun`, with the same CLI and the same files; it
-needs no GPU (nothing is allocated or launched) and sets no compiler
-flags.
+meta device, and records per-device FLOPs, bytes, memory and, for
+train cells, the collective census.  The port of `repro.launch.dryrun`,
+with the same CLI and the same files; it uses no GPU (nothing is
+allocated or launched) and sets no compiler flags.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3_0_6b --shape train_4k \\
-      [--multi-pod] [--out artifacts/dryrun]
+      [--multi-pod] [--out artifacts/dryrun] [--device cuda|cpu]
   python -m repro_torch.launch.dryrun --all [--multi-pod | --both-meshes] \\
-      [--subprocess]
+      [--subprocess] [--device cuda|cpu]
 
-`--subprocess` isolates each cell in its own process; results are
-merged into <out>/dryrun_<mesh>.json either way.  Exit code 0 when
-every cell is counted or skipped by the reference's rules, 1 when a
-single cell fails, and the failures' list otherwise.
+`--device` is the fake production mesh's device type for the census
+(`launch.cells.run_cell`): ``cuda`` (the default) plans NCCL's
+collectives and needs a torch built with CUDA, not a card; ``cpu``
+plans gloo's, which do an all-to-all as an all-gather.  `--subprocess`
+isolates each cell in its own process; results are merged into
+<out>/dryrun_<mesh>.json either way.  Exit code 0 when every cell is
+counted or skipped by the reference's rules, 1 when a single cell
+fails, and the failures' list otherwise.
 """
 from __future__ import annotations
 
@@ -36,9 +40,10 @@ def _merge(out_dir: pathlib.Path, mesh_name: str, record: dict):
     return path
 
 
-def run_one(arch: str, shape: str, multi_pod: bool, out_dir: pathlib.Path):
+def run_one(arch: str, shape: str, multi_pod: bool, out_dir: pathlib.Path,
+            device: str = "cuda"):
     from .cells import run_cell
-    res = run_cell(arch, shape, multi_pod)
+    res = run_cell(arch, shape, multi_pod, device=device)
     rec = res.to_json()
     mesh_name = rec["mesh"]
     _merge(out_dir, mesh_name, rec)
@@ -47,10 +52,13 @@ def run_one(arch: str, shape: str, multi_pod: bool, out_dir: pathlib.Path):
                "FAIL: " + res.error[:200]))
     print(f"[dryrun] {arch:22s} {shape:12s} {mesh_name:8s} {status}")
     if res.ok:
+        coll = ("no census (no mesh path yet)" if res.collectives is None
+                else f"{res.collectives['total']:.3e}B")
         print(f"         flops/dev={res.flops:.3e} "
               f"bytes/dev={res.bytes_accessed:.3e} "
               f"args/dev={res.memory['argument_size_in_bytes']:.3e}B "
-              f"coll/dev=none (no census) (trace {res.lower_s:.1f}s)")
+              f"coll/dev={coll} "
+              f"(trace {res.lower_s:.1f}s census {res.compile_s:.1f}s)")
     return res.ok or bool(res.skip_reason)
 
 
@@ -63,6 +71,8 @@ def main() -> None:
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--subprocess", action="store_true")
     ap.add_argument("--out", default="artifacts/dryrun")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="the fake mesh's device type for the census")
     args = ap.parse_args()
     out_dir = pathlib.Path(args.out)
 
@@ -77,22 +87,24 @@ def main() -> None:
                     if args.subprocess:
                         cmd = [sys.executable, "-m",
                                "repro_torch.launch.dryrun", "--arch", arch,
-                               "--shape", shape, "--out", str(out_dir)]
+                               "--shape", shape, "--out", str(out_dir),
+                               "--device", args.device]
                         if mp:
                             cmd.append("--multi-pod")
                         r = subprocess.run(cmd)
                         if r.returncode != 0:
                             failures.append((arch, shape, mp))
                     else:
+                        from .cells import CELL_ERRORS
                         try:
-                            ok = run_one(arch, shape, mp, out_dir)
+                            ok = run_one(arch, shape, mp, out_dir,
+                                         args.device)
                             if not ok:
                                 failures.append((arch, shape, mp))
                         # a cell whose trace raises (a shape or type
                         # error in the model) is recorded so the sweep
                         # continues; the driver exits non-zero at the end.
-                        except (RuntimeError, ValueError,
-                                TypeError, KeyError) as e:
+                        except CELL_ERRORS as e:
                             print(f"[dryrun] {arch} {shape} EXC: {e!r}")
                             failures.append((arch, shape, mp))
         if failures:
@@ -100,7 +112,7 @@ def main() -> None:
         print("[dryrun] all cells passed")
         return
 
-    ok = run_one(args.arch, args.shape, args.multi_pod, out_dir)
+    ok = run_one(args.arch, args.shape, args.multi_pod, out_dir, args.device)
     if not ok:
         sys.exit(1)
 

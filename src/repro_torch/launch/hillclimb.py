@@ -6,10 +6,13 @@ The port of `repro.launch.hillclimb`, on the meta device (no GPU).
     python -m repro_torch.launch.hillclimb --arch kimi_k2_1t \\
         --shape train_4k --variant no_remat
 
-The collective term counts 0 bytes until the dry-run has a collective
-census (ROADMAP queue 1 item 7): the record's "coll" is null, and the
-variants that act on collectives (`compress_grads`, `dp_only`) move
-only the FLOPs and the memory until then.
+The collective term is the cell's census (`cells.run_cell`, bytes a
+device over a fake production mesh of `--device`'s type: ``cuda``, the
+default, NCCL's plans; ``cpu`` gloo's) over the H100's link bandwidth,
+so the variants that act on collectives (`compress_grads`, `dp_only`,
+the microbatches) move it.  Prefill and decode cells have no census
+yet (their steps do not run over a mesh; ROADMAP item 7.2b): their
+record's "coll" is null and the term counts 0 bytes.
 """
 from __future__ import annotations
 
@@ -46,7 +49,8 @@ VARIANTS: dict[str, dict] = {
 }
 
 
-def run(arch: str, shape: str, variant: str, multi_pod: bool = False):
+def run(arch: str, shape: str, variant: str, multi_pod: bool = False,
+        device: str = "cuda"):
     from ..core.arch import H100_SXM
     from ..core.tpu_model import step_roofline
     from .cells import run_cell
@@ -60,11 +64,13 @@ def run(arch: str, shape: str, variant: str, multi_pod: bool = False):
     res = run_cell(arch, shape, multi_pod,
                    cfg_overrides=spec.get("cfg"),
                    train_overrides=train_over or None,
-                   parallelism=spec.get("parallelism", "tp"))
+                   parallelism=spec.get("parallelism", "tp"),
+                   device=device)
     if not res.ok:
         raise SystemExit(f"variant failed: {res.error or res.skip_reason}")
-    # No collective census yet (`res.collectives` is None): 0 bytes.
-    terms = step_roofline(res.flops, res.bytes_accessed, 0.0,
+    coll = res.collectives
+    terms = step_roofline(res.flops, res.bytes_accessed,
+                          0.0 if coll is None else coll["total"],
                           target=H100_SXM)
     rec = {
         "variant": variant,
@@ -87,7 +93,8 @@ def run(arch: str, shape: str, variant: str, multi_pod: bool = False):
     print(f"[perf] {arch} {shape} {variant}: "
           f"comp={terms.compute_s*1e3:.2f}ms "
           f"mem={terms.memory_s*1e3:.2f}ms "
-          f"coll={terms.collective_s*1e3:.2f}ms (no census) "
+          f"coll={terms.collective_s*1e3:.2f}ms"
+          f"{' (no census)' if coll is None else ''} "
           f"bound={terms.bound} step={terms.step_s*1e3:.2f}ms (H100 SXM)")
     return rec
 
@@ -99,8 +106,10 @@ def main() -> None:
     ap.add_argument("--variant", default="baseline",
                     choices=sorted(VARIANTS))
     ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="the fake mesh's device type for the census")
     args = ap.parse_args()
-    run(args.arch, args.shape, args.variant, args.multi_pod)
+    run(args.arch, args.shape, args.variant, args.multi_pod, args.device)
 
 
 if __name__ == "__main__":

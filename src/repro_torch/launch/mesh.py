@@ -5,6 +5,8 @@ Multi-pod:   (2, 16, 16)   axes ("pod", "data", "model") = 512 devices
 Population:  (shards,)     axis  ("pop",)  — co-search population axis
 Training:    (pod, data, model) axes ("pod", "data", "model"), one
              process a card (`init_train_mesh`)
+Fake:        a production shape over a fake process group, rank 0 of
+             its 256 or 512 ranks (`fake_production_mesh`)
 
 The port of `repro.launch.mesh`.  The production shapes are tables
 that hold no devices: the dry-run (`launch.cells`) reads them to divide
@@ -15,10 +17,14 @@ devices (`DeviceMesh`), named as the co-search entry points name them
 the current card), and a sequence may repeat a device, so one card or
 the CPU can hold several shards.  The training mesh is a
 `torch.distributed` DeviceMesh over processes: NCCL between cards,
-gloo between CPU processes.
+gloo between CPU processes.  The fake mesh is a `torch.distributed`
+DeviceMesh of this process alone: its process group is the fake one,
+whose collectives send nothing, so DTensor plans a production mesh's
+step without its cards (the dry-run's collective census).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -186,10 +192,56 @@ def init_train_mesh(shape, *, device: str = DEFAULT_DEVICE,
     elif dist.get_backend() != backend:
         raise RuntimeError(f"the process group runs {dist.get_backend()}, "
                            f"a {dev_type} mesh needs {backend}")
-    kept = [(n, a) for n, a in zip(shape, TRAIN_AXES) if n > 1] \
-        or [(1, "data")]
-    return init_device_mesh(dev_type, tuple(n for n, _ in kept),
-                            mesh_dim_names=tuple(a for _, a in kept))
+    sizes, names = _kept_axes(shape, TRAIN_AXES)
+    return init_device_mesh(dev_type, sizes, mesh_dim_names=names)
+
+
+def _kept_axes(sizes, names) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """The sizes and names of the axes a DeviceMesh keeps: those of size
+    above 1, or "data" alone for a mesh of one device."""
+    kept = [(n, a) for n, a in zip(sizes, names) if n > 1] or [(1, "data")]
+    return tuple(n for n, _ in kept), tuple(a for _, a in kept)
+
+
+@contextlib.contextmanager
+def fake_production_mesh(mesh: dict[str, int],
+                         device: str = DEFAULT_DEVICE):
+    """A DeviceMesh of `mesh`'s shape (`make_production_mesh`'s, or any
+    {axis: size}; size-1 axes left out as `init_train_mesh` leaves them)
+    over a fake process group of its device count, this process rank 0.
+    The group is the process's default group for the body and is
+    destroyed on leaving, whether the body returned or raised.
+
+    `device` is the mesh's device type, which picks DTensor's plans:
+    ``"cuda"`` NCCL's (an all-to-all moves a shard between tensor dims),
+    ``"cpu"`` gloo's (the all-to-all done as an all-gather and a
+    chunk).  No card is used, but ``"cuda"`` needs a torch built with
+    CUDA; nothing falls back from one to the other.  A process that is
+    already in a process group (a real training mesh) raises a
+    ValueError: the fake group would replace its default group."""
+    dev_type = torch.device(device).type
+    if dev_type == "cuda":
+        if torch.version.cuda is None:
+            raise RuntimeError(
+                "a fake cuda mesh plans NCCL's collectives and needs a "
+                "torch built with CUDA (no card); this build has none: "
+                "device='cpu' counts gloo's plans")
+    elif dev_type != "cpu":
+        raise ValueError(f"a fake mesh is of 'cuda' or 'cpu', not "
+                         f"{dev_type!r}")
+    if dist.is_initialized():
+        raise ValueError("a process group is already up in this process; "
+                         "a fake production mesh would replace it, so "
+                         "count from a process outside any training mesh")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    sizes, names = _kept_axes(mesh.values(), mesh.keys())
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh_devices(mesh))
+    try:
+        yield init_device_mesh(dev_type, sizes, mesh_dim_names=names)
+    finally:
+        dist.destroy_process_group()
 
 
 def close_train_mesh() -> None:

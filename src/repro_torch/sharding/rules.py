@@ -481,14 +481,34 @@ def fsdp_gather(w):
     return w.redistribute(w.device_mesh, pl)
 
 
+def even_placements(placements_, shape, mesh) -> tuple:
+    """`placements_` of a tensor of `shape` over `mesh`, each mesh dim
+    that would split its tensor dim into unequal shards (fewer rows
+    than ranks, say) replicated instead, major to minor.  DTensor plans
+    the views of a tensor on its even shards only (its local shapes
+    are the global ones divided); XLA pads where this replicates."""
+    out, left = [], list(shape)
+    for i, pl in enumerate(placements_):
+        if isinstance(pl, Shard):
+            if left[pl.dim] % mesh.size(i):
+                pl = Replicate()
+            else:
+                left[pl.dim] //= mesh.size(i)
+        out.append(pl)
+    return tuple(out)
+
+
 def constrain(x, pspec: PartitionSpec):
     """The reference's `constrain`: `x` resharded to `pspec` when it is
     a DTensor (a tensor of a training mesh), `x` unchanged otherwise.
     The spec is sanitized against the mesh's axes first (the
-    parallelism mode; "pod" dropped on a mesh without it)."""
+    parallelism mode; "pod" dropped on a mesh without it), and a mesh
+    dim that does not divide its tensor dim replicates it
+    (`even_placements`)."""
     if not isinstance(x, DTensor):
         return x
-    pl = mesh_placements(pspec, x.device_mesh)
+    pl = even_placements(mesh_placements(pspec, x.device_mesh), x.shape,
+                         x.device_mesh)
     if tuple(x.placements) == pl:
         return x
     return x.redistribute(x.device_mesh, pl)

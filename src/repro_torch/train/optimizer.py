@@ -26,7 +26,8 @@ import dataclasses
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
-from torch.distributed.tensor import zeros as dtensor_zeros
+
+from ..sharding.rules import local_range
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,25 +78,39 @@ def _as(x, like):
 
 def _zeros_dropping(p: torch.Tensor, dim: int) -> torch.Tensor:
     """float32 zeros shaped like `p` without dim `dim` (negative), on
-    `p`'s device; for a DTensor `p`, placed as `p` less that dim: a
-    mesh dim that sharded it replicates, later dims shift down."""
+    `p`'s device; for a DTensor `p`, placed as `p` less that dim (a
+    mesh dim that sharded it replicates, later dims shift down), its
+    local block on the device of `p`'s local shard (meta for a meta
+    model over a mesh of another device type)."""
     shape = list(p.shape)
     del shape[dim]
     if not isinstance(p, DTensor):
         return torch.zeros(shape, dtype=torch.float32, device=p.device)
     d = p.dim() + dim
+    mesh = p.device_mesh
     pl = [Replicate() if q == Shard(d) else
           Shard(q.dim - 1) if isinstance(q, Shard) and q.dim > d else q
           for q in p.placements]
-    return dtensor_zeros(
-        shape, dtype=torch.float32, device_mesh=p.device_mesh,
-        placements=pl)
+    local = [b - a for a, b in (local_range(mesh, pl, i, n)
+                                for i, n in enumerate(shape))]
+    return DTensor.from_local(
+        torch.zeros(local, dtype=torch.float32, device=p.to_local().device),
+        mesh, pl, run_check=False, shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
 
 
 def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     """Linear warmup to `cfg.lr` at float32 `step`."""
     warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
     return cfg.lr * warm
+
+
+def _step_device(params: dict) -> torch.device:
+    """Where the step count lives: the device of the first parameter's
+    storage, which for a DTensor is its local shard's (a meta model over
+    a cuda or cpu mesh keeps it on meta; a rank's is its card)."""
+    p = tree_leaves(params)[0]
+    return (p.to_local() if isinstance(p, DTensor) else p).device
 
 
 # ---------------------------------------------------------------------------
@@ -108,8 +123,7 @@ def adam_init(cfg: OptConfig, params: dict) -> dict:
     def zeros(p):
         return torch.zeros_like(p, dtype=mdt)
 
-    step = torch.zeros((), dtype=torch.int32,
-                       device=tree_leaves(params)[0].device)
+    step = torch.zeros((), dtype=torch.int32, device=_step_device(params))
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": step}
 
@@ -150,8 +164,7 @@ def adafactor_init(cfg: OptConfig, params: dict) -> dict:
                     "vc": _zeros_dropping(p, -2)}
         return {"v": torch.zeros_like(p, dtype=torch.float32)}
 
-    step = torch.zeros((), dtype=torch.int32,
-                       device=tree_leaves(params)[0].device)
+    step = torch.zeros((), dtype=torch.int32, device=_step_device(params))
     return {"v": tree_map(factored, params), "step": step}
 
 

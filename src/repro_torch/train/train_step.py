@@ -32,7 +32,8 @@ from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 from ..models.lm import LM
-from ..sharding.rules import P, batch_spec, local_range, mesh_placements
+from ..sharding.rules import (P, batch_spec, even_placements, local_range,
+                              mesh_placements)
 from .optimizer import (OptConfig, clip_by_global_norm, make_optimizer,
                         tree_leaves, tree_map)
 
@@ -93,21 +94,30 @@ def rank_rows(mesh, global_batch: int) -> tuple[int, int]:
 
 
 def _microbatch(x, mb: int, i: int):
-    """Microbatch `i` of `mb` of a batch leaf.  A DTensor splits its
-    local rows, so each microbatch keeps the batch's placements: its
-    rows are another partition of the global batch than the
-    single-device split's, and the mean over all microbatches is the
-    same."""
+    """Microbatch `i` of `mb` of a batch leaf.  A DTensor whose local
+    rows `mb` divides splits them, so each microbatch keeps the batch's
+    placements with no collective: its rows are another partition of
+    the global batch than the single-device split's, and the mean over
+    all microbatches is the same.  Where it does not (fewer rows a rank
+    than microbatches), microbatch `i` is the reference's: global rows
+    `i * n` to `(i + 1) * n`, gathered and placed as the batch is on
+    the mesh dims that divide `n` rows, replicated over the others
+    (`even_placements`)."""
+    if x.shape[0] % mb:
+        raise ValueError(f"{mb} microbatches do not divide the batch's "
+                         f"{x.shape[0]} rows")
+    n = x.shape[0] // mb
     if isinstance(x, DTensor):
         local = x.to_local()
         if local.shape[0] % mb:
-            raise ValueError(f"{mb} microbatches do not divide this "
-                             f"rank's {local.shape[0]} rows")
+            part = x[i * n:(i + 1) * n]
+            return part.redistribute(x.device_mesh, even_placements(
+                x.placements, part.shape, x.device_mesh))
         part = local.reshape((mb, local.shape[0] // mb)
                              + tuple(local.shape[1:]))[i]
         return DTensor.from_local(part, x.device_mesh, x.placements,
                                   run_check=False)
-    return x.reshape((mb, x.shape[0] // mb) + tuple(x.shape[1:]))[i]
+    return x.reshape((mb, n) + tuple(x.shape[1:]))[i]
 
 
 def _like_param(g, p):

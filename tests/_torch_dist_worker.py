@@ -177,12 +177,13 @@ def faults(mesh, spec: dict, job: dict) -> dict:
 
 
 def census_cell(mesh, spec: dict, job: dict) -> dict:
-    """`cells.measure` over the process mesh at the reduced widths: the
+    """`cells.measure` over the process mesh at the reduced widths of
+    the job's `arch` (Qwen3 by default), 4 rows of its `seq` (32): the
     census of one real step fills the count's `collectives`."""
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
     count, memory = cells.measure(
-        get_config("qwen3_0_6b", reduced=True),
-        ShapeConfig("tiny_train", 32, 4, "train"),
+        get_config(job.get("arch", "qwen3_0_6b"), reduced=True),
+        ShapeConfig("tiny_train", job.get("seq", 32), 4, "train"),
         {a: sizes.get(a, 1) for a in ("pod", "data", "model")},
         process_mesh=mesh)
     return {"collectives": count.collectives, "flops": count.flops,

@@ -20,7 +20,7 @@ errors in brackets:
   `tests/test_torch_train.py` holds the port to the reference by)
   [5e-7];
 - three AdamW steps (and Adafactor, AdamW in the "dp" parallelism
-  mode, and 2 microbatches) against the single-process port: losses
+  mode, alone and with 4 microbatches, and 2 microbatches) against the single-process port: losses
   and gradient norms rtol 1e-5, parameters within 1e-4 (`PARAMS_F32`)
   [1.2e-5]; with int8 gradient compression the parameters within 2e-3
   (`PARAMS_COMPRESSED`, tests/test_torch_train.py's bound) [6.1e-5];
@@ -90,16 +90,20 @@ def carried(tmp_path_factory):
             "adam": single_process(params, batch),
             "adafactor": single_process(params, batch, "adafactor"),
             "mb2": single_process(params, batch, microbatches=2),
+            "mb4": single_process(params, batch, microbatches=4),
             "compress": single_process(params, batch,
                                        compress_grads=True)}
 
 
 # Jobs of each world of `MESHES`: the parity job; (1, 1, 2) also runs
 # AdamW in the "dp" mode, where the batch takes the "model" axis too,
-# with 2 microbatches and with int8 gradient compression (one mesh dim
-# keeps DTensor's planning short).
+# alone and with 4 microbatches (2 rows a rank: each microbatch is one
+# global row, replicated), with 2 microbatches and with int8 gradient
+# compression (one mesh dim keeps DTensor's planning short).
 MESH_JOBS = [{"name": "adam", "kind": "parity"}]
 JOBS_112 = [{"name": "dp", "kind": "parity", "parallelism": "dp"},
+            {"name": "dp_mb4", "kind": "parity", "parallelism": "dp",
+             "microbatches": 4},
             {"name": "mb2", "kind": "parity", "microbatches": 2},
             {"name": "compress", "kind": "parity", "compress_grads": True}]
 
@@ -211,6 +215,12 @@ def test_microbatched_steps_match(worlds, carried):
     """Each rank splits its own rows: other microbatches than one
     process's, the same mean."""
     assert_steps_match(worlds((1, 1, 2))["mb2"], carried["mb2"])
+
+
+def test_microbatches_beyond_a_ranks_rows_match(worlds, carried):
+    """More microbatches than a rank's rows: each is the reference's
+    slice of the global batch, placed on the mesh dims its rows fill."""
+    assert_steps_match(worlds((1, 1, 2))["dp_mb4"], carried["mb4"])
 
 
 def test_compressed_gradient_steps_match(worlds, carried):

@@ -300,26 +300,30 @@ def test_shard_bytes_divides_by_the_named_axes():
 
 def test_run_cell_record(monkeypatch):
     """A counted cell: per-device counts (totals over 256), the memory
-    keys the port can give (no temp or code size), no collective census,
-    `lower_s` from the telemetry clock, `compile_s` 0."""
-    ticks = iter([10.0, 12.5])
+    keys the port can give (no temp or code size), the collective
+    census over a fake "cpu" mesh under the reference's keys, `lower_s`
+    (the count) and `compile_s` (the census) from the telemetry
+    clock."""
+    ticks = iter([10.0, 12.5, 13.0, 16.5])
     prev = T_obs.set_default_clock(lambda: next(ticks))
     monkeypatch.setattr(T_cells, "get_config",
                         lambda a: get_config(a, reduced=True))
     try:
-        res = T_cells.run_cell("qwen3_0_6b", "train_4k", multi_pod=False)
+        res = T_cells.run_cell("qwen3_0_6b", "train_4k", multi_pod=False,
+                               device="cpu")
     finally:
         T_obs.set_default_clock(prev)
     assert res.ok and res.mesh == "16x16" and res.mode == "train"
-    assert res.lower_s == 2.5 and res.compile_s == 0.0
-    assert res.collectives is None
+    assert res.lower_s == 2.5 and res.compile_s == 3.5
+    assert set(res.collectives) == set(T_cells.parse_collective_bytes(""))
+    assert res.collectives["total"] > 0 and res.collectives["n_ops"] > 0
     assert set(res.memory) == {"argument_size_in_bytes",
                                "output_size_in_bytes"}
     cfg = get_config("qwen3_0_6b", reduced=True)
     assert res.flops == _hand_count(cfg, 256, 4096, "train") / 256
     assert res.n_params == float(cfg.n_params())
     rec = json.loads(json.dumps(res.to_json()))
-    assert rec["collectives"] is None and rec["ok"]
+    assert rec["collectives"] == res.collectives and rec["ok"]
 
 
 def test_dryrun_cli_merges_two_cells(tmp_path, monkeypatch, capsys):
@@ -328,11 +332,17 @@ def test_dryrun_cli_merges_two_cells(tmp_path, monkeypatch, capsys):
     for shape in ("train_4k", "decode_32k"):
         monkeypatch.setattr(sys, "argv", [
             "dryrun", "--arch", "qwen3_0_6b", "--shape", shape,
-            "--out", str(tmp_path)])
+            "--out", str(tmp_path), "--device", "cpu"])
         T_dryrun.main()
     data = json.loads((tmp_path / "dryrun_16x16.json").read_text())
     assert sorted(data) == ["qwen3_0_6b|decode_32k", "qwen3_0_6b|train_4k"]
     assert all(r["ok"] and r["flops"] > 0 for r in data.values())
+    assert data["qwen3_0_6b|train_4k"]["collectives"]["total"] > 0
+    assert data["qwen3_0_6b|decode_32k"]["collectives"] is None
+    out = capsys.readouterr().out
+    assert "coll/dev=no census (no mesh path yet)" in out
+    total = data["qwen3_0_6b|train_4k"]["collectives"]["total"]
+    assert f"coll/dev={total:.3e}B" in out
     monkeypatch.setattr(sys, "argv", [
         "dryrun", "--arch", "gemma_7b", "--shape", "long_500k", "--multi-pod",
         "--out", str(tmp_path)])
@@ -346,14 +356,18 @@ def test_hillclimb_run(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(T_cells, "get_config",
                         lambda a: get_config(a, reduced=True))
-    base = T_hill.run("qwen3_0_6b", "train_4k", "baseline")
-    no_remat = T_hill.run("qwen3_0_6b", "train_4k", "no_remat")
-    T_hill.run("qwen3_0_6b", "train_4k", "dp_only")
+    base = T_hill.run("qwen3_0_6b", "train_4k", "baseline", device="cpu")
+    no_remat = T_hill.run("qwen3_0_6b", "train_4k", "no_remat",
+                          device="cpu")
+    T_hill.run("qwen3_0_6b", "train_4k", "dp_only", device="cpu")
     data = json.loads((tmp_path / "artifacts/perf/qwen3_0_6b_train_4k.json")
                       .read_text())
     assert sorted(data) == ["baseline", "dp_only", "no_remat"]
-    assert data["baseline"]["coll"] is None
-    assert data["baseline"]["collective_s"] == 0.0
+    assert data["baseline"]["coll"]["total"] > 0
+    assert data["baseline"]["collective_s"] == \
+        data["baseline"]["coll"]["total"] / T_arch.H100_SXM.ici_bw
+    # replicating the model over "model" changes what is sent
+    assert data["dp_only"]["coll"] != data["baseline"]["coll"]
     assert no_remat["compute_s"] < base["compute_s"]
     assert base["compute_s"] == base["flops"] / T_arch.H100_SXM.peak_flops
     assert data["dp_only"]["flops"] == base["flops"]

@@ -1,0 +1,277 @@
+#!/usr/bin/env python3
+"""The collective census of every train_4k cell, the port's beside the
+reference's: bytes a device a step by kind, on the production 16x16 and
+2x16x16 meshes.
+
+    python3 tests/torch_census_table.py port --device cuda --out DIR
+    PYTHONPATH=src python tests/torch_census_table.py reference --out DIR
+    python3 tests/torch_census_table.py shapes --arch A --out DIR
+    PYTHONPATH=src python tests/torch_census_table.py hlo --arch A --out DIR
+    python3 tests/torch_census_table.py table --port DIR --ref DIR
+
+- `port` (torch only: runs on the card's machine, which it uses no card
+  of) runs `python -m repro_torch.launch.dryrun --arch A --shape
+  train_4k [--multi-pod] --device D` for every cell, `--jobs` at a
+  time, each writing `DIR/<arch>_<mesh>/dryrun_<mesh>.json`.
+- `reference` (the JAX package on the CPU) runs the reference's
+  `run_cell(A, "train_4k", multi_pod, extrapolate=True)` a cell a
+  process that imported `repro.launch.dryrun` first (its XLA flags):
+  on 16x16 what `python -m repro.launch.dryrun --arch A --shape
+  train_4k` runs, on 2x16x16 with the depth extrapolation the CLI
+  leaves out there.  A cell over REF_TIMEOUT_S is recorded as cut.
+- `shapes` (torch only) and `hlo` (the JAX package) group one cell's
+  collectives by kind, type and shape, largest first, the port's
+  census and the reference's partitioned HLO at full depth (a scanned
+  stack's body once); `hlo` marks the shapes that hold the vocabulary.
+- `table` prints the markdown table of both censuses, kind by kind,
+  and their ratio; `--gloo DIR` adds a `port --device cpu` sweep's
+  totals.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.configs import ARCH_IDS  # noqa: E402
+
+MESHES = {False: "16x16", True: "2x16x16"}
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "collective-permute")
+SHAPE = "train_4k"
+PORT_TIMEOUT_S = 900
+REF_TIMEOUT_S = 600
+TOP = 30
+CELLS = [(a, mp) for mp in (False, True) for a in ARCH_IDS]
+ENV = dict(os.environ, PYTHONPATH=os.pathsep.join(
+    [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+
+_REF_CELL = """
+import json, sys
+import repro.launch.dryrun  # noqa: F401  (its XLA flags: 512 host devices)
+from repro.launch.cells import run_cell
+res = run_cell(sys.argv[1], "train_4k", sys.argv[2] == "1", extrapolate=True)
+print("RECORD " + json.dumps(res.to_json(), default=float))
+"""
+
+
+def _run(cmd: list, timeout: float) -> tuple:
+    """(exit code or None if cut, output, seconds) of `cmd`."""
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(cmd, capture_output=True, text=True, env=ENV,
+                           cwd=ROOT, timeout=timeout)
+        rc, text = r.returncode, r.stdout + r.stderr
+    except subprocess.TimeoutExpired:
+        rc, text = None, f"cut at {timeout} s"
+    return rc, text, time.perf_counter() - t0
+
+
+def port(args) -> int:
+    def one(cell):
+        arch, mp = cell
+        rc, text, wall = _run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", SHAPE, "--device", args.device, "--out",
+             str(Path(args.out) / f"{arch}_{MESHES[mp]}")]
+            + (["--multi-pod"] if mp else []), PORT_TIMEOUT_S)
+        print(json.dumps({"arch": arch, "mesh": MESHES[mp], "rc": rc,
+                          "wall_s": wall, "tail": text[-1500:] if rc
+                          else ""}), flush=True)
+        return rc == 0
+
+    with ThreadPoolExecutor(args.jobs) as pool:
+        return 0 if all(pool.map(one, CELLS)) else 1
+
+
+def reference(args) -> int:
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    for arch, mp in CELLS:
+        path = out / f"{arch}_{MESHES[mp]}.json"
+        if path.exists():
+            continue
+        rc, text, wall = _run([sys.executable, "-c", _REF_CELL, arch,
+                               str(int(mp))], REF_TIMEOUT_S)
+        rec = {"arch": arch, "mesh": MESHES[mp], "ok": False}
+        found = [ln for ln in text.splitlines() if ln.startswith("RECORD ")]
+        if found:
+            rec.update(json.loads(found[-1][len("RECORD "):]))
+        else:
+            rec["error"] = f"exit {rc}: {text[-300:]}"
+        rec["wall_s"] = wall
+        path.write_text(json.dumps(rec, indent=1))
+        print(json.dumps({k: rec.get(k) for k in
+                          ("arch", "mesh", "ok", "wall_s", "error")}),
+              flush=True)
+    return 0
+
+
+def _groups_out(args, name: str, res: dict) -> int:
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    res["by_shape"] = dict(sorted(res["by_shape"].items(),
+                                  key=lambda kv: -kv[1][1]))
+    (out / f"{name}_{args.arch}_{MESHES[args.multi_pod]}.json").write_text(
+        json.dumps(res, indent=1))
+    for key, (n, nbytes) in list(res["by_shape"].items())[:TOP]:
+        print(f"{nbytes / 1e9:10.3f} GB {n:6d} x {key}")
+    return 0
+
+
+def shapes(args) -> int:
+    """The port's census of `--arch` on a fake mesh of `--device`'s
+    type, by "<kind> <dtype><shape>" of each collective's output."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import cells
+    from repro_torch.launch.mesh import (fake_production_mesh,
+                                         make_production_mesh)
+
+    class ByShape(cells.CollectiveCensus):
+        def __init__(self):
+            super().__init__()
+            self.by_shape: dict[str, list] = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            before = dict(self.bytes)
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            for kind, b in self.bytes.items():
+                if b != before[kind]:
+                    key = f"{kind} " + " ".join(
+                        f"{str(t.dtype).removeprefix('torch.')}"
+                        f"{list(t.shape)}" for t in
+                        cells._pytree_leaves(out)
+                        if hasattr(t, "dtype"))
+                    seen = self.by_shape.setdefault(key, [0, 0.0])
+                    seen[0] += 1
+                    seen[1] += b - before[kind]
+            return out
+
+    mesh = make_production_mesh(multi_pod=args.multi_pod)
+    with fake_production_mesh(mesh, args.device) as fake:
+        step, *inputs = cells.train_step_inputs(
+            get_config(args.arch), SHAPES[SHAPE], fake, cells.train_config(),
+            meta=True)
+        with ByShape() as census:
+            step(*inputs)
+    return _groups_out(args, f"port_{args.device}", {
+        "arch": args.arch, "census": census.result(),
+        "by_shape": census.by_shape})
+
+
+def hlo(args) -> int:
+    """The reference's partitioned HLO of `--arch` at full depth, its
+    collectives by "<kind> <type>[<shape>]" as `parse_collective_bytes`
+    counts them; "(vocab)" marks a shape holding the vocabulary or its
+    16th."""
+    import repro.launch.dryrun  # noqa: F401  (XLA flags first)
+    import jax
+
+    from repro.configs import get_config
+    from repro.configs.base import SHAPES
+    from repro.launch.cells import _HLO_RE, _lower_cell, parse_collective_bytes
+    from repro.launch.mesh import make_production_mesh
+
+    cfg = get_config(args.arch)
+    mesh = make_production_mesh(multi_pod=args.multi_pod)
+    with getattr(jax.sharding, "set_mesh", lambda m: m)(mesh):
+        text = _lower_cell(cfg, SHAPES[SHAPE], mesh, "train",
+                           unroll=False).compile().as_text()
+    vocab = {str(cfg.vocab_size), str(cfg.vocab_size // 16)}
+    groups: dict[str, list] = {}
+    for m in _HLO_RE.finditer(text):
+        key = f"{m.group(3)} {m.group(1)}[{m.group(2)}]" + (
+            " (vocab)" if vocab & set(m.group(2).split(",")) else "")
+        seen = groups.setdefault(key, [0, 0.0])
+        seen[0] += 1
+        seen[1] += parse_collective_bytes(m.group(0) + ")")["total"]
+    return _groups_out(args, "hlo", {
+        "arch": args.arch, "census": parse_collective_bytes(text),
+        "by_shape": groups})
+
+
+def _record(d: Path, arch: str, mesh: str) -> dict:
+    path = d / f"{arch}_{mesh}" / f"dryrun_{mesh}.json"
+    return json.loads(path.read_text()).get(f"{arch}|{SHAPE}", {}) \
+        if path.exists() else {}
+
+
+def _gb(x) -> str:
+    return f"{x / 1e9:.2f}"
+
+
+def table(args) -> int:
+    """A row a cell: each kind and the total as port / reference in GB
+    a device, the ratio, the operations, the port's seconds (`lower_s`
+    + `compile_s`), with `--gloo` the gloo sweep's total and seconds,
+    and the reference's wall seconds.  The reference's `total` is
+    clamped key by key to its full-depth count, so it may fall below
+    its kinds' sum: the table sums the kinds and notes the other."""
+    port_dir, ref_dir = Path(args.port), Path(args.ref)
+    gloo = Path(args.gloo) if args.gloo else None
+    print("| cell | " + " | ".join(KINDS) + " | total | port / ref | ops "
+          "| port s |" + (" gloo total, s |" if gloo else "") + " ref s |")
+    print("|" + " --- |" * (len(KINDS) + 6 + bool(gloo)))
+    for arch, mp in CELLS:
+        mesh = MESHES[mp]
+        got = _record(port_dir, arch, mesh)
+        ref_path = ref_dir / f"{arch}_{mesh}.json"
+        want = json.loads(ref_path.read_text()) if ref_path.exists() else {}
+        a, b = got.get("collectives"), want.get("collectives")
+        if not a or not b:
+            why = [f"{side}: {rec.get('error') or 'not run'}"[:60]
+                   for side, rec, c in (("port", got, a),
+                                        ("reference", want, b)) if not c]
+            print(f"| {arch} {mesh} | " + "; ".join(why)
+                  + " |" * (len(KINDS) + 5))
+            continue
+        ta, tb = (sum(c[k] for k in KINDS) for c in (a, b))
+        note = "" if abs(b["total"] - tb) <= 0.01 * tb \
+            else f" (reported {_gb(b['total'])})"
+        row = (f"| {arch} {mesh} | "
+               + " | ".join(f"{_gb(a[k])} / {_gb(b[k])}" for k in KINDS)
+               + f" | {_gb(ta)} / {_gb(tb)}{note} | {ta / tb:.2f}"
+               f" | {int(a['n_ops'])} / {int(b['n_ops'])}"
+               f" | {got['lower_s']:.1f} + {got['compile_s']:.1f} |")
+        if gloo:
+            g = _record(gloo, arch, mesh)
+            row += (f" {_gb(g['collectives']['total'])}, {g['lower_s']:.1f}"
+                    f" + {g['compile_s']:.1f} |" if g.get("collectives")
+                    else f" {(g.get('error') or 'not run')[:40]} |")
+        print(row + f" {want['wall_s']:.0f} |")
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("port")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--out", required=True)
+    p.add_argument("--jobs", type=int, default=4)
+    sub.add_parser("reference").add_argument("--out", required=True)
+    for name in ("shapes", "hlo"):
+        b = sub.add_parser(name)
+        b.add_argument("--arch", required=True)
+        b.add_argument("--multi-pod", action="store_true")
+        b.add_argument("--out", required=True)
+        b.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    t = sub.add_parser("table")
+    t.add_argument("--port", required=True)
+    t.add_argument("--ref", required=True)
+    t.add_argument("--gloo", default="")
+    args = ap.parse_args()
+    return {"port": port, "reference": reference, "shapes": shapes,
+            "hlo": hlo, "table": table}[args.cmd](args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())
