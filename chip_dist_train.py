@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Training over four cards: the port's sharded training step on a
-mesh of NCCL processes, one a card.
+"""Training and serving over four cards: the port's sharded training
+step, prefill and decode on a mesh of NCCL processes, one a card.
 
-    python3 chip_dist_train.py [--runs a,b,c,d,e,f,g,h]
+    python3 chip_dist_train.py [--runs a,b,c,d,e,f,g,h,s]
         [--archs qwen3_0_6b,gemma_7b]
 
 Run from the root of a checkout on a machine with four cards.  It
@@ -51,7 +51,25 @@ gates the results here:
   card as (a);
 - (h) one Llama-3.2-Vision period (5 of 100 layers, bf16 parameters,
   Adafactor, 4096 image embeddings a row) over 1x2x2 against one card,
-  losses within rtol 1e-3.
+  losses within rtol 1e-3;
+- (s) serving (`SERVE`): Qwen3-0.6B whole in float32 over 1x2x2 and
+  1x1x4, and Gemma-7B whole with bf16 compute over 1x1x4 (head dim 256
+  on the local shards), each `LM.prefill` of 4 x 4096 tokens (the
+  pipeline's batch, seed 0), its K/V written into a cache of 4096 + 32
+  positions, then 32 `LM.decode_step`s: one card greedy, each mesh fed
+  one card's picks.  Gates: the prefill's and every step's logits
+  within 1e-5 of one card's largest magnitude in float32 (the bound of
+  tests/test_torch_dist_serve.py) and every decode step's greedy pick
+  equal to one card's; in bf16 within 0.05 (the LM's bf16 bound in
+  tests/test_torch_lm_families.py) and each pick equal wherever one
+  card's two largest logits are more than twice that step's largest
+  logit difference apart (a nearer tie may flip with bf16 rounding:
+  the first four-card run flipped 3 of Gemma-7B's 128 picks); the flash launches a rank
+  (one a layer in the prefill, none in a decode step); rank 0's NCCL
+  census of one decode step equal, kind by kind and in operations, to
+  the fake "cuda" mesh's census of the same step (`cells.fake_census`
+  of a decode cell of 4 rows and 4128 positions).  Prints the prefill
+  seconds and each decode step's milliseconds a token.
 
 Every run gates each rank's flash launches a step (2 forward an
 attention call with remat, 1 backward, all on the variant the compute
@@ -119,6 +137,14 @@ CASES = {
     "h": ("h", "llama_3_2_vision_90b", dict(n_layers=5), ((1, 2, 2),),
           "bf16"),
 }
+# Part (s): run key -> (arch, config overrides, meshes, logits bound
+# as a share of one card's largest magnitude); `--archs` picks them too.
+SERVE = {
+    "s_qwen3_0_6b": ("qwen3_0_6b", dict(compute_dtype="float32"),
+                     ((1, 2, 2), (1, 1, 4)), 1e-5),
+    "s_gemma_7b": ("gemma_7b", {}, ((1, 1, 4),), 0.05),
+}
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 4096, 32
 RANK_TIMEOUT_S = 900
 # The ranks' caching allocator grows segments in place, so that blocks
 # freed at one size serve others: without it Gemma-7B's step ran out of
@@ -301,6 +327,95 @@ def _launch_train(torch, mesh_shape, port, rank, world, ckpt: Path) -> dict:
             if DEVICE == "cuda" else 0}
 
 
+def _serve(torch, cfg, mesh, dev, fed) -> dict:
+    """Part (s) on this rank: prefill SERVE_BATCH x SERVE_PROMPT tokens
+    (the pipeline's batch 0 of seed 0; this rank's rows over a mesh),
+    the K/V written into a cache of SERVE_PROMPT + SERVE_STEPS
+    positions, then SERVE_STEPS decode steps fed `fed` (SERVE_BATCH,
+    SERVE_STEPS) tokens, or greedy where `fed` is None; the second
+    step under the census.  Returns the prefill's and each step's
+    logits (whole), the picks, the times and the flash launches."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.data.pipeline import DataConfig, make_batch_rows
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.launch.cells import CollectiveCensus
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.lm import build_model
+    from repro_torch.train.train_step import place_batch, rank_rows
+
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev, mesh=mesh,
+                        generator=torch.Generator(dev).manual_seed(0))
+    data = DataConfig(seed=0, vocab_size=cfg.vocab_size,
+                      seq_len=SERVE_PROMPT, global_batch=SERVE_BATCH,
+                      modality=cfg.modality, d_model=cfg.d_model,
+                      n_image_tokens=cfg.n_image_tokens)
+    rows = (0, SERVE_BATCH) if mesh is None else rank_rows(mesh,
+                                                          SERVE_BATCH)
+
+    def place(tokens):
+        tokens = tokens.to(dev, torch.int32)
+        return tokens if mesh is None else \
+            place_batch({"tokens": tokens}, mesh)["tokens"]
+
+    prompt = torch.from_numpy(make_batch_rows(data, 0, *rows)["tokens"])
+    before = _launches(fa_mod)
+    _sync(torch)
+    t0 = now()
+    logits, pre = model.prefill({"tokens": place(prompt)})
+    _sync(torch)
+    out = {"prefill_s": now() - t0,
+           "prefill_launches": _step_launches(before, _launches(fa_mod)),
+           "prefill_logits": _whole(logits).cpu(), "logits": [],
+           "picks": [], "fed": [], "step_ms": [], "decode_launches": None}
+    cdt = dtype_of(cfg.compute_dtype)
+    cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_STEPS,
+                             dtype=cdt)
+    attn = [si for si, slot in enumerate(model.slots) if slot.kind == "attn"]
+    for si, kv in zip(attn, pre["kv"]):
+        for name, t in zip(("k", "v"), kv):
+            leaf = cache[f"slot{si}"][name]
+            if isinstance(leaf, DTensor):
+                padded = torch.zeros(leaf.shape, dtype=cdt, device=dev)
+                padded[..., :SERVE_PROMPT, :] = _whole(t)
+                leaf.to_local().copy_(distribute_tensor(
+                    padded, mesh, leaf.placements, src_data_rank=None)
+                    .to_local())
+                del padded
+            else:
+                leaf[..., :SERVE_PROMPT, :] = t
+    del pre
+    tok = torch.argmax(_whole(logits)[:, -1], dim=-1)[:, None]
+    before = _launches(fa_mod)
+    for i in range(SERVE_STEPS):
+        if fed is not None:
+            tok = fed[:, i:i + 1]
+        out["fed"].append(tok.cpu())
+        census = CollectiveCensus()
+        _sync(torch)
+        t0 = now()
+        with census if i == 1 else contextlib.nullcontext():
+            step_logits, cache = model.decode_step(
+                cache, place(tok[slice(*rows)]), SERVE_PROMPT + i)
+        whole = _whole(step_logits)
+        _sync(torch)
+        out["step_ms"].append((now() - t0) * 1e3)
+        if i == 1:
+            out["census"] = census.result()
+        tok = torch.argmax(whole[:, -1], dim=-1)[:, None]
+        out["picks"].append(tok.cpu())
+        out["logits"].append(whole.cpu())
+    out["decode_launches"] = _step_launches(before, _launches(fa_mod))
+    out["picks"] = torch.cat(out["picks"], dim=1)
+    out["fed"] = torch.cat(out["fed"], dim=1)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() \
+        if DEVICE == "cuda" else 0
+    out["calls"] = attention_calls(cfg)
+    return out
+
+
 def rank_main(run: str, rank: int, world: int, port: int) -> None:
     """One rank of `run`; rank 0 (and the single-card runs) write the
     result to OUT/<run>.pt, every rank its own summary to
@@ -316,6 +431,27 @@ def rank_main(run: str, rank: int, world: int, port: int) -> None:
     if part == "b":
         res = _launch_train(torch, shape, port, rank, world,
                             OUT / f"ckpt_{run}")
+    elif part == "s":
+        mesh = None
+        if shape is not None:
+            mesh = init_train_mesh(shape, device=DEVICE,
+                                   init_method=f"tcp://localhost:{port}",
+                                   world_size=world, rank=rank)
+        dev = torch.device(DEVICE, torch.cuda.current_device()) \
+            if DEVICE == "cuda" else torch.device("cpu")
+        arch, over, _, _ = SERVE[key]
+        fed = None if shape is None else \
+            torch.load(OUT / f"{key}_single.pt")["fed"]
+        try:
+            res = _serve(torch, _config(arch, **over), mesh, dev, fed)
+        finally:
+            if mesh is not None:
+                close_train_mesh()
+        whole = {k: res.pop(k) for k in ("prefill_logits", "logits",
+                                          "picks", "fed")}
+        if rank == 0:
+            torch.save(whole, OUT / f"{run}.pt")
+        res["layers"] = _config(arch, **over).n_layers
     else:
         mesh = None
         if shape is not None:
@@ -356,11 +492,16 @@ def fake_census_main(run: str) -> None:
 
     key, mesh_name = run.rsplit("_", 1)
     shape = tuple(int(n) for n in mesh_name.split("x"))
-    _, arch, over, _, _ = CASES[key]
+    if key in SERVE:
+        arch, over, _, _ = SERVE[key]
+        cell = ShapeConfig(run, SERVE_PROMPT + SERVE_STEPS, SERVE_BATCH,
+                           "decode")
+    else:
+        _, arch, over, _, _ = CASES[key]
+        cell = ShapeConfig(run, SEQ, BATCH, "train")
     t0 = now()
-    census = fake_census(
-        _config(arch, **over), ShapeConfig(run, SEQ, BATCH, "train"),
-        dict(zip(TRAIN_AXES, shape)), _tcfg(), DEVICE)
+    census = fake_census(_config(arch, **over), cell,
+                         dict(zip(TRAIN_AXES, shape)), _tcfg(), DEVICE)
     (OUT / f"{run}.fake.json").write_text(json.dumps(
         {"census": census, "seconds": now() - t0}))
 
@@ -547,6 +688,76 @@ def run_case(key: str) -> None:
         (OUT / f"{key}_single.pt").unlink()
 
 
+def run_serve(key: str) -> None:
+    """Part (s) for `SERVE[key]`: one card greedy, then each mesh fed
+    its picks; gated as the module says."""
+    import torch
+
+    arch, over, meshes, share = SERVE[key]
+    cfg = _config(arch, **over)
+    var = "simt" if cfg.compute_dtype == "float32" else "wgmma"
+    runs = [f"{key}_single"] + [f"{key}_" + "x".join(map(str, m))
+                                for m in meshes]
+    want = None
+    for run, shape in zip(runs, (None,) + meshes):
+        ranks = spawn(run, 1 if shape is None else math.prod(shape))
+        got = torch.load(OUT / f"{run}.pt")
+        for r, res in enumerate(ranks):
+            check(res["prefill_launches"] == [
+                {v: res["calls"] * (v == var) for v in ("wgmma", "simt")},
+                {"wgmma": 0, "simt": 0}]
+                and res["decode_launches"] == [{"wgmma": 0, "simt": 0}] * 2,
+                f"{run}: rank {r} flash launches {res['prefill_launches']}"
+                f" in the prefill, {res['decode_launches']} decoding")
+        r0 = ranks[0]
+        line = {"phase": run, "arch": arch, "layers": r0["layers"],
+                "prefill_s": [r["prefill_s"] for r in ranks],
+                "prefill_launches_rank": r0["prefill_launches"],
+                "decode_ms_per_token": [ms / SERVE_BATCH
+                                        for ms in r0["step_ms"]],
+                "decode_ms_median": statistics.median(r0["step_ms"][1:]),
+                "peak_gb_per_card": [r["peak_bytes"] / 1e9 for r in ranks],
+                "census_rank0": r0.get("census")}
+        if want is None:
+            want = got
+        else:
+            errs = [(g - w).abs().max().item() / w.abs().max().item()
+                    for g, w in zip([got["prefill_logits"]] + got["logits"],
+                                    [want["prefill_logits"]]
+                                    + want["logits"])]
+            # A pick may differ from one card's only where one card's
+            # two largest logits are within twice the step's largest
+            # difference (bf16; float32 gates every pick).
+            ties, bad = 0, []
+            for i, (g, w) in enumerate(zip(got["logits"], want["logits"])):
+                top = w[:, -1].topk(2, dim=-1).values
+                near = top[:, 0] - top[:, 1] <= 2 * (g - w).abs().max()
+                flip = got["picks"][:, i] != want["picks"][:, i]
+                ties += int((flip & near).sum())
+                if (flip & ~near).any() or (share <= 1e-5 and flip.any()):
+                    bad.append(i)
+            line.update(max_rel_logits_err=max(errs), bound=share,
+                        picks_flipped_at_near_ties=ties, picks_bad_steps=bad,
+                        picks_equal=bool(torch.equal(got["picks"],
+                                                     want["picks"])))
+            fake = fake_census(run)
+            line.update(census_fake_mesh=fake["census"],
+                        census_fake_mesh_s=fake["seconds"])
+            emit(line)
+            check(not bad, f"{run}: picks at steps {bad} differ from one "
+                  f"card's {want['picks'].tolist()}: "
+                  f"{got['picks'].tolist()}")
+            check(max(errs) <= share, f"{run}: logits {max(errs):.3g} of "
+                  f"one card's largest, bound {share}")
+            check(fake["census"] == r0["census"],
+                  f"{run}: the fake mesh's census {fake['census']} is not "
+                  f"rank 0's {r0['census']}")
+            (OUT / f"{run}.pt").unlink()
+            continue
+        emit(line)
+    (OUT / f"{key}_single.pt").unlink()
+
+
 def part_b() -> None:
     import shutil
 
@@ -603,9 +814,10 @@ def smi_line() -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     a_archs = [k[2:] for k in CASES if k.startswith("a_")]
-    ap.add_argument("--runs", default="a,b,c,d,e,f,g,h")
+    ap.add_argument("--runs", default="a,b,c,d,e,f,g,h,s")
     ap.add_argument("--archs", default=",".join(a_archs),
-                    help="part (a)'s models, of " + ", ".join(a_archs))
+                    help="part (a)'s and (s)'s models, of "
+                    + ", ".join(a_archs))
     ap.add_argument("--rank-of", help=argparse.SUPPRESS)
     ap.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--world", type=int, default=1, help=argparse.SUPPRESS)
@@ -649,6 +861,8 @@ def main() -> int:
              "c": part_c}
     parts.update({p: cases([k for k, c in CASES.items() if c[0] == p])
                   for p in "defgh"})
+    parts["s"] = lambda: [run_serve(k) for k in SERVE
+                          if SERVE[k][0] in archs]
     failed = []
     for name in args.runs.split(","):
         t1 = now()

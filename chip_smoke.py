@@ -32,7 +32,7 @@ prefill at full width.  The training path comes next, counts set to 0:
 - `lm_train_qwen3_0_6b`: `launch.train` at its defaults on Qwen3-0.6B
   at full width and depth (batch 8 x seq 512, bf16 compute, AdamW,
   remat), 6 steps through `train_with_recovery` with a checkpoint every
-  2 and a RuntimeError injected at step 3, then the same 6 steps
+  3 and a RuntimeError injected at step 4, then the same 6 steps
   uninterrupted: one restart, finite losses, the steps after the
   rollback equal to the uninterrupted run's, and 56 forward and 28
   backward flash launches a step, every bf16 backward on its wgmma
@@ -59,6 +59,13 @@ the DTensor path alone:
   steps' worth of each in the path's counts, the collective census 0,
   the phase within 45 s.  `chip_dist_train.py` runs the mesh over
   four cards.
+- `dist_serve_one_card`: prefill and decode over the same kind of mesh
+  (counts set to 0 between its unsharded run and its mesh run):
+  Qwen3-0.6B at full width in float32, `LM.prefill` of 4 x 1024 and 8
+  greedy decode steps against the unsharded model from the same seed
+  (the mesh fed its tokens): logits and K/V within 1e-5 of the largest
+  magnitude, equal picks, one simt flash launch a layer in the
+  prefill and none decoding, the census 0, the phase within 45 s.
 
 The other families train next at their configs' published widths,
 counts set to 0 before each, 4 steps of 8 x 512 tokens (HuBERT: frames)
@@ -176,11 +183,15 @@ meta device) runs in three phases:
   `run_cell` on the 16x16 mesh for DRYRUN_CELLS, every applicable cell
   counted and every skip with the reference's reason, the counts within
   DRYRUN_BUDGET_S, each with its per-device FLOPs, bytes, memory and
-  H100 roofline terms; each train cell (Qwen3-0.6B, Kimi K2,
-  Nemotron-4) also with its collective census by kind, taken over a
-  fake "cuda" production mesh (NCCL's plans; no card used: the card's
-  allocated and peak bytes are gated unchanged), Qwen3's all-to-all >
-  0, the censuses within DRYRUN_CENSUS_BUDGET_S; `hillclimb.run`'s
+  H100 roofline terms; each counted cell (the train cells of
+  Qwen3-0.6B, Kimi K2 and Nemotron-4, Qwen3's prefill_32k and
+  decode_32k, Jamba's and Mamba-2's long_500k) also with its collective
+  census by kind, taken over a fake "cuda" production mesh (NCCL's
+  plans; no card used: the card's allocated and peak bytes are gated
+  unchanged), Qwen3's train all-to-all > 0, each decode cell's census
+  below its cache's bytes a device (the decode step keeps the weights
+  and the cache in place), the censuses within
+  DRYRUN_CENSUS_BUDGET_S; `hillclimb.run`'s
   "baseline" and "no_remat" on Qwen3-0.6B train_4k, whose compute
   term must fall and whose collective term must be above 0;
 - `dryrun_vs_card` on a one-device mesh, for Qwen3-0.6B training (8 x
@@ -331,10 +342,12 @@ PREFILL_B, PREFILL_S = 4, 4096
 PREFILL_WARM = 5
 # Qwen3-0.6B training through `launch.train` at its defaults (batch 8 x
 # seq 512, bf16 compute, f32 params, AdamW, remat, seed 0): 6 steps,
-# a checkpoint every 2, one injected RuntimeError at step 3; then the
+# a checkpoint every 3, one injected RuntimeError at step 4; then the
 # same 6 steps uninterrupted (one checkpoint, at the end), whose losses
 # the steps after the rollback must match within TRAIN_ROLLBACK_RTOL.
-TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAULT_STEP = 6, 2, 3
+# A checkpoint of the whole state is 9 GB and takes 10-19 s to write:
+# every 3 steps writes two in the faulty run where every 2 wrote four.
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAULT_STEP = 6, 3, 4
 TRAIN_ROLLBACK_RTOL = 1e-3
 # The reduced config in f32, 3 steps, card against CPU: the CPU parity
 # tolerances of tests/test_torch_train.py (losses rtol 1e-5, parameters
@@ -360,6 +373,16 @@ DIST_FAMILIES = ("phi3_5_moe_42b", "mamba2_1_3b", "jamba_v0_1_52b",
                  "llama_3_2_vision_90b", "hubert_xlarge")
 DIST_FAMILY_B, DIST_FAMILY_S = 4, 128
 DIST_BUDGET_S = 45.0
+# The serving path over a (1, 1, 1) NCCL mesh (`dist_serve_one_card`):
+# Qwen3-0.6B at full width in float32, prefill SERVE_MESH_B x
+# SERVE_MESH_S, then SERVE_MESH_STEPS greedy decode steps, against the
+# unsharded model: the prefill's and each decode step's logits within
+# SERVE_MESH_SHARE of the largest magnitude (the bound of
+# tests/test_torch_dist_serve.py: the mesh's decode attention merges
+# its blocks by log-sum-exp), the picks equal; within SERVE_MESH_BUDGET_S.
+SERVE_MESH_B, SERVE_MESH_S, SERVE_MESH_STEPS = 4, 1024, 8
+SERVE_MESH_SHARE = 1e-5
+SERVE_MESH_BUDGET_S = 45.0
 # Teacher-forced decode against prefill at full width, float32 compute:
 # logits and K/V stacks within this (rtol and atol).
 DECODE_TOL_F32 = 1e-3
@@ -494,6 +517,7 @@ DRYRUN_SKIPS = {("qwen3_0_6b", "long_500k"): _LONG_SKIP,
                 ("hubert_xlarge", "decode_32k"):
                     "encoder-only arch has no decode step"}
 DRYRUN_BUDGET_S = 90.0
+DRYRUN_MESH = {"data": 16, "model": 16}
 # The train cells' censuses (`CellResult.compile_s`, DTensor planning
 # one step over a fake 256-rank "cuda" mesh), summed: about twice the
 # 25-31 s they took on an H100 host, whose speed has moved 25-60%
@@ -2002,7 +2026,7 @@ def phase_lm_train(torch, train_mod, fa_mod, configs):
           and clean.restarts == 0 and len(clean.losses) == TRAIN_STEPS,
           f"restarts {faulty.restarts}, steps {faulty.steps_run}, "
           f"clean {clean.restarts} / {len(clean.losses)}")
-    # Steps 0..2 ran, step 3 failed, the rollback went to step 2.
+    # Steps 0..3 ran, step 4 failed, the rollback went to step 3.
     rollback = TRAIN_FAULT_STEP - TRAIN_FAULT_STEP % TRAIN_CKPT_EVERY
     after = faulty.losses[TRAIN_FAULT_STEP:]
     check(len(after) == TRAIN_STEPS - rollback,
@@ -2238,8 +2262,10 @@ def phase_dryrun_cells(torch, cells, tpu_model):
     allocated or launched), each train cell's collective census over a
     fake "cuda" production mesh (NCCL's plans).  Gates: every
     applicable cell counted, every other skipped with the reference's
-    reason; every train cell's census under `parse_collective_bytes`'
-    keys with a total above 0, Qwen3-0.6B's all-to-all above 0; the
+    reason; every counted cell's census (train, prefill and decode)
+    under `parse_collective_bytes`' keys with a total above 0, each
+    decode cell's total below its cache's bytes a device
+    (`cells.cache_bytes`), Qwen3-0.6B's train all-to-all above 0; the
     card's allocated and peak bytes unchanged; the counts (`lower_s`)
     within DRYRUN_BUDGET_S and the censuses (`compile_s`) within
     DRYRUN_CENSUS_BUDGET_S.  Prints per device the FLOPs, bytes,
@@ -2262,16 +2288,20 @@ def phase_dryrun_cells(torch, cells, tpu_model):
                "ok": res.ok, "skip_reason": res.skip_reason}
         if res.ok:
             coll = res.collectives
-            if res.mode == "train":
-                check(coll is not None and set(coll) == keys
-                      and coll["total"] > 0,
-                      f"dryrun {arch} {shape}: census {coll}")
-            else:
-                check(coll is None, f"dryrun {arch} {shape}: a census "
-                      f"{coll} on a cell with no mesh path")
+            check(coll is not None and set(coll) == keys
+                  and coll["total"] > 0,
+                  f"dryrun {arch} {shape}: census {coll}")
+            if res.mode == "decode":
+                row["cache_bytes_per_device"] = cells.cache_bytes(
+                    cells.get_config(arch), cells.SHAPES[shape],
+                    DRYRUN_MESH)
+                check(coll["total"] < row["cache_bytes_per_device"],
+                      f"dryrun {arch} {shape}: the decode step's census "
+                      f"{coll['total']:.4g} B is not below its cache's "
+                      f"{row['cache_bytes_per_device']:.4g} B a device")
             terms = tpu_model.step_roofline(
-                res.flops, res.bytes_accessed,
-                0.0 if coll is None else coll["total"], target=H100_SXM)
+                res.flops, res.bytes_accessed, coll["total"],
+                target=H100_SXM)
             mem = res.memory
             row.update(
                 trace_s=res.lower_s, census_s=res.compile_s,
@@ -2281,7 +2311,7 @@ def phase_dryrun_cells(torch, cells, tpu_model):
                 + mem["output_size_in_bytes"] <= H100_SXM.hbm_bytes,
                 collectives=coll,
                 collectives_gb={k: v / 1e9 for k, v in coll.items()
-                                if k != "n_ops"} if coll else None,
+                                if k != "n_ops"},
                 compute_s=terms.compute_s, memory_s=terms.memory_s,
                 collective_s=terms.collective_s, bound=terms.bound,
                 step_s=terms.step_s)
@@ -2695,6 +2725,140 @@ def phase_dist_train_one_card(torch, lm_mod, configs, train_step_mod,
     return {v: tuple(n) for v, n in want.items()}
 
 
+def phase_dist_serve_one_card(torch, lm_mod, configs, train_step_mod,
+                              pipeline, mesh_mod, cells, fa_mod, reset):
+    """`dist_serve_one_card`: the serving path over a mesh (prefill
+    and decode on a placed model, `train_step.place_batch`,
+    `LM.init_cache` over the mesh, the decode step's weights and cache
+    in place) on an NCCL world of one process (mesh (1, 1, 1)), against
+    the unsharded model from the same seed: Qwen3-0.6B at full width in
+    float32, `LM.prefill` of SERVE_MESH_B x SERVE_MESH_S (the pipeline's
+    batch 0), its K/V in the first positions of a cache SERVE_MESH_STEPS
+    longer, then SERVE_MESH_STEPS greedy decode steps (the mesh fed the
+    unsharded run's tokens).  Gates: the prefill's logits and K/V and
+    each decode step's logits within SERVE_MESH_SHARE of the largest
+    magnitude (whether the prefill is bit-equal is printed), each
+    step's pick equal, the prefill's flash launches
+    one a layer (simt: float32) and none decoding, no collective, the
+    phase within SERVE_MESH_BUDGET_S.  `reset` sets every launch count
+    to 0 between the unsharded run and the mesh's, so the counts read
+    after the phase are the mesh path's alone.  Returns the flash
+    launches it must count."""
+    import dataclasses
+
+    t_phase = now()
+    cfg = dataclasses.replace(configs.get_config("qwen3_0_6b"),
+                              compute_dtype="float32")
+    calls = attention_calls(cfg)
+    b, s, steps = SERVE_MESH_B, SERVE_MESH_S, SERVE_MESH_STEPS
+    data = pipeline.DataConfig(seed=0, vocab_size=cfg.vocab_size,
+                               seq_len=s, global_batch=b,
+                               modality=cfg.modality, d_model=cfg.d_model,
+                               n_image_tokens=cfg.n_image_tokens)
+    prompt = torch.from_numpy(pipeline.make_batch(data, 0)["tokens"]).to(
+        "cuda")
+
+    def whole(x):
+        return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+    def run(mesh, fed):
+        model = lm_mod.build_model(
+            cfg, device="cuda", mesh=mesh,
+            generator=torch.Generator(device="cuda").manual_seed(0))
+
+        def place(tokens):
+            return tokens if mesh is None else train_step_mod.place_batch(
+                {"tokens": tokens}, mesh)["tokens"]
+
+        before = _launches(fa_mod)
+        census = cells.CollectiveCensus()
+        torch.cuda.synchronize()
+        t0 = now()
+        with census:
+            logits, pre = model.prefill({"tokens": place(prompt)})
+        torch.cuda.synchronize()
+        out = {"prefill_s": now() - t0, "logits": [whole(logits)],
+               "kv": [whole(t) for kv in pre["kv"] for t in kv]}
+        _check_step_launches(fa_mod, before, calls,
+                             "dist_serve_one_card prefill", train=False,
+                             variant="simt")
+        cache = model.init_cache(b, s + steps, dtype=torch.float32)
+        # One rank's shard of a DTensor is the whole tensor.
+        for kv, leaves in zip(pre["kv"], cache.values()):
+            for t, name in zip(kv, ("k", "v")):
+                local = leaves[name].to_local() if mesh is not None \
+                    else leaves[name]
+                local[..., :s, :] = t.to_local() if mesh is not None else t
+        del pre
+        tok = torch.argmax(out["logits"][0][:, -1], dim=-1)[:, None]
+        out["fed"], out["step_ms"] = [], []
+        before = _launches(fa_mod)
+        for i in range(steps):
+            tok = tok if fed is None else fed[i]
+            out["fed"].append(tok)
+            torch.cuda.synchronize()
+            t0 = now()
+            with census:
+                step_logits, cache = model.decode_step(
+                    cache, place(tok.to(torch.int32)), s + i)
+            torch.cuda.synchronize()
+            out["step_ms"].append((now() - t0) * 1e3)
+            out["logits"].append(whole(step_logits))
+            tok = torch.argmax(out["logits"][-1][:, -1], dim=-1)[:, None]
+        check(_launches(fa_mod) == before, "dist_serve_one_card: flash "
+              f"launches while decoding: {before} -> {_launches(fa_mod)}")
+        out["census"] = census.result()
+        del model, cache
+        torch.cuda.empty_cache()
+        return out
+
+    plain = run(None, None)
+    reset()
+    mesh = mesh_mod.init_train_mesh(
+        (1, 1, 1), device="cuda", init_method=f"tcp://localhost:{free_port()}",
+        world_size=1, rank=0)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        placed = run(mesh, plain["fed"])
+        placed["peak"] = torch.cuda.max_memory_allocated()
+    finally:
+        mesh_mod.close_train_mesh()
+    prefill_equal = torch.equal(placed["logits"][0], plain["logits"][0]) \
+        and all(torch.equal(x, y) for x, y in zip(placed["kv"], plain["kv"]))
+    errs = [((x - y).abs().max() / y.abs().max()).item()
+            for x, y in zip(placed["logits"] + placed["kv"],
+                            plain["logits"] + plain["kv"])]
+    picks = [torch.argmax(x[:, -1], dim=-1) for x in placed["logits"][1:]]
+    want = [torch.argmax(y[:, -1], dim=-1) for y in plain["logits"][1:]]
+    check(max(errs) <= SERVE_MESH_SHARE,
+          f"dist_serve_one_card: logits or K/V {max(errs):.3g} of the "
+          f"largest from the unsharded run's, bound {SERVE_MESH_SHARE}")
+    check(all(torch.equal(x, y) for x, y in zip(picks, want)),
+          "dist_serve_one_card: greedy picks differ from the unsharded "
+          "steps'")
+    check(placed["census"]["total"] == 0,
+          f"dist_serve_one_card: collectives on one device "
+          f"{placed['census']}")
+    seconds = now() - t_phase
+    emit({"phase": "dist_serve_one_card", "arch": "qwen3_0_6b",
+          "compute_dtype": "float32", "mesh": [1, 1, 1], "backend": "nccl",
+          "prefill": [b, s], "decode_steps": steps,
+          "prefill_s_mesh": placed["prefill_s"],
+          "prefill_s_unsharded": plain["prefill_s"],
+          "decode_ms_mesh": placed["step_ms"],
+          "decode_ms_unsharded": plain["step_ms"],
+          "max_rel_err": max(errs), "prefill_bit_equal": prefill_equal,
+          "picks_equal": True,
+          "max_memory_allocated_bytes": placed["peak"],
+          "census": placed["census"],
+          "flash_fwd_launches_prefill": calls, "variant": "simt",
+          "seconds": seconds, "budget_s": SERVE_MESH_BUDGET_S})
+    check(seconds <= SERVE_MESH_BUDGET_S,
+          f"dist_serve_one_card took {seconds:.1f} s, over its "
+          f"{SERVE_MESH_BUDGET_S} s")
+    return {"wgmma": 0, "simt": calls}
+
+
 def reset_counts(matmul, flash, fa_mod) -> None:
     """Every kernel's launch counts to 0."""
     matmul.launches = 0
@@ -2987,8 +3151,8 @@ class route_calls:
     def __enter__(self):
         self.orig = self.moe.route
 
-        def record(params, cfg, x):
-            probs, gate_w, gate_i = self.orig(params, cfg, x)
+        def record(params, cfg, x, *rest):
+            probs, gate_w, gate_i = self.orig(params, cfg, x, *rest)
             self.calls.append((probs.detach().cpu(), gate_i.cpu()))
             return probs, gate_w, gate_i
 
@@ -3555,6 +3719,30 @@ def main() -> int:
           f"dist_train_one_card: the DTensor path's launches {got} "
           f"(matmul {matmul.launches}), expected {want} and no matmul")
     emit({"phase": "main_path_launches", "path": "dist_train_one_card",
+          "matmul": matmul.launches,
+          "flash_attention": flash_attention.launches,
+          "flash_attention_by_variant":
+              dict(flash_attention.launches_by_variant),
+          "flash_attention_bwd": fa_mod.attend_backward.launches,
+          "flash_attention_bwd_by_variant":
+              dict(fa_mod.attend_backward.launches_by_variant)})
+
+    # ---- main path 5c: prefill and decode over a one-card NCCL mesh,
+    # counts from 0 between the phase's unsharded run and the mesh's,
+    # read after it.
+    serve_want = phase_dist_serve_one_card(
+        torch, lm_mod, configs, train_step_mod, pipeline, mesh_mod, cells,
+        fa_mod, lambda: reset_counts(matmul, flash_attention, fa_mod))
+    got = {"flash_attention": dict(flash_attention.launches_by_variant),
+           "flash_attention_bwd":
+               dict(fa_mod.attend_backward.launches_by_variant)}
+    check(got == {"flash_attention": serve_want,
+                  "flash_attention_bwd": {"wgmma": 0, "simt": 0}}
+          and matmul.launches == 0,
+          f"dist_serve_one_card: the mesh path's launches {got} (matmul "
+          f"{matmul.launches}), expected {serve_want} forward and nothing "
+          f"else")
+    emit({"phase": "main_path_launches", "path": "dist_serve_one_card",
           "matmul": matmul.launches,
           "flash_attention": flash_attention.launches,
           "flash_attention_by_variant":

@@ -15,18 +15,17 @@ per device:
     leaf's bytes divided dim by dim (ceil) by the mesh axes its
     sanitized PartitionSpec names.  There is no compiler here, so
     `temp_size_in_bytes` and `generated_code_size_in_bytes` are absent.
-  * `collectives` (train cells): the bytes each device sends through
-    collectives, by kind, under the keys of `parse_collective_bytes`,
-    counted by `CollectiveCensus` over one meta-device training step of
-    rank 0 of the production mesh, planned by DTensor over a fake
-    process group of its 256 or 512 ranks (`launch.mesh.
-    fake_production_mesh`): the counterpart of the reference's census
-    of the partitioned HLO.  `device` picks the plans: ``"cuda"``
-    NCCL's, ``"cpu"`` gloo's, which do every all-to-all as an
-    all-gather and a chunk and file it so.  Prefill and decode cells
-    keep None: the port's prefill and decode do not run over a mesh
-    yet (ROADMAP.md, item 7.2b).  Over a training mesh of processes,
-    `measure(..., process_mesh=)` counts one real step instead.
+  * `collectives`: the bytes each device sends through collectives,
+    by kind, under the keys of `parse_collective_bytes`, counted by
+    `CollectiveCensus` over one meta-device step (a training step, a
+    prefill, or a decode step at position `seq_len - 1`) of rank 0 of
+    the production mesh, planned by DTensor over a fake process group
+    of its 256 or 512 ranks (`launch.mesh.fake_production_mesh`): the
+    counterpart of the reference's census of the partitioned HLO.
+    `device` picks the plans: ``"cuda"`` NCCL's, ``"cpu"`` gloo's,
+    which do every all-to-all as an all-gather and a chunk and file it
+    so.  Over a mesh of processes, `measure(..., process_mesh=)`
+    counts one real step instead.
 
 The meta steps allocate and launch nothing, on any machine: the
 flash kernels are custom ops whose fake kernels give shapes and whose
@@ -55,10 +54,12 @@ from ..data.pipeline import data_config_for, make_batch_rows
 from ..device import DEFAULT_DEVICE, canonical_device
 from ..models.lm import LM, build_model, param_specs
 from ..obs import telemetry as _obs
-from ..sharding.rules import P, PartitionSpec, sanitize_spec, set_parallelism
+from ..sharding.rules import (P, PartitionSpec, batch_shardable,
+                              sanitize_spec, set_parallelism)
 from ..train.optimizer import OptConfig
 from ..train.train_step import (TrainConfig, init_train_state,
-                                make_train_step, opt_state_specs, rank_rows)
+                                make_train_step, opt_state_specs,
+                                place_batch, rank_rows)
 from .mesh import (fake_production_mesh, make_production_mesh, mesh_devices,
                    mesh_name)
 
@@ -378,6 +379,20 @@ def memory_per_device(model: LM, mode: str, shape: ShapeConfig,
                 count.outputs, out_specs, mesh))}
 
 
+def cache_bytes(cfg: ArchConfig, shape: ShapeConfig,
+                mesh: dict[str, int]) -> int:
+    """Bytes of one device's shard of a decode cell's cache on `mesh`
+    (`LM.cache_specs`, the batch split where the batch axes divide
+    it): what a decode step's census is held below, since it moves
+    activations and keeps the cache in place."""
+    model = build_model(cfg, device="meta")
+    shardable = shape.global_batch % (mesh_devices(mesh)
+                                      // mesh["model"]) == 0
+    return tree_shard_bytes(model.init_cache(shape.global_batch,
+                                             shape.seq_len),
+                            model.cache_specs(shardable), mesh)
+
+
 # ---------------------------------------------------------------------------
 # Cells
 # ---------------------------------------------------------------------------
@@ -432,6 +447,44 @@ def train_step_inputs(cfg: ArchConfig, shape: ShapeConfig, mesh,
     return step, params, opt_state, batch
 
 
+def serve_step_inputs(cfg: ArchConfig, shape: ShapeConfig, mesh,
+                      seed: int = 0, meta: bool = False) -> tuple:
+    """(step, *args): one prefill or decode step (`shape.mode`) of
+    `cfg` at `shape` over `mesh`, for this process's rank of it, as the
+    reference lowers it with `in_shardings`: the model placed by its
+    specs, the batch's rows over ("pod", "data") where those axes
+    divide the global batch (this rank's rows) and replicated where
+    they do not (`rules.batch_shardable`), a decode step's cache by
+    `LM.cache_specs` (`LM.init_cache`, zeros) and its position
+    `seq_len - 1`.  Over a mesh of processes the model is drawn from
+    `seed` on this rank's device and the tokens, frames and image
+    embeddings are the pipeline's batch `seed` (a decode step takes
+    each row's first token); with `meta` (a fake mesh) everything is a
+    meta tensor and nothing is allocated or sent."""
+    dev = torch.device("meta") if meta \
+        else canonical_device(mesh.device_type)
+    gen = None if meta else torch.Generator(dev).manual_seed(seed)
+    model = build_model(cfg, device=dev, mesh=mesh, generator=gen)
+    b = shape.global_batch
+    shardable = batch_shardable(mesh, b)
+    start, stop = rank_rows(mesh, b) if shardable else (0, b)
+    if meta:
+        batch = batch_struct(cfg, dataclasses.replace(
+            shape, global_batch=stop - start), dev)
+    else:
+        rows = make_batch_rows(data_config_for(cfg, shape, seed), 0,
+                               start, stop)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in rows.items()}
+    batch.pop("labels", None)
+    if shape.mode == "prefill":
+        return model.prefill, place_batch(batch, mesh, shardable)
+    placed = place_batch({"tokens": batch["tokens"][:, :1], **{
+        k: v for k, v in batch.items() if k == "image_embeds"}}, mesh,
+        shardable)
+    return (model.decode_step, model.init_cache(b, shape.seq_len),
+            placed["tokens"], shape.seq_len - 1, placed.get("image_embeds"))
+
+
 def census_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh,
                       tcfg: TrainConfig, seed: int = 0,
                       meta: bool = False) -> dict:
@@ -444,6 +497,28 @@ def census_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh,
     return census.result()
 
 
+def census_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh,
+                      seed: int = 0, meta: bool = False) -> dict:
+    """`CollectiveCensus` of the prefill or decode step
+    `serve_step_inputs` gives (the same arguments), under
+    `parse_collective_bytes`' keys.  Every rank of `mesh` must call
+    it."""
+    step, *args = serve_step_inputs(cfg, shape, mesh, seed, meta)
+    with CollectiveCensus() as census:
+        step(*args)
+    return census.result()
+
+
+def census_step(cfg: ArchConfig, shape: ShapeConfig, mesh,
+                tcfg: TrainConfig, seed: int = 0,
+                meta: bool = False) -> dict:
+    """The census of the step of `shape.mode`: `census_train_step`
+    (with `tcfg`) or `census_serve_step`."""
+    if shape.mode == "train":
+        return census_train_step(cfg, shape, mesh, tcfg, seed, meta)
+    return census_serve_step(cfg, shape, mesh, seed, meta)
+
+
 def train_config(train_overrides: dict | None = None) -> TrainConfig:
     """The cells' `TrainConfig`: `OptConfig()` and the overrides."""
     return TrainConfig(**{"opt": OptConfig(), **(train_overrides or {})})
@@ -451,13 +526,14 @@ def train_config(train_overrides: dict | None = None) -> TrainConfig:
 
 def fake_census(cfg: ArchConfig, shape: ShapeConfig, mesh: dict[str, int],
                 tcfg: TrainConfig, device=DEFAULT_DEVICE) -> dict:
-    """The collective census of one meta training step of rank 0 of a
-    fake process group shaped as `mesh` (`fake_production_mesh`):
-    DTensor plans the step with `device`'s collectives (``"cuda"``
-    NCCL's, ``"cpu"`` gloo's) and nothing is allocated or sent.  A
-    process already in a process group raises a ValueError."""
+    """The collective census of one meta step of `shape.mode` (train,
+    prefill or decode; `census_step`) of rank 0 of a fake process group
+    shaped as `mesh` (`fake_production_mesh`): DTensor plans the step
+    with `device`'s collectives (``"cuda"`` NCCL's, ``"cpu"`` gloo's)
+    and nothing is allocated or sent.  A process already in a process
+    group raises a ValueError."""
     with fake_production_mesh(mesh, device) as fake:
-        return census_train_step(cfg, shape, fake, tcfg, meta=True)
+        return census_step(cfg, shape, fake, tcfg, meta=True)
 
 
 def measure(cfg: ArchConfig, shape: ShapeConfig, mesh: dict[str, int],
@@ -465,16 +541,16 @@ def measure(cfg: ArchConfig, shape: ShapeConfig, mesh: dict[str, int],
             process_mesh=None) -> tuple[StepCount, dict]:
     """(count, memory) of `cfg` at `shape` on `mesh`, traced on the meta
     device: the counter `run_cell` and the card comparison share.  With
-    `process_mesh` (a training step over it) the count's `collectives`
-    is the census of one real step there (`census_train_step`)."""
+    `process_mesh` (a mesh of processes) the count's `collectives` is
+    the census of one real step of `shape.mode` there
+    (`census_step`)."""
     model = build_model(cfg, device="meta")
     n_dev = mesh_devices(mesh)
     batch_shardable = shape.global_batch % (n_dev // mesh["model"]) == 0
     tcfg = train_config(train_overrides)
     count = count_step(model, shape.mode, shape, tcfg)
-    if process_mesh is not None and shape.mode == "train":
-        count.collectives = census_train_step(cfg, shape, process_mesh,
-                                              tcfg)
+    if process_mesh is not None:
+        count.collectives = census_step(cfg, shape, process_mesh, tcfg)
     return count, memory_per_device(model, shape.mode, shape, mesh,
                                     batch_shardable, count)
 
@@ -493,15 +569,15 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
              device=DEFAULT_DEVICE) -> CellResult:
     """Count one cell on the production mesh (the reference's skip
     rules, overrides and parallelism mode).  `lower_s` is the meta
-    count's seconds on the telemetry clock.  A train cell then takes
-    its collective census on a fake production mesh of `device`'s type
-    (`fake_production_mesh`; ``"cuda"``, NCCL's plans, needs a torch
-    built with CUDA but no card): `collectives`, and its seconds in
-    `compile_s` (DTensor's planning over the mesh is the port's
-    counterpart of XLA's partitioning).  A census that raises fails the
-    cell with its traceback in `error`.  A process already in a process
-    group raises a ValueError.  Prefill and decode cells keep
-    `collectives` None and `compile_s` 0.0 (no mesh path yet)."""
+    count's seconds on the telemetry clock.  Every counted cell (train,
+    prefill or decode) then takes its collective census on a fake
+    production mesh of `device`'s type (`fake_production_mesh`;
+    ``"cuda"``, NCCL's plans, needs a torch built with CUDA but no
+    card): `collectives`, and its seconds in `compile_s` (DTensor's
+    planning over the mesh is the port's counterpart of XLA's
+    partitioning).  A census that raises fails the cell with its
+    traceback in `error`.  A process already in a process group raises
+    a ValueError."""
     set_parallelism(parallelism)
     cfg = get_config(arch)
     if cfg_overrides:
@@ -514,10 +590,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     if not ok:
         res.skip_reason = why
         return res
-    if shape.mode == "train" and dist.is_initialized():
+    if dist.is_initialized():
         raise ValueError("a process group is already up in this "
-                         "process; a train cell's census runs over a "
-                         "fake one of its own")
+                         "process; a cell's census runs over a fake one "
+                         "of its own")
     res.n_params = float(cfg.n_params())
     tracer = _obs.get_tracer()
     t0 = _obs.default_clock()
@@ -527,21 +603,19 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     n_dev = mesh_devices(mesh)
     res.flops = count.flops / n_dev
     res.bytes_accessed = count.bytes_accessed / n_dev
-    if shape.mode == "train":
-        t1 = _obs.default_clock()
-        with tracer.span("engine.compile", arch=arch, shape=shape_name):
-            # A census that raises (the model's error, or DTensor's
-            # planning) fails the cell with its traceback, and a sweep
-            # goes on to the next cell.
-            try:
-                res.collectives = fake_census(
-                    cfg, shape, mesh, train_config(train_overrides), device)
-            except CELL_ERRORS as e:
-                res.error = (f"census: {e!r}\n"
-                             + traceback.format_exc()[-3000:])
-        res.compile_s = _obs.default_clock() - t1
-        if res.error:
-            return res
+    t1 = _obs.default_clock()
+    with tracer.span("engine.compile", arch=arch, shape=shape_name):
+        # A census that raises (the model's error, or DTensor's
+        # planning) fails the cell with its traceback, and a sweep goes
+        # on to the next cell.
+        try:
+            res.collectives = fake_census(
+                cfg, shape, mesh, train_config(train_overrides), device)
+        except CELL_ERRORS as e:
+            res.error = f"census: {e!r}\n" + traceback.format_exc()[-3000:]
+    res.compile_s = _obs.default_clock() - t1
+    if res.error:
+        return res
     res.ok = True
     return res
 

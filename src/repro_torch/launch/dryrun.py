@@ -1,7 +1,7 @@
 """Dry-run driver: counts every (architecture x input-shape) cell on
 the production meshes, 16x16 single-pod and 2x16x16 multi-pod, on the
-meta device, and records per-device FLOPs, bytes, memory and, for
-train cells, the collective census.  The port of `repro.launch.dryrun`,
+meta device, and records per-device FLOPs, bytes, memory and the
+collective census of one train, prefill or decode step.  The port of `repro.launch.dryrun`,
 with the same CLI and the same files; it uses no GPU (nothing is
 allocated or launched) and sets no compiler flags.
 
@@ -52,12 +52,10 @@ def run_one(arch: str, shape: str, multi_pod: bool, out_dir: pathlib.Path,
                "FAIL: " + res.error[:200]))
     print(f"[dryrun] {arch:22s} {shape:12s} {mesh_name:8s} {status}")
     if res.ok:
-        coll = ("no census (no mesh path yet)" if res.collectives is None
-                else f"{res.collectives['total']:.3e}B")
         print(f"         flops/dev={res.flops:.3e} "
               f"bytes/dev={res.bytes_accessed:.3e} "
               f"args/dev={res.memory['argument_size_in_bytes']:.3e}B "
-              f"coll/dev={coll} "
+              f"coll/dev={res.collectives['total']:.3e}B "
               f"(trace {res.lower_s:.1f}s census {res.compile_s:.1f}s)")
     return res.ok or bool(res.skip_reason)
 

@@ -10,9 +10,8 @@ The collective term is the cell's census (`cells.run_cell`, bytes a
 device over a fake production mesh of `--device`'s type: ``cuda``, the
 default, NCCL's plans; ``cpu`` gloo's) over the H100's link bandwidth,
 so the variants that act on collectives (`compress_grads`, `dp_only`,
-the microbatches) move it.  Prefill and decode cells have no census
-yet (their steps do not run over a mesh; ROADMAP item 7.2b): their
-record's "coll" is null and the term counts 0 bytes.
+the microbatches) move it.  Prefill and decode cells take their
+census the same way (one prefill or decode step over the fake mesh).
 """
 from __future__ import annotations
 
@@ -68,10 +67,8 @@ def run(arch: str, shape: str, variant: str, multi_pod: bool = False,
                    device=device)
     if not res.ok:
         raise SystemExit(f"variant failed: {res.error or res.skip_reason}")
-    coll = res.collectives
     terms = step_roofline(res.flops, res.bytes_accessed,
-                          0.0 if coll is None else coll["total"],
-                          target=H100_SXM)
+                          res.collectives["total"], target=H100_SXM)
     rec = {
         "variant": variant,
         "flops": res.flops,
@@ -93,8 +90,7 @@ def run(arch: str, shape: str, variant: str, multi_pod: bool = False,
     print(f"[perf] {arch} {shape} {variant}: "
           f"comp={terms.compute_s*1e3:.2f}ms "
           f"mem={terms.memory_s*1e3:.2f}ms "
-          f"coll={terms.collective_s*1e3:.2f}ms"
-          f"{' (no census)' if coll is None else ''} "
+          f"coll={terms.collective_s*1e3:.2f}ms "
           f"bound={terms.bound} step={terms.step_s*1e3:.2f}ms (H100 SXM)")
     return rec
 

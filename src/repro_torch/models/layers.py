@@ -31,6 +31,7 @@ import math
 from typing import Callable
 
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
@@ -39,8 +40,8 @@ from ..configs.base import ArchConfig
 from ..kernels.flash_attention.flash_attention import (attend, attention,
                                                       flash_fwd)
 from ..sharding.rules import (ACT_KV_GATHERED, ACT_Q_ULYSSES, ACT_TOKENS,
-                              MODEL_AXIS_SIZE, P, constrain, fsdp_gather,
-                              local_range, spec)
+                              MODEL_AXIS_SIZE, P, constrain, local_range,
+                              spec, weight_product, weights_stay)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -290,9 +291,9 @@ def attention_qkv(params: dict, cfg: ArchConfig, x: torch.Tensor,
                   kv_positions: torch.Tensor, use_rope: bool = True):
     """Project to (q, k, v) head tensors: (B, H, S, hd)."""
     cdt = dtype_of(cfg.compute_dtype)
-    q = x @ fsdp_gather(params["wq"]).to(cdt)
-    k = kv_x @ fsdp_gather(params["wk"]).to(cdt)
-    v = kv_x @ fsdp_gather(params["wv"]).to(cdt)
+    q = weight_product(x, params["wq"], cdt)
+    k = weight_product(kv_x, params["wk"], cdt)
+    v = weight_product(kv_x, params["wv"], cdt)
     if cfg.qkv_bias:
         q = q + params["bq"].to(cdt)
         k = k + params["bk"].to(cdt)
@@ -330,8 +331,8 @@ def attention_apply(params: dict, cfg: ArchConfig, x: torch.Tensor,
                             use_rope=not cross)
     out = flash_attention(q, k, v, causal=causal and not cross,
                           chunk=min(chunk, k.shape[2]))
-    return merge_heads(out) @ fsdp_gather(params["wo"]).to(
-        dtype_of(cfg.compute_dtype))
+    return weight_product(merge_heads(out), params["wo"],
+                          dtype_of(cfg.compute_dtype))
 
 
 def attention_decode(params: dict, cfg: ArchConfig, x: torch.Tensor,
@@ -344,11 +345,16 @@ def attention_decode(params: dict, cfg: ArchConfig, x: torch.Tensor,
 
     Unlike the reference, which returns updated copies, this writes the
     new K/V row into `cache_k` and `cache_v` in place (they may be views
-    into the LM's stacked cache) and returns them."""
+    into the LM's stacked cache) and returns them.  Over a mesh (the
+    cache DTensors placed by `LM.cache_specs`) each rank attends over
+    its own block of the cache (`_decode_on_mesh`)."""
     cdt = dtype_of(cfg.compute_dtype)
     b = x.shape[0]
     pos = torch.full((b, 1), position, dtype=torch.int32, device=x.device)
     q, k, v = attention_qkv(params, cfg, x, x, pos, pos)
+    if isinstance(cache_k, DTensor):
+        out = _decode_on_mesh(cfg, q, k, v, cache_k, cache_v, position)
+        return weight_product(out, params["wo"], cdt), cache_k, cache_v
     cache_k[:, :, position] = k[:, :, 0].to(cache_k.dtype)
     cache_v[:, :, position] = v[:, :, 0].to(cache_v.dtype)
     s_max = cache_k.shape[2]
@@ -364,7 +370,59 @@ def attention_decode(params: dict, cfg: ArchConfig, x: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqs,bhsd->bhgqd", probs, cache_v.float())
     out = out.reshape(b, 1, cfg.q_dim).to(cdt)
-    return out @ params["wo"].to(cdt), cache_k, cache_v
+    return weight_product(out, params["wo"], cdt), cache_k, cache_v
+
+
+def _decode_on_mesh(cfg: ArchConfig, q, k, v, cache_k: DTensor,
+                    cache_v: DTensor, position: int) -> DTensor:
+    """`attention_decode`'s core on each rank's block of the cache
+    (`local_map`): the cache's sequence is sharded over "model" (or
+    ("data", "model") for a batch the batch axes do not divide) and
+    stays there.  A rank writes the new K/V row only where `position`
+    falls in its block (`local_range`), scores its block against the
+    query with the mask on global positions, and the blocks are merged
+    by log-sum-exp: the scores' maximum all-reduced over the mesh dims
+    that shard the sequence, then each block's sum of exp(s - max) and
+    its P.V in one all-reduce.  What crosses the mesh is O(B H hd) a
+    layer; no collective holds the cache's sequence dim.  Returns
+    (B, 1, Hq * hd) in the compute type, replicated over those dims."""
+    cdt = dtype_of(cfg.compute_dtype)
+    mesh = cache_k.device_mesh
+    c_pl = tuple(cache_k.placements)
+    seq = [i for i, p in enumerate(c_pl) if p == Shard(2)]
+    row_pl = tuple(Replicate() if p == Shard(2) else p for p in c_pl)
+    s0, s1 = local_range(mesh, c_pl, 2, cache_k.shape[2])
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    group = cfg.n_heads // hkv
+
+    def all_reduce(t, op):
+        for i in seq:
+            t = funcol.all_reduce(t, op, (mesh, i))
+        return t
+
+    def core(ql, kl, vl, ckl, cvl):
+        if s0 <= position < s1:
+            ckl[:, :, position - s0] = kl[:, :, 0].to(ckl.dtype)
+            cvl[:, :, position - s0] = vl[:, :, 0].to(cvl.dtype)
+        bl = ql.shape[0]
+        qg = ql.reshape(bl, hkv, group, 1, hd)
+        scores = torch.einsum("bhgqd,bhsd->bhgqs", qg.float(),
+                              ckl.to(cdt).float()) / math.sqrt(hd)
+        mask = torch.arange(s0, s1, device=ckl.device) <= position
+        scores = torch.where(mask, scores, -torch.inf)
+        m = all_reduce(scores.amax(-1, keepdim=True), "max")
+        p = torch.exp(scores - m)
+        merged = all_reduce(torch.cat(
+            [torch.einsum("bhgqs,bhsd->bhgqd", p, cvl.float()),
+             p.sum(-1)[..., None]], dim=-1), "sum")
+        out = merged[..., :hd] / merged[..., hd:]
+        return out.reshape(bl, 1, hkv * group * hd).to(cdt)
+
+    return local_map(core, out_placements=(row_pl,),
+                     in_placements=(row_pl,) * 3 + (c_pl, c_pl),
+                     device_mesh=mesh)(
+        q.redistribute(mesh, row_pl), k.redistribute(mesh, row_pl),
+        v.redistribute(mesh, row_pl), cache_k, cache_v)
 
 
 # ---------------------------------------------------------------------------
@@ -407,11 +465,11 @@ def _activate(name: str, u: torch.Tensor,
 
 def mlp_apply(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     cdt = dtype_of(cfg.compute_dtype)
-    u = x @ fsdp_gather(params["w_up"]).to(cdt)
-    g = x @ fsdp_gather(params["w_gate"]).to(cdt) if "w_gate" in params \
+    u = weight_product(x, params["w_up"], cdt)
+    g = weight_product(x, params["w_gate"], cdt) if "w_gate" in params \
         else None
     h = _activate(cfg.activation, u, g)
-    return h @ fsdp_gather(params["w_down"]).to(cdt)
+    return weight_product(h, params["w_down"], cdt)
 
 
 # ---------------------------------------------------------------------------
@@ -449,11 +507,44 @@ def embed(params: dict, cfg: ArchConfig,
     does not meet the residual stream's partial-sum gradient, and
     indexing's backward has no plan over a mesh in every torch version,
     so the lookup is `F.embedding` on the whole table and its gradient
-    is reduce-scattered back to the shards."""
-    return F.embedding(tokens, constrain(params["tok"], P())).to(
-        dtype_of(cfg.compute_dtype))
+    is reduce-scattered back to the shards.  Where the weights stay (a
+    decode step, `rules.weights_stay`) each rank looks the tokens up
+    in its own shard of the table instead (`_embed_on_mesh`)."""
+    cdt = dtype_of(cfg.compute_dtype)
+    if weights_stay(tokens, params["tok"]):
+        return _embed_on_mesh(params["tok"], tokens, cdt)
+    return F.embedding(tokens, constrain(params["tok"], P())).to(cdt)
+
+
+def _embed_on_mesh(table: DTensor, tokens: DTensor,
+                   cdt: torch.dtype) -> DTensor:
+    """The lookup on each rank's shard of the table (`local_map`): on a
+    mesh dim that shards the vocabulary each rank fills the rows of the
+    tokens it holds and zeros elsewhere, a partial sum with one term;
+    on one that shards d_model the tokens are gathered there and each
+    rank fills its columns.  The rows go to `ACT_TOKENS` after, so
+    what moves is the tokens' rows, not the table."""
+    mesh = table.device_mesh
+    t_pl = tuple(table.placements)
+    tok_pl = tuple(Replicate() if tp == Shard(1) else p
+                   for tp, p in zip(t_pl, tokens.placements))
+    out_pl = tuple(Partial() if tp == Shard(0) else
+                   Shard(2) if tp == Shard(1) else p
+                   for tp, p in zip(t_pl, tok_pl))
+    v0, v1 = local_range(mesh, t_pl, 0, table.shape[0])
+
+    def core(tl, tabl):
+        rows = tl.long() - v0
+        held = (rows >= 0) & (rows < v1 - v0)
+        out = F.embedding(rows.clamp(0, v1 - v0 - 1), tabl).to(cdt)
+        return torch.where(held[..., None], out, torch.zeros_like(out))
+
+    out = local_map(core, out_placements=(out_pl,),
+                    in_placements=(tok_pl, t_pl), device_mesh=mesh)(
+        tokens.redistribute(mesh, tok_pl), table)
+    return constrain(out, ACT_TOKENS)
 
 
 def unembed(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     # logits in f32 for a stable softmax-xent
-    return (x @ fsdp_gather(params["unembed"]).to(x.dtype)).float()
+    return weight_product(x, params["unembed"], x.dtype).float()

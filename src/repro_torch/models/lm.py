@@ -27,7 +27,14 @@ reshards the token activations where the reference constrains them.
 The attention runs Ulysses on local shards (`layers`), the MoE's
 experts are sharded over "model" (`moe`), and so are the SSD's heads
 (`ssm`); a mesh whose "model" axis cannot split a config's SSD heads
-raises where the split is made.
+raises where the split is made.  A model placed on a mesh also
+prefills and decodes there, on inputs placed by
+`train.train_step.place_batch`: prefill's K/V stacks come back in the
+decode cache's layout (`cache_specs`), `init_cache` places the cache
+the same way, and a decode step keeps the weights and the cache where
+they are stored (`sharding.rules.stationary_weights`): each rank
+attends over its block of the cache's sequence and steps its SSD
+heads, and only activations cross the mesh.
 
 Batches hold `tokens` (B, S), or `frames` (B, S, D) for the audio
 encoder (whose front-end is a stub, as in the reference), and
@@ -46,8 +53,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import DEFAULT_DEVICE, resolve_device
-from ..sharding.rules import (ACT_TOKENS, P, PartitionSpec, constrain,
-                              distribute, distribute_tree, fsdp_gather)
+from ..sharding.rules import (ACT_TOKENS, P, PartitionSpec, batch_shardable,
+                              constrain, distribute, distribute_tree,
+                              even_placements, local_shape, mesh_placements,
+                              on_mesh, stationary_weights, weight_product)
 from . import layers as L
 from . import moe as M
 from . import ssm as S
@@ -239,24 +248,50 @@ def _slot_apply(p: dict, cfg: ArchConfig, slot: SlotSpec, x: torch.Tensor,
     """One layer's forward (training / prefill path).  Returns (x, aux).
     When `kv_out` is a (k, v) pair of (B, Hkv, S, hd) buffers, this
     attention layer's K and V are written into them and the kernel
-    reads them from there."""
+    reads them from there.  Over a mesh the buffers are DTensors in the
+    decode cache's layout: K and V are resharded to it (their sequence
+    split over the mesh dims that shard it, a local slice) and written
+    on each rank's shard, and the kernel reads them as they left the
+    projection."""
     h = L.rmsnorm(p["ln1"], x)
     if slot.kind == "attn":
         q, k, v = L.attention_qkv(p["attn"], cfg, h, h, positions, positions)
-        if kv_out is not None:
+        if isinstance(k, DTensor) and kv_out is not None:
+            for buf, t in zip(kv_out, (k, v)):
+                buf.to_local().copy_(t.redistribute(
+                    buf.device_mesh, buf.placements).to_local())
+        elif kv_out is not None:
             kv_out[0].copy_(k)
             kv_out[1].copy_(v)
             k, v = kv_out
         out = L.flash_attention(q, k, v, causal=causal,
                                 chunk=min(1024, k.shape[2]))
-        x = x + L.merge_heads(out) @ fsdp_gather(p["attn"]["wo"]).to(
-            h.dtype)
+        x = x + weight_product(L.merge_heads(out), p["attn"]["wo"], h.dtype)
     else:
         x = x + S.ssd_forward(p["ssm"], cfg, h)
     if slot.cross:
         x = x + _cross_attention(p, cfg, x, image_embeds)
     x, aux = _ffn(p, cfg, x)
     return constrain(x, ACT_TOKENS), aux
+
+
+def _period_dtensor(t: DTensor, local: torch.Tensor) -> DTensor:
+    """`local`, one period of stacked DTensor `t`'s local tensor (its
+    period axis is never sharded), as a DTensor of one period."""
+    pl = [Shard(p.dim - 1) if isinstance(p, Shard) else p
+          for p in t.placements]
+    shape = t.shape[1:]
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(local, t.device_mesh, pl, run_check=False,
+                              shape=shape, stride=stride)
+
+
+def _period_of(t: torch.Tensor, j: int) -> torch.Tensor:
+    """Period `j` of a stacked cache leaf, a view, so writes land in
+    the stack (over a mesh, in each rank's shard of it)."""
+    if not isinstance(t, DTensor):
+        return t[j]
+    return _period_dtensor(t, t.to_local()[j])
 
 
 def _unbind_periods(t: torch.Tensor) -> tuple:
@@ -267,13 +302,7 @@ def _unbind_periods(t: torch.Tensor) -> tuple:
     stacked leaf is 7.88 GiB of float32 for Gemma-7B's FFN."""
     if not isinstance(t, DTensor):
         return t.unbind(0)
-    pl = [Shard(p.dim - 1) if isinstance(p, Shard) else p
-          for p in t.placements]
-    shape = t.shape[1:]
-    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
-    return tuple(DTensor.from_local(u, t.device_mesh, pl, run_check=False,
-                                    shape=shape, stride=stride)
-                 for u in t.to_local().unbind(0))
+    return tuple(_period_dtensor(t, u) for u in t.to_local().unbind(0))
 
 
 def _tree_map(fn, tree):
@@ -418,7 +447,8 @@ class LM(nn.Module):
         for si, slot in enumerate(self.slots):
             kv = None
             if kv_stacks is not None and kv_stacks[si] is not None:
-                kv = (kv_stacks[si][0][j], kv_stacks[si][1][j])
+                kv = (_period_of(kv_stacks[si][0], j),
+                      _period_of(kv_stacks[si][1], j))
             x, a = _slot_apply(period[f"slot{si}"], self.cfg, slot, x,
                                positions, image_embeds, causal, kv)
             aux = aux + a
@@ -491,29 +521,71 @@ class LM(nn.Module):
         (last_logits (B, 1, V) float32, cache) with cache["kv"] one
         (k, v) pair per attention slot in slot order, each (n_periods,
         B, Hkv, S, hd) in the compute type, and cache["ssm"] None: as
-        in the reference, prefill hands back no SSM state."""
+        in the reference, prefill hands back no SSM state.
+
+        On a model placed over a mesh the batch's tensors are DTensors
+        (`train.train_step.place_batch`: the rows over ("pod", "data")
+        where the batch axes divide them, else replicated), the step
+        runs under `rules.on_mesh`, the logits come back as a DTensor
+        sharded over the vocabulary as the product leaves them, and
+        the K/V stacks as DTensors placed by `cache_specs` (the
+        sequence over "model", or ("data", "model") for a batch that
+        is replicated)."""
         cfg = self.cfg
         params = self.params
-        x, img = self._embed_inputs(params, batch)
-        b, s = x.shape[0], x.shape[1]
-        shape = (self.n_periods, b, cfg.n_kv_heads, s, cfg.head_dim)
-        kv_stacks = [
-            (torch.empty(shape, dtype=x.dtype, device=x.device),
-             torch.empty(shape, dtype=x.dtype, device=x.device))
-            if slot.kind == "attn" else None for slot in self.slots]
-        x, _ = self._stack(params, x, self._positions(x), img, cfg.causal,
-                           kv_stacks)
-        x = L.rmsnorm(params["final_norm"], x)
-        logits = L.unembed(params["embed"], cfg, x[:, -1:])
+        self._check_placed(batch.values())
+        with on_mesh(self.mesh):
+            x, img = self._embed_inputs(params, batch)
+            b, s = x.shape[0], x.shape[1]
+            shape = (self.n_periods, b, cfg.n_kv_heads, s, cfg.head_dim)
+            kv_stacks = [
+                (self._empty_cache(shape, x.dtype, "k", si, b),
+                 self._empty_cache(shape, x.dtype, "v", si, b))
+                if slot.kind == "attn" else None
+                for si, slot in enumerate(self.slots)]
+            x, _ = self._stack(params, x, self._positions(x), img,
+                               cfg.causal, kv_stacks)
+            x = L.rmsnorm(params["final_norm"], x)
+            logits = L.unembed(params["embed"], cfg, x[:, -1:])
         return logits, {"kv": tuple(kv for kv in kv_stacks
                                     if kv is not None), "ssm": None}
+
+    def _check_placed(self, tensors) -> None:
+        """A placed model takes DTensors only (a plain tensor would
+        count as replicated: every rank the whole batch)."""
+        if self.mesh is not None and not all(
+                isinstance(t, DTensor) for t in tensors if t is not None):
+            raise ValueError("the model is placed over a mesh: place its "
+                             "inputs (train.train_step.place_batch, "
+                             "LM.init_cache) as DTensors")
+
+    def _empty_cache(self, shape, dtype: torch.dtype, name: str, si: int,
+                     batch: int, fill=torch.empty) -> torch.Tensor:
+        """A stacked cache leaf of `shape` (`name` of slot `si`): on one
+        device `fill`'s tensor on the model's device; over a mesh a
+        DTensor placed by `cache_specs` for a `batch`-row batch (a
+        mesh dim that does not divide its tensor dim replicates it),
+        each rank allocating its own shard only."""
+        if self.mesh is None:
+            return fill(shape, dtype=dtype, device=self.device)
+        specs = self.cache_specs(batch_shardable(self.mesh, batch))
+        pl = even_placements(mesh_placements(specs[f"slot{si}"][name],
+                                             self.mesh), shape, self.mesh)
+        local = fill(local_shape(self.mesh, pl, shape), dtype=dtype,
+                     device=self.device)
+        stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+        return DTensor.from_local(local, self.mesh, pl, run_check=False,
+                                  shape=torch.Size(shape), stride=stride)
 
     # ---- serve cache --------------------------------------------------------
     def init_cache(self, batch_size: int, max_seq: int,
                    dtype: torch.dtype = torch.bfloat16) -> dict:
         """Zeroed decode cache: per attention slot a stacked
         (n_periods, B, Hkv, S_max, hd) K/V pair in `dtype`; per SSM slot
-        a stacked (n_periods, B, nh, ds, hd) float32 state `h`."""
+        a stacked (n_periods, B, nh, ds, hd) float32 state `h`.  On a
+        model placed over a mesh each leaf is a DTensor placed by
+        `cache_specs` (`batch_size` decides whether the batch axes
+        split the rows), and each rank holds its shard only."""
         cfg = self.cfg
         cache = {}
         for si, slot in enumerate(self.slots):
@@ -521,13 +593,13 @@ class LM(nn.Module):
                 shape = (self.n_periods, batch_size, cfg.n_kv_heads,
                          max_seq, cfg.head_dim)
                 cache[f"slot{si}"] = {
-                    "k": torch.zeros(shape, dtype=dtype, device=self.device),
-                    "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+                    n: self._empty_cache(shape, dtype, n, si, batch_size,
+                                         torch.zeros) for n in ("k", "v")}
             else:
-                cache[f"slot{si}"] = {"h": torch.zeros(
+                cache[f"slot{si}"] = {"h": self._empty_cache(
                     (self.n_periods, batch_size, cfg.ssm_heads,
-                     cfg.ssm_state, cfg.ssm_head_dim),
-                    dtype=torch.float32, device=self.device)}
+                     cfg.ssm_state, cfg.ssm_head_dim), torch.float32, "h",
+                    si, batch_size, torch.zeros)}
         return cache
 
     # ---- decode step --------------------------------------------------------
@@ -538,29 +610,43 @@ class LM(nn.Module):
         n_image_tokens, D) for the VLM, whose cross slots recompute their
         K/V from them each step.  Returns (logits (B, 1, V) float32,
         cache).  The cache is updated in place (the reference returns a
-        new one) and returned."""
+        new one) and returned.
+
+        On a model placed over a mesh the tokens and image embeddings
+        are DTensors placed as `prefill`'s batch and the cache is
+        `init_cache`'s; the step runs under `rules.on_mesh` and
+        `rules.stationary_weights`: the weights and the cache stay in
+        their shards, each rank writes the new K/V row into its block
+        of the sequence if `position` falls there, and the logits come
+        back as a DTensor as the product leaves them."""
         cfg = self.cfg
         params = self.params
         cdt = L.dtype_of(cfg.compute_dtype)
-        x = L.embed(params["embed"], cfg, tokens)
-        img = None if image_embeds is None else image_embeds.to(cdt)
-        for j in range(self.n_periods):
-            for si, slot in enumerate(self.slots):
-                p = _tree_map(lambda t: t[j], params["blocks"][f"slot{si}"])
-                c = cache[f"slot{si}"]
-                h = L.rmsnorm(p["ln1"], x)
-                if slot.kind == "attn":
-                    out, _, _ = L.attention_decode(
-                        p["attn"], cfg, h, c["k"][j], c["v"][j], position)
-                else:
-                    out, nh = S.ssd_decode(p["ssm"], cfg, h, c["h"][j])
-                    c["h"][j].copy_(nh)
-                x = x + out
-                if slot.cross:
-                    x = x + _cross_attention(p, cfg, x, img)
-                x, _ = _ffn(p, cfg, x)
-        x = L.rmsnorm(params["final_norm"], x)
-        return L.unembed(params["embed"], cfg, x), cache
+        self._check_placed([tokens, image_embeds])
+        with on_mesh(self.mesh), stationary_weights():
+            x = L.embed(params["embed"], cfg, tokens)
+            img = None if image_embeds is None else image_embeds.to(cdt)
+            for j, period in enumerate(self._periods(params)):
+                for si, slot in enumerate(self.slots):
+                    p = period[f"slot{si}"]
+                    c = cache[f"slot{si}"]
+                    h = L.rmsnorm(p["ln1"], x)
+                    if slot.kind == "attn":
+                        out, _, _ = L.attention_decode(
+                            p["attn"], cfg, h, _period_of(c["k"], j),
+                            _period_of(c["v"], j), position)
+                    else:
+                        hc = _period_of(c["h"], j)
+                        out, nh = S.ssd_decode(p["ssm"], cfg, h, hc)
+                        if nh is not hc:
+                            hc.copy_(nh)
+                    x = x + out
+                    if slot.cross:
+                        x = x + _cross_attention(p, cfg, x, img)
+                    x, _ = _ffn(p, cfg, x)
+                    x = constrain(x, ACT_TOKENS)
+            x = L.rmsnorm(params["final_norm"], x)
+            return L.unembed(params["embed"], cfg, x), cache
 
 
 def build_model(cfg: ArchConfig, device=DEFAULT_DEVICE,

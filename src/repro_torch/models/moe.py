@@ -37,12 +37,14 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ArchConfig
 from ..sharding.rules import (ACT_GROUPS, ACT_TOKENS, P, constrain,
-                              fsdp_gather, local_range, spec)
+                              fsdp_gather, local_range, spec, weight_product,
+                              weights_stay)
 from .layers import _activate, dense_init, dtype_of
 
 
@@ -89,11 +91,15 @@ def top_k(probs: torch.Tensor, k: int):
     return values[..., :k], indices[..., :k]
 
 
-def route(params: dict, cfg: ArchConfig, x: torch.Tensor):
+def route(params: dict, cfg: ArchConfig, x: torch.Tensor, logits=None):
     """Router of `x` (G, T, D): (probs (G, T, E) float32, gate weights
-    (G, T, k) renormalised over the k picks, expert indices (G, T, k))."""
+    (G, T, k) renormalised over the k picks, expert indices (G, T, k)).
+    `logits` (G, T, E), when given, are the router product already
+    taken (in the compute type)."""
     cdt = dtype_of(cfg.compute_dtype)
-    logits = (x @ params["router"].to(cdt)).float()
+    if logits is None:
+        logits = x @ params["router"].to(cdt)
+    logits = logits.float()
     probs = torch.softmax(logits, dim=-1)
     gate_w, gate_i = top_k(probs, cfg.experts_per_token)
     gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -134,7 +140,9 @@ def dispatch(gate_i: torch.Tensor, gate_w: torch.Tensor, n_experts: int,
 
 def _moe_groups(x: torch.Tensor, router: torch.Tensor, w_up: torch.Tensor,
                w_gate, w_down: torch.Tensor, *, cfg: ArchConfig,
-               experts: tuple[int, int], n_groups: int):
+               experts: tuple[int, int], n_groups: int,
+               cols: tuple[int, int] | None = None, activate=None,
+               logits=None):
     """`moe_apply` on plain tensors: x (G, T, D) holds `G` of the
     batch's `n_groups` groups, and the expert weights hold experts
     [`experts`) of the expert axis.  Every group is routed over all
@@ -143,13 +151,20 @@ def _moe_groups(x: torch.Tensor, router: torch.Tensor, w_up: torch.Tensor,
     alone.  Returns (out, mean router probability (E,), assignment
     fraction (E,)): both are this call's share of the means over all
     `n_groups` groups, so summing them over the calls that together
-    hold the batch gives the Switch statistics."""
+    hold the batch gives the Switch statistics.
+
+    With `cols` the expert weights hold d_model columns [`cols`) only
+    (w_up and w_gate those rows, w_down those columns): the up products
+    read those columns of the slots' inputs, `activate(u, gate)` sums
+    their partial products over the ranks that hold the other columns
+    and applies the activation, and `out` (G, T, cols) is those columns
+    of the output.  `logits`: the router's (`route`)."""
     cdt = dtype_of(cfg.compute_dtype)
     g, t, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     e0, e1 = experts
     cap = _capacity(cfg, t)
-    probs, gate_w, gate_i = route({"router": router}, cfg, x)
+    probs, gate_w, gate_i = route({"router": router}, cfg, x, logits)
 
     # Switch aux loss: mean prob x mean assignment fraction per expert.
     me = probs.sum(dim=(0, 1)) / (n_groups * t)
@@ -165,9 +180,12 @@ def _moe_groups(x: torch.Tensor, router: torch.Tensor, w_up: torch.Tensor,
                         .expand(-1, -1, d))                   # (G, El*C, D)
     # Experts lead: (El, G*C, D) @ (El, D, F).
     xe = x_ec.reshape(g, el, cap, d).transpose(0, 1).reshape(el, g * cap, d)
+    if cols is not None:
+        xe, d = xe[..., cols[0]:cols[1]], cols[1] - cols[0]
     u = torch.bmm(xe, w_up.to(cdt))
     gt = torch.bmm(xe, w_gate.to(cdt)) if w_gate is not None else None
-    h = _activate(cfg.activation, u, gt)
+    h = _activate(cfg.activation, u, gt) if activate is None \
+        else activate(u, gt)
     y = torch.bmm(h, w_down.to(cdt))                         # (El, G*C, D)
     y = y.reshape(el, g, cap, d).transpose(0, 1) \
         * w[..., None].to(cdt)                                # (G, El, C, D)
@@ -181,38 +199,75 @@ def _moe_groups(x: torch.Tensor, router: torch.Tensor, w_up: torch.Tensor,
 def _moe_on_mesh(params: dict, cfg: ArchConfig, x: DTensor):
     """`_moe_groups` on each rank's shards (`local_map`): its rows of
     the batch (x's groups, over the batch axes) and its experts (the
-    expert axis over "model", expert parallelism).  The router and the
-    expert weights come whole over "data" (`fsdp_gather`).  Over the
-    mesh dims that shard the experts, each rank's output and its x
-    gradient cover its experts only, so both are declared ``Partial``
-    there, and only the rank at coordinate 0 counts the statistics;
-    the weights' gradients are ``Partial`` over the batch axes (each
-    rank's rows).  DTensor plans no sort, scatter or `index_add`, so
-    the routing runs on local tensors.  Returns (out over
+    expert axis over "model", expert parallelism).  The router comes
+    whole, and the expert weights whole over "data" (`fsdp_gather`).
+    Over the mesh dims that shard the experts, each rank's output and
+    its x gradient cover its experts only, so both are declared
+    ``Partial`` there, and only the rank at coordinate 0 counts the
+    statistics; the weights' gradients are ``Partial`` over the batch
+    axes (each rank's rows).  DTensor plans no sort, scatter or
+    `index_add`, so the routing runs on local tensors.
+
+    Where the weights stay (a decode step, `rules.weights_stay`) each
+    rank keeps its d_model shard of them over "data" instead: its
+    groups are gathered there, the router's logits are
+    `weight_product`'s, and its up products are partial sums over
+    "data", reduce-scattered by slot rows, activated, and the
+    activations gathered again (`_moe_groups`' `cols`): a few rows of
+    slots cross the mesh, not the weights.  Returns (out over
     `ACT_TOKENS`: the partial sums all-reduced, the two statistics
     reduced over the whole mesh)."""
     x = constrain(x, ACT_GROUPS)
     mesh = x.device_mesh
     names = [n for n in ("w_up", "w_gate", "w_down") if n in params]
-    ws = [fsdp_gather(params[n]) for n in names]
+    stay = weights_stay(x, params["w_up"])
+    ws = [params[n] if stay else fsdp_gather(params[n]) for n in names]
     w_pl = tuple(ws[0].placements)     # the three share one spec
-    router = constrain(params["router"], P())
+    # the mesh dims that shard d_model (w_up's rows) where weights stay
+    dp = [i for i, p in enumerate(w_pl) if p == Shard(1)]
+    if dp:
+        x = x.redistribute(mesh, [Replicate() if i in dp else p
+                                  for i, p in enumerate(x.placements)])
+        router = weight_product(x, params["router"],
+                                dtype_of(cfg.compute_dtype))
+    else:
+        router = constrain(params["router"], P())
     x_pl = tuple(x.placements)
     ep = [i for i, p in enumerate(w_pl) if p == Shard(0)]
     batch = [i for i, p in enumerate(x_pl) if p == Shard(0)]
-    part = tuple(Partial() if i in ep else p for i, p in enumerate(x_pl))
+    part = tuple(Partial() if i in ep else Shard(2) if i in dp else p
+                 for i, p in enumerate(x_pl))
     stats = tuple(Partial() if i in ep or i in batch else Replicate()
                   for i in range(len(x_pl)))
-    w_grad = tuple(Partial() if i in batch else p
-                   for i, p in enumerate(w_pl))
+    w_grad = tuple(tuple(Partial() if i in batch else p
+                         for i, p in enumerate(w.placements)) for w in ws)
     lead = all(mesh.get_local_rank(i) == 0 for i in ep)
+    cols = local_range(mesh, w_pl, 1, cfg.d_model) if dp else None
+    ways = math.prod(mesh.size(i) for i in dp)
+
+    def activate(u, gate):
+        """The partial up products summed over `dp` and activated, on
+        1/`ways` of the slot rows each: reduce-scatter, activate,
+        all-gather."""
+        parts = u if gate is None else torch.cat([u, gate], dim=-1)
+        rows = parts.shape[1]
+        parts = torch.nn.functional.pad(parts, (0, 0, 0, -rows % ways))
+        for i in dp:
+            parts = funcol.reduce_scatter_tensor(parts, "sum", 1, (mesh, i))
+        h = _activate(cfg.activation, parts) if gate is None else \
+            _activate(cfg.activation, *parts.chunk(2, dim=-1))
+        for i in reversed(dp):
+            h = funcol.all_gather_tensor(h, 1, (mesh, i))
+        return h[:, :rows]
 
     def core(xl, rl, *wl):
         held = dict(zip(names, wl))
         out, me, ce = _moe_groups(
-            xl, rl, held["w_up"], held.get("w_gate"), held["w_down"],
-            cfg=cfg, experts=local_range(mesh, w_pl, 0, cfg.n_experts),
-            n_groups=x.shape[0])
+            xl, None if dp else rl, held["w_up"], held.get("w_gate"),
+            held["w_down"], cfg=cfg,
+            experts=local_range(mesh, w_pl, 0, cfg.n_experts),
+            n_groups=x.shape[0], cols=cols,
+            activate=activate if dp else None, logits=rl if dp else None)
         if not lead:        # its statistics, and their gradient, are 0
             me, ce = me * 0.0, ce * 0.0
         return out, me, ce
@@ -220,8 +275,8 @@ def _moe_on_mesh(params: dict, cfg: ArchConfig, x: DTensor):
     out, me, ce = local_map(
         core, out_placements=(part, stats, stats),
         in_placements=(x_pl, tuple(router.placements))
-        + (w_pl,) * len(ws),
-        in_grad_placements=(part, stats) + (w_grad,) * len(ws),
+        + tuple(tuple(w.placements) for w in ws),
+        in_grad_placements=(part, stats) + w_grad,
         device_mesh=mesh)(x, router, *ws)
     return (constrain(out, ACT_TOKENS), constrain(me, P(None)),
             constrain(ce, P(None)))

@@ -31,8 +31,8 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ArchConfig
-from ..sharding.rules import (ACT_TOKENS, P, constrain, fsdp_gather,
-                              local_range, spec)
+from ..sharding.rules import (ACT_TOKENS, P, constrain, local_range, spec,
+                              weight_product)
 from .layers import dense_init, dtype_of, rmsnorm, rmsnorm_specs
 
 
@@ -72,6 +72,33 @@ def ssm_specs() -> dict:
             "d_skip": spec("ssm_heads"), "norm": rmsnorm_specs()}
 
 
+def _columns(cfg: ArchConfig, h0: int, h1: int, device) -> torch.Tensor:
+    """`w_in`'s columns that heads [h0, h1) read: their z, x and dt
+    columns and all of B and C."""
+    di, ds, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    inner = torch.arange(h0 * hd, h1 * hd, device=device)
+    return torch.cat([inner, di + inner,
+                      torch.arange(2 * di, 2 * di + 2 * ds, device=device),
+                      torch.arange(2 * di + 2 * ds + h0,
+                                   2 * di + 2 * ds + h1, device=device)])
+
+
+def _split(zxbcdt: torch.Tensor, cfg: ArchConfig, dt_bias: torch.Tensor,
+           di: int):
+    """(z, x, B, C, dt) of a projection [z (di) | x (di) | B | C | dt],
+    dt through the softplus with its heads' `dt_bias`."""
+    ds = cfg.ssm_state
+    z = zxbcdt[..., :di]
+    xs = zxbcdt[..., di:2 * di]
+    b = zxbcdt[..., 2 * di:2 * di + ds]
+    c = zxbcdt[..., 2 * di + ds:2 * di + 2 * ds]
+    dt_raw = zxbcdt[..., 2 * di + 2 * ds:]
+    # jax.nn.softplus is logaddexp(x, 0).
+    pre = dt_raw.float() + dt_bias
+    dt = torch.logaddexp(pre, torch.zeros_like(pre))        # (B, S, nh)
+    return z, xs, b, c, dt
+
+
 def _project(params: dict, cfg: ArchConfig, x: torch.Tensor,
              heads: tuple[int, int] | None = None):
     """(z, x, B, C in the compute type; dt float32) of heads [`heads`)
@@ -79,30 +106,13 @@ def _project(params: dict, cfg: ArchConfig, x: torch.Tensor,
     block of heads reads its own z, x and dt columns and all of B and
     C.  `params["dt_bias"]` holds those heads' biases."""
     cdt = dtype_of(cfg.compute_dtype)
-    di, ds, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
-        cfg.ssm_head_dim
+    nh = cfg.ssm_heads
     h0, h1 = (0, nh) if heads is None else heads
     w = params["w_in"]
     if (h0, h1) != (0, nh):
-        inner = torch.arange(h0 * hd, h1 * hd, device=w.device)
-        cols = torch.cat([inner, di + inner,
-                          torch.arange(2 * di, 2 * di + 2 * ds,
-                                       device=w.device),
-                          torch.arange(2 * di + 2 * ds + h0,
-                                       2 * di + 2 * ds + h1,
-                                       device=w.device)])
-        w = w.index_select(-1, cols)
-        di = (h1 - h0) * hd
-    zxbcdt = x @ w.to(cdt)
-    z = zxbcdt[..., :di]
-    xs = zxbcdt[..., di:2 * di]
-    b = zxbcdt[..., 2 * di:2 * di + ds]
-    c = zxbcdt[..., 2 * di + ds:2 * di + 2 * ds]
-    dt_raw = zxbcdt[..., 2 * di + 2 * ds:]
-    # jax.nn.softplus is logaddexp(x, 0).
-    pre = dt_raw.float() + params["dt_bias"]
-    dt = torch.logaddexp(pre, torch.zeros_like(pre))        # (B, S, nh)
-    return z, xs, b, c, dt
+        w = w.index_select(-1, _columns(cfg, h0, h1, w.device))
+    return _split(x @ w.to(cdt), cfg, params["dt_bias"],
+                  (h1 - h0) * cfg.ssm_head_dim)
 
 
 def _segsum(a: torch.Tensor) -> torch.Tensor:
@@ -234,27 +244,80 @@ def ssd_forward(params: dict, cfg: ArchConfig,
     gated = _ssd_on_mesh(params, cfg, x) if isinstance(x, DTensor) \
         else _ssd_gated(params, cfg, x)
     y = rmsnorm(params["norm"], gated)
-    return constrain(y @ fsdp_gather(params["w_out"]).to(cdt), ACT_TOKENS)
+    return constrain(weight_product(y, params["w_out"], cdt), ACT_TOKENS)
+
+
+def _step(cfg: ArchConfig, z, xs, b, c, dt, a_log, d_skip, h):
+    """One step of the recurrence for the heads of `h` (B, nh, ds, hd)
+    float32: (gated y (B, 1, nh * hd) in the compute type, before the
+    norm; new h)."""
+    cdt = dtype_of(cfg.compute_dtype)
+    bsz, nh = h.shape[0], h.shape[1]
+    hd, ds = cfg.ssm_head_dim, cfg.ssm_state
+    xh = xs.reshape(bsz, nh, hd).float()
+    bv = b.reshape(bsz, ds).float()
+    cv = c.reshape(bsz, ds).float()
+    dtv = dt.reshape(bsz, nh)
+    a = -torch.exp(a_log)
+    decay = torch.exp(dtv * a)                               # (B, nh)
+    h = h * decay[:, :, None, None] \
+        + (dtv[:, :, None, None] * bv[:, None, :, None]) * xh[:, :, None, :]
+    y = torch.einsum("bd,bhdp->bhp", cv, h)
+    y = y + xh * d_skip[None, :, None]
+    y = y.reshape(bsz, 1, nh * hd).to(cdt)
+    return y * F.silu(z), h
 
 
 def ssd_decode(params: dict, cfg: ArchConfig, x: torch.Tensor,
                h: torch.Tensor):
     """Single-step recurrence.  x: (B, 1, D); h: (B, nh, ds, hd) float32.
-    Returns (y (B, 1, D), new h)."""
+    Returns (y (B, 1, D), new h).  Over a mesh (h a DTensor, its heads
+    over "model" as `LM.cache_specs` places them) each rank steps its
+    heads and writes their state into `h` in place
+    (`_ssd_decode_on_mesh`), and the returned h is `h`."""
     cdt = dtype_of(cfg.compute_dtype)
-    bsz = x.shape[0]
-    nh, hd, ds = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    z, xs, b, c, dt = _project(params, cfg, x)
-    xh = xs.reshape(bsz, nh, hd).float()
-    bv = b.reshape(bsz, ds).float()
-    cv = c.reshape(bsz, ds).float()
-    dtv = dt.reshape(bsz, nh)
-    a = -torch.exp(params["a_log"])
-    decay = torch.exp(dtv * a)                               # (B, nh)
-    h = h * decay[:, :, None, None] \
-        + (dtv[:, :, None, None] * bv[:, None, :, None]) * xh[:, :, None, :]
-    y = torch.einsum("bd,bhdp->bhp", cv, h)
-    y = y + xh * params["d_skip"][None, :, None]
-    y = y.reshape(bsz, 1, cfg.d_inner).to(cdt)
-    y = rmsnorm(params["norm"], y * F.silu(z))
-    return y @ params["w_out"].to(cdt), h
+    if isinstance(h, DTensor):
+        gated = _ssd_decode_on_mesh(params, cfg, x, h)
+    else:
+        z, xs, b, c, dt = _project(params, cfg, x)
+        gated, h = _step(cfg, z, xs, b, c, dt, params["a_log"],
+                         params["d_skip"], h)
+    y = rmsnorm(params["norm"], gated)
+    return weight_product(y, params["w_out"], cdt), h
+
+
+def _ssd_decode_on_mesh(params: dict, cfg: ArchConfig, x: DTensor,
+                        h: DTensor) -> DTensor:
+    """`ssd_decode`'s step on each rank's heads (`local_map`), as
+    `_ssd_on_mesh` scans them: the projection is `weight_product`'s
+    (the decode step keeps `w_in` where it is stored), then whole over
+    "model" (its columns do not split by head, and a row of them is
+    small), and each rank takes its heads' columns, steps their state
+    and writes it into its shard of `h`.  Returns the gated output
+    sharded over "model" along d_inner, in line with `w_out`'s rows,
+    before the norm."""
+    cdt = dtype_of(cfg.compute_dtype)
+    mesh = h.device_mesh
+    head_names = ("a_log", "dt_bias", "d_skip")     # one spec
+    a_pl = tuple(params["a_log"].placements)
+    hp = [i for i, p in enumerate(a_pl) if p == Shard(0)]
+    check_heads_split(cfg, math.prod(mesh.size(i) for i in hp))
+    h_pl = tuple(h.placements)
+    row_pl = tuple(Replicate() if p == Shard(1) else p for p in h_pl)
+    out_pl = tuple(Shard(2) if i in hp else p for i, p in enumerate(row_pl))
+    h0, h1 = local_range(mesh, a_pl, 0, cfg.ssm_heads)
+    zxbcdt = weight_product(x, params["w_in"], cdt).redistribute(mesh,
+                                                                 row_pl)
+
+    def core(zl, hl, a_log, dt_bias, d_skip):
+        cols = zl.index_select(-1, _columns(cfg, h0, h1, zl.device))
+        gated, new_h = _step(cfg, *_split(cols, cfg, dt_bias,
+                                          (h1 - h0) * cfg.ssm_head_dim),
+                             a_log, d_skip, hl)
+        hl.copy_(new_h)
+        return gated
+
+    return local_map(core, out_placements=(out_pl,),
+                     in_placements=(row_pl, h_pl) + (a_pl,) * 3,
+                     device_mesh=mesh)(
+        zxbcdt, h, *(params[n] for n in head_names))

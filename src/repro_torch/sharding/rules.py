@@ -24,9 +24,11 @@ card over a ("pod", "data", "model") `torch.distributed` device mesh
 (`launch.mesh.init_train_mesh`), each parameter and optimizer moment a
 DTensor whose `placements` its spec gives (`distribute_tree`), and
 `constrain` reshards activations as the reference's
-`with_sharding_constraint` does.  Outside such a mesh (a plain tensor)
-`constrain` returns its argument: prefill, decode, serving and
-single-card training run the same code and move nothing.
+`with_sharding_constraint` does; a model placed so prefills and
+decodes there too, the decode step keeping the weights where they are
+stored (`stationary_weights`, `weight_product`).  Outside such a mesh
+(a plain tensor) `constrain` returns its argument: single-device
+prefill, decode and training run the same code and move nothing.
 
 The "pop" axis does place tensors: `shard_map` runs a function once
 per member block of a population over a `launch.mesh.DeviceMesh`, one
@@ -36,6 +38,8 @@ own stream (the co-search engines, `core.search` and `core.fleet`).
 from __future__ import annotations
 
 import contextlib
+import contextvars
+import math
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable
@@ -43,6 +47,7 @@ from typing import Callable
 import torch
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 
@@ -462,6 +467,101 @@ def distribute_tree(tree, specs, mesh):
     if isinstance(tree, DTensor):
         return tree.redistribute(mesh, mesh_placements(specs, mesh))
     return distribute(tree, mesh, specs)
+
+
+def on_mesh(mesh):
+    """The context a step runs in over `mesh` (a training step, a
+    prefill, a decode step): plain tensors that meet DTensors
+    (positions, the step count, the learning rate) count as replicated,
+    the same on every rank.  Nothing without a mesh."""
+    return contextlib.nullcontext() if mesh is None \
+        else implicit_replication()
+
+
+def batch_ways(mesh) -> int:
+    """The ranks a batch is split over on `mesh` (a DeviceMesh): the
+    product of its "pod" and "data" dims."""
+    return math.prod(mesh.size(i) for i, n in enumerate(mesh.mesh_dim_names)
+                     if n in ("pod", "data"))
+
+
+def batch_shardable(mesh, global_batch: int) -> bool:
+    """Whether a `global_batch`-row batch is split over ("pod", "data")
+    on `mesh`, as the reference decides a cell's input specs (the
+    batch over the devices that are not "model"); else it is
+    replicated, and a decode cache's sequence takes ("data", "model")
+    (`LM.cache_specs`)."""
+    return global_batch % batch_ways(mesh) == 0
+
+
+def local_shape(mesh, placements_, shape) -> tuple[int, ...]:
+    """This rank's block of a tensor of `shape` under `placements_`
+    (`local_range` dim by dim)."""
+    return tuple(b - a for a, b in (local_range(mesh, placements_, d, n)
+                                    for d, n in enumerate(shape)))
+
+
+# A decode step (`LM.decode_step` over a mesh) keeps the weights where
+# they are stored: see `weight_product`.
+_STATIONARY: contextvars.ContextVar = contextvars.ContextVar(
+    "stationary_weights", default=False)
+
+
+@contextlib.contextmanager
+def stationary_weights():
+    """While active, `weight_product` moves an activation smaller than
+    its weight instead of gathering the weight's "data" shards, and
+    `layers.embed` looks tokens up in the table's shards."""
+    token = _STATIONARY.set(True)
+    try:
+        yield
+    finally:
+        _STATIONARY.reset(token)
+
+
+def weights_stay(x, w) -> bool:
+    """Whether a product of activation `x` with stored weight `w` keeps
+    the weight in place: a DTensor weight under `stationary_weights`
+    with more elements than the activation (a decode step's few tokens;
+    not the cross-attention's image embeddings)."""
+    return (_STATIONARY.get() and isinstance(w, DTensor)
+            and x.numel() < w.numel())
+
+
+def weight_product(x, w, dtype: torch.dtype):
+    """`x @ w` in `dtype` for a stored weight `w` (rows, columns last).
+
+    A plain tensor, or a DTensor weight the product gathers
+    (`fsdp_gather`, training and prefill), gives `x @ w.to(dtype)` as
+    the reference writes it.  Where the weight stays (`weights_stay`,
+    a decode step) its "data" shards are not gathered: on each "data"
+    mesh dim that shards the weight's rows the activation's last dim
+    is split there instead (its rows gathered: an all-to-all of the
+    activation), the product is a partial sum, reduced back to the
+    activation's rows (a reduce-scatter); on one that shards its
+    columns the activation's rows are gathered, and the output's
+    columns go back to rows (an all-to-all).  Either way the output
+    has the placements the gathered product gives on the "data" dims,
+    and DTensor's on the others, and the bytes moved are the
+    activation's, not the weight's."""
+    if not weights_stay(x, w):
+        return x @ fsdp_gather(w).to(dtype)
+    mesh = w.device_mesh
+    rows, cols, last = Shard(w.dim() - 2), Shard(w.dim() - 1), \
+        Shard(x.dim() - 1)
+    x_pl, back = list(x.placements), list(x.placements)
+    for i, name in enumerate(mesh.mesh_dim_names):
+        if name != "data":
+            continue
+        if w.placements[i] == rows:
+            x_pl[i] = last
+        elif w.placements[i] == cols or x_pl[i] == last:
+            x_pl[i] = Replicate()
+    y = x.redistribute(mesh, x_pl) @ w.to(dtype)
+    out_pl = [back[i] if name == "data" else p
+              for i, (name, p) in enumerate(zip(mesh.mesh_dim_names,
+                                                y.placements))]
+    return y.redistribute(mesh, out_pl)
 
 
 def fsdp_gather(w):

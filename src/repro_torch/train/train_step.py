@@ -23,17 +23,15 @@ frames and labels placed over the batch axes with the tokens.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Callable
 
 import torch
 from torch.distributed.tensor import DTensor
-from torch.distributed.tensor.experimental import implicit_replication
 
 from ..models.lm import LM
 from ..sharding.rules import (P, batch_spec, even_placements, local_range,
-                              mesh_placements)
+                              mesh_placements, on_mesh)
 from .optimizer import (OptConfig, clip_by_global_norm, make_optimizer,
                         tree_leaves, tree_map)
 
@@ -66,21 +64,18 @@ def _unflatten_like(tree, leaves: list):
     return take(tree)
 
 
-def _on_mesh(mesh):
-    """The context a step runs in over `mesh`: plain tensors that meet
-    DTensors (positions, the step count, the learning rate) count as
-    replicated, the same on every rank.  Nothing without a mesh."""
-    return contextlib.nullcontext() if mesh is None \
-        else implicit_replication()
-
-
-def _place_batch(batch: dict, mesh) -> dict:
+def place_batch(batch: dict, mesh, shardable: bool = True) -> dict:
     """This rank's rows of the global batch as DTensors placed by
-    `batch_spec`; DTensors pass as they are."""
+    `batch_spec` (a training step's, a prefill's or a decode step's
+    inputs: tokens, frames, labels, image embeddings); with
+    `shardable` False (a batch the batch axes do not divide,
+    `rules.batch_shardable`) every rank holds the whole batch,
+    replicated.  DTensors pass as they are."""
     def place(x):
         if isinstance(x, DTensor):
             return x
-        pl = mesh_placements(batch_spec(x.dim() - 1), mesh)
+        pl = mesh_placements(batch_spec(x.dim() - 1) if shardable else P(),
+                             mesh)
         return DTensor.from_local(x, mesh, pl, run_check=False)
     return {k: place(x) for k, x in batch.items()}
 
@@ -185,8 +180,8 @@ def make_train_step(model: LM, tcfg: TrainConfig, mesh=None
                 raise ValueError("the model's parameters are not on the "
                                  "step's mesh: init_train_state(model, "
                                  "tcfg, mesh) places them")
-            batch = _place_batch(batch, mesh)
-        with _on_mesh(mesh):
+            batch = place_batch(batch, mesh)
+        with on_mesh(mesh):
             return step(params, opt_state, batch)
 
     return train_step, init_opt

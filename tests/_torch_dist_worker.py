@@ -18,7 +18,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.checkpoint import checkpoint as ckpt
@@ -30,12 +30,12 @@ from repro_torch.launch.mesh import close_train_mesh, init_train_mesh
 from repro_torch.models.lm import LM, param_specs
 from repro_torch.runtime.fault_tolerance import (DriverConfig,
                                                  train_with_recovery)
-from repro_torch.sharding.rules import (batch_spec, mesh_placements,
-                                        set_parallelism)
+from repro_torch.sharding.rules import (batch_shardable, batch_spec,
+                                        mesh_placements, set_parallelism)
 from repro_torch.train.optimizer import OptConfig, tree_leaves
 from repro_torch.train.train_step import (TrainConfig, init_train_state,
                                           make_train_step, opt_state_specs,
-                                          rank_rows)
+                                          place_batch, rank_rows)
 
 
 def whole(x):
@@ -178,12 +178,14 @@ def faults(mesh, spec: dict, job: dict) -> dict:
 
 def census_cell(mesh, spec: dict, job: dict) -> dict:
     """`cells.measure` over the process mesh at the reduced widths of
-    the job's `arch` (Qwen3 by default), 4 rows of its `seq` (32): the
+    the job's `arch` (Qwen3 by default), 4 rows of its `seq` (32), a
+    step of its `mode` ("train" by default; "prefill", "decode"): the
     census of one real step fills the count's `collectives`."""
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    mode = job.get("mode", "train")
     count, memory = cells.measure(
         get_config(job.get("arch", "qwen3_0_6b"), reduced=True),
-        ShapeConfig("tiny_train", job.get("seq", 32), 4, "train"),
+        ShapeConfig(f"tiny_{mode}", job.get("seq", 32), 4, mode),
         {a: sizes.get(a, 1) for a in ("pod", "data", "model")},
         process_mesh=mesh)
     return {"collectives": count.collectives, "flops": count.flops,
@@ -210,8 +212,65 @@ def heads_split(mesh, spec: dict, job: dict) -> dict:
     return {"error": None}
 
 
+def serve(mesh, spec: dict, job: dict) -> dict:
+    """Prefill and decode over the mesh: the job's reduced `arch` in
+    float32 with the carried parameters, its batch's `tokens` (B,
+    prompt + steps) and image embeddings; this rank's rows placed as
+    `cells.serve_step_inputs` places them (the whole batch, replicated,
+    where the batch axes do not divide it).  Prefill of the first
+    `prompt` tokens; its K/V written into the first `prompt` positions
+    of a `max_seq` cache (`LM.init_cache`, float32, zero SSM state);
+    then `steps` decode steps teacher-forced at positions prompt,
+    prompt + 1, ...  Returns everything whole: the prefill's logits and
+    K/V stacks, each step's logits, the final cache, and the
+    placements of the prefill's stacks and of the cache."""
+    cfg = config(job)
+    model = LM(cfg, device="cpu", params=load_params(job["params"]),
+               mesh=mesh)
+    data = load_batch(job["batch"])
+    tokens = data["tokens"]
+    b, p = tokens.shape[0], job["prompt"]
+    shardable = batch_shardable(mesh, b)
+    rows = slice(*rank_rows(mesh, b)) if shardable else slice(None)
+    img = {k: v[rows] for k, v in data.items() if k == "image_embeds"}
+
+    def placed(**arrays):
+        return place_batch({k: v[rows] for k, v in arrays.items()}, mesh,
+                           shardable)
+
+    first = place_batch({"tokens": tokens[rows, :p], **img}, mesh,
+                        shardable)
+    logits, pre = model.prefill(first)
+    out = {"prefill_logits": whole(logits),
+           "prefill_kv": [(whole(k), whole(v)) for k, v in pre["kv"]],
+           "prefill_ssm": pre["ssm"],
+           "prefill_placements": [str(k.placements) for k, _ in pre["kv"]]}
+    cache = model.init_cache(b, job["max_seq"], dtype=torch.float32)
+    attn = [si for si, slot in enumerate(model.slots) if slot.kind == "attn"]
+    for si, kv in zip(attn, pre["kv"]):
+        for name, t in zip(("k", "v"), kv):
+            leaf = cache[f"slot{si}"][name]
+            padded = torch.zeros(leaf.shape)
+            padded[..., :p, :] = whole(t)
+            leaf.to_local().copy_(distribute_tensor(
+                padded, mesh, leaf.placements, src_data_rank=None)
+                .to_local())
+    out["logits"] = []
+    for i in range(job["steps"]):
+        step_logits, cache = model.decode_step(
+            cache, placed(tokens=tokens[:, p + i:p + i + 1])["tokens"],
+            p + i, first.get("image_embeds"))
+        out["logits"].append(whole(step_logits))
+    out["cache"] = {slot: {n: whole(t) for n, t in leaves.items()}
+                    for slot, leaves in cache.items()}
+    out["cache_placements"] = {slot: {n: str(t.placements)
+                                      for n, t in leaves.items()}
+                               for slot, leaves in cache.items()}
+    return out
+
+
 JOBS = {"parity": parity, "faults": faults, "census_cell": census_cell,
-        "heads_split": heads_split}
+        "heads_split": heads_split, "serve": serve}
 
 
 def main(spec_path: str, rank: int) -> None:

@@ -13,7 +13,9 @@ the CPU with `device="cpu"` (gloo's plans).
   or raised; it raises a ValueError in a process already in a group.
 - The optimizers' step count lives on the parameters' local shards'
   device: meta on a fake mesh, and one meta step completes.
-- Prefill and decode cells keep `collectives` None.
+- Prefill and decode cells take a census the same way (Qwen3's
+  prefill_32k and decode_32k, Mamba-2's long_500k), and a decode
+  cell's is below its cache's bytes a device.
 - The hillclimb's collective term is the census over the H100's link
   bandwidth, and a variant with more microbatches than a rank's rows
   counts.
@@ -27,7 +29,7 @@ from torch.distributed.tensor import Replicate, Shard
 
 from _torch_dist_harness import run_world
 from repro_torch.configs import get_config
-from repro_torch.configs.base import ShapeConfig
+from repro_torch.configs.base import SHAPES, ShapeConfig
 from repro_torch.core.arch import H100_SXM
 from repro_torch.core.tpu_model import step_roofline
 from repro_torch.launch import cells as T_cells
@@ -176,11 +178,31 @@ def test_step_count_lives_on_the_local_shards_device(optimizer):
     assert one["step"].device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
-def test_prefill_and_decode_cells_keep_no_census(reduced, shape):
-    res = T_cells.run_cell("qwen3_0_6b", shape, multi_pod=False,
-                           device="cpu")
-    assert res.ok and res.collectives is None and res.compile_s == 0.0
+@pytest.mark.parametrize("arch,shape,widths", [
+    ("qwen3_0_6b", "prefill_32k", "reduced"),
+    ("qwen3_0_6b", "decode_32k", "reduced"),
+    ("mamba2_1_3b", "long_500k", "full")],
+    ids=["prefill_32k", "decode_32k", "mamba2_long_500k"])
+def test_prefill_and_decode_cells_keep_no_census(monkeypatch, arch, shape,
+                                                 widths):
+    """Named for what these cells had before their steps ran over a
+    mesh: now each takes its census over the fake production mesh as
+    a train cell does, and leaves no process group behind.  Mamba-2 at
+    its full widths (meta tensors: seconds), whose 64 SSD heads split
+    over "model"'s 16 ranks (the reduced config's 8 do not)."""
+    if widths == "reduced":
+        monkeypatch.setattr(T_cells, "get_config",
+                            lambda a: get_config(a, reduced=True))
+    res = T_cells.run_cell(arch, shape, multi_pod=False, device="cpu")
+    assert res.ok and res.error == "" and res.mode == SHAPES[shape].mode
+    assert set(res.collectives) == KEYS
+    assert res.collectives["total"] > 0 and res.collectives["n_ops"] > 0
+    assert res.compile_s > 0
+    if res.mode == "decode":
+        assert res.collectives["total"] < T_cells.cache_bytes(
+            T_cells.get_config(arch), SHAPES[shape], {"data": 16,
+                                                      "model": 16})
+    assert not dist.is_initialized()
 
 
 def test_hillclimb_collective_term_is_the_census(reduced, tmp_path,

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""The collective census of every train_4k cell, the port's beside the
-reference's: bytes a device a step by kind, on the production 16x16 and
-2x16x16 meshes.
+"""The collective census of every applicable cell of the chosen
+shapes (train_4k by default; `--shapes prefill_32k,decode_32k,
+long_500k` for the serving cells), the port's beside the reference's:
+bytes a device a step by kind, on the production 16x16 and 2x16x16
+meshes.
 
     python3 tests/torch_census_table.py port --device cuda --out DIR
     PYTHONPATH=src python tests/torch_census_table.py reference --out DIR
@@ -9,23 +11,27 @@ reference's: bytes a device a step by kind, on the production 16x16 and
     PYTHONPATH=src python tests/torch_census_table.py hlo --arch A --out DIR
     python3 tests/torch_census_table.py table --port DIR --ref DIR
 
+`port`, `reference` and `table` take `--shapes S1,S2,...`, `shapes`
+and `hlo` one `--shape S`.
+
 - `port` (torch only: runs on the card's machine, which it uses no card
-  of) runs `python -m repro_torch.launch.dryrun --arch A --shape
-  train_4k [--multi-pod] --device D` for every cell, `--jobs` at a
+  of) runs `python -m repro_torch.launch.dryrun --arch A --shape S
+  [--multi-pod] --device D` for every applicable cell, `--jobs` at a
   time, each writing `DIR/<arch>_<mesh>/dryrun_<mesh>.json`.
 - `reference` (the JAX package on the CPU) runs the reference's
-  `run_cell(A, "train_4k", multi_pod, extrapolate=True)` a cell a
-  process that imported `repro.launch.dryrun` first (its XLA flags):
-  on 16x16 what `python -m repro.launch.dryrun --arch A --shape
-  train_4k` runs, on 2x16x16 with the depth extrapolation the CLI
-  leaves out there.  A cell over REF_TIMEOUT_S is recorded as cut.
+  `run_cell(A, S, multi_pod, extrapolate=True)` a cell a process that
+  imported `repro.launch.dryrun` first (its XLA flags): on 16x16 what
+  `python -m repro.launch.dryrun --arch A --shape S` runs, on 2x16x16
+  with the depth extrapolation the CLI leaves out there.  A cell over
+  REF_TIMEOUT_S is recorded as cut.
 - `shapes` (torch only) and `hlo` (the JAX package) group one cell's
   collectives by kind, type and shape, largest first, the port's
   census and the reference's partitioned HLO at full depth (a scanned
   stack's body once); `hlo` marks the shapes that hold the vocabulary.
 - `table` prints the markdown table of both censuses, kind by kind,
   and their ratio; `--gloo DIR` adds a `port --device cpu` sweep's
-  totals.
+  totals; a decode cell's row ends with its cache's GB a device
+  (`launch.cells.cache_bytes`).
 """
 from __future__ import annotations
 
@@ -40,16 +46,29 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
-from repro_torch.configs import ARCH_IDS  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
+from repro_torch.configs.base import SHAPES, shape_applicable  # noqa: E402
 
 MESHES = {False: "16x16", True: "2x16x16"}
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
          "collective-permute")
-SHAPE = "train_4k"
 PORT_TIMEOUT_S = 900
 REF_TIMEOUT_S = 600
 TOP = 30
-CELLS = [(a, mp) for mp in (False, True) for a in ARCH_IDS]
+
+
+def cells(shapes: str) -> list:
+    """(arch, shape, multi_pod) of every applicable cell of `shapes`
+    (comma-separated), shape by shape, 16x16 before 2x16x16."""
+    return [(a, s, mp) for s in shapes.split(",") for mp in (False, True)
+            for a in ARCH_IDS
+            if shape_applicable(get_config(a), SHAPES[s])[0]]
+
+
+def _ref_name(arch: str, shape: str, mesh: str) -> str:
+    """The reference's record of a cell (train_4k's keep their names)."""
+    return f"{arch}_{mesh}.json" if shape == "train_4k" \
+        else f"{arch}_{shape}_{mesh}.json"
 ENV = dict(os.environ, PYTHONPATH=os.pathsep.join(
     [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
 
@@ -57,7 +76,7 @@ _REF_CELL = """
 import json, sys
 import repro.launch.dryrun  # noqa: F401  (its XLA flags: 512 host devices)
 from repro.launch.cells import run_cell
-res = run_cell(sys.argv[1], "train_4k", sys.argv[2] == "1", extrapolate=True)
+res = run_cell(sys.argv[1], sys.argv[3], sys.argv[2] == "1", extrapolate=True)
 print("RECORD " + json.dumps(res.to_json(), default=float))
 """
 
@@ -76,31 +95,32 @@ def _run(cmd: list, timeout: float) -> tuple:
 
 def port(args) -> int:
     def one(cell):
-        arch, mp = cell
+        arch, shape, mp = cell
         rc, text, wall = _run(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", SHAPE, "--device", args.device, "--out",
+             arch, "--shape", shape, "--device", args.device, "--out",
              str(Path(args.out) / f"{arch}_{MESHES[mp]}")]
             + (["--multi-pod"] if mp else []), PORT_TIMEOUT_S)
-        print(json.dumps({"arch": arch, "mesh": MESHES[mp], "rc": rc,
-                          "wall_s": wall, "tail": text[-1500:] if rc
-                          else ""}), flush=True)
+        print(json.dumps({"arch": arch, "shape": shape, "mesh": MESHES[mp],
+                          "rc": rc, "wall_s": wall,
+                          "tail": text[-1500:] if rc else ""}), flush=True)
         return rc == 0
 
     with ThreadPoolExecutor(args.jobs) as pool:
-        return 0 if all(pool.map(one, CELLS)) else 1
+        return 0 if all(list(pool.map(one, cells(args.shapes)))) else 1
 
 
 def reference(args) -> int:
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    for arch, mp in CELLS:
-        path = out / f"{arch}_{MESHES[mp]}.json"
+    for arch, shape, mp in cells(args.shapes):
+        path = out / _ref_name(arch, shape, MESHES[mp])
         if path.exists():
             continue
         rc, text, wall = _run([sys.executable, "-c", _REF_CELL, arch,
-                               str(int(mp))], REF_TIMEOUT_S)
-        rec = {"arch": arch, "mesh": MESHES[mp], "ok": False}
+                               str(int(mp)), shape], REF_TIMEOUT_S)
+        rec = {"arch": arch, "shape": shape, "mesh": MESHES[mp],
+               "ok": False}
         found = [ln for ln in text.splitlines() if ln.startswith("RECORD ")]
         if found:
             rec.update(json.loads(found[-1][len("RECORD "):]))
@@ -109,8 +129,8 @@ def reference(args) -> int:
         rec["wall_s"] = wall
         path.write_text(json.dumps(rec, indent=1))
         print(json.dumps({k: rec.get(k) for k in
-                          ("arch", "mesh", "ok", "wall_s", "error")}),
-              flush=True)
+                          ("arch", "shape", "mesh", "ok", "wall_s",
+                           "error")}), flush=True)
     return 0
 
 
@@ -119,7 +139,8 @@ def _groups_out(args, name: str, res: dict) -> int:
     out.mkdir(parents=True, exist_ok=True)
     res["by_shape"] = dict(sorted(res["by_shape"].items(),
                                   key=lambda kv: -kv[1][1]))
-    (out / f"{name}_{args.arch}_{MESHES[args.multi_pod]}.json").write_text(
+    (out / f"{name}_{args.arch}_{args.shape}_{MESHES[args.multi_pod]}"
+     ".json").write_text(
         json.dumps(res, indent=1))
     for key, (n, nbytes) in list(res["by_shape"].items())[:TOP]:
         print(f"{nbytes / 1e9:10.3f} GB {n:6d} x {key}")
@@ -129,8 +150,6 @@ def _groups_out(args, name: str, res: dict) -> int:
 def shapes(args) -> int:
     """The port's census of `--arch` on a fake mesh of `--device`'s
     type, by "<kind> <dtype><shape>" of each collective's output."""
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import SHAPES
     from repro_torch.launch import cells
     from repro_torch.launch.mesh import (fake_production_mesh,
                                          make_production_mesh)
@@ -156,10 +175,15 @@ def shapes(args) -> int:
             return out
 
     mesh = make_production_mesh(multi_pod=args.multi_pod)
+    shape = SHAPES[args.shape]
     with fake_production_mesh(mesh, args.device) as fake:
-        step, *inputs = cells.train_step_inputs(
-            get_config(args.arch), SHAPES[SHAPE], fake, cells.train_config(),
-            meta=True)
+        if shape.mode == "train":
+            step, *inputs = cells.train_step_inputs(
+                get_config(args.arch), shape, fake, cells.train_config(),
+                meta=True)
+        else:
+            step, *inputs = cells.serve_step_inputs(
+                get_config(args.arch), shape, fake, meta=True)
         with ByShape() as census:
             step(*inputs)
     return _groups_out(args, f"port_{args.device}", {
@@ -182,8 +206,9 @@ def hlo(args) -> int:
 
     cfg = get_config(args.arch)
     mesh = make_production_mesh(multi_pod=args.multi_pod)
+    shape = SHAPES[args.shape]
     with getattr(jax.sharding, "set_mesh", lambda m: m)(mesh):
-        text = _lower_cell(cfg, SHAPES[SHAPE], mesh, "train",
+        text = _lower_cell(cfg, shape, mesh, shape.mode,
                            unroll=False).compile().as_text()
     vocab = {str(cfg.vocab_size), str(cfg.vocab_size // 16)}
     groups: dict[str, list] = {}
@@ -198,9 +223,9 @@ def hlo(args) -> int:
         "by_shape": groups})
 
 
-def _record(d: Path, arch: str, mesh: str) -> dict:
+def _record(d: Path, arch: str, shape: str, mesh: str) -> dict:
     path = d / f"{arch}_{mesh}" / f"dryrun_{mesh}.json"
-    return json.loads(path.read_text()).get(f"{arch}|{SHAPE}", {}) \
+    return json.loads(path.read_text()).get(f"{arch}|{shape}", {}) \
         if path.exists() else {}
 
 
@@ -212,41 +237,54 @@ def table(args) -> int:
     """A row a cell: each kind and the total as port / reference in GB
     a device, the ratio, the operations, the port's seconds (`lower_s`
     + `compile_s`), with `--gloo` the gloo sweep's total and seconds,
-    and the reference's wall seconds.  The reference's `total` is
-    clamped key by key to its full-depth count, so it may fall below
-    its kinds' sum: the table sums the kinds and notes the other."""
+    the reference's wall seconds, and a decode cell's cache GB a
+    device.  The reference's `total` is clamped key by key to its
+    full-depth count, so it may fall below its kinds' sum: the table
+    sums the kinds and notes the other."""
+    from repro_torch.launch import cells as T_cells
+    from repro_torch.launch.mesh import make_production_mesh
+
     port_dir, ref_dir = Path(args.port), Path(args.ref)
     gloo = Path(args.gloo) if args.gloo else None
     print("| cell | " + " | ".join(KINDS) + " | total | port / ref | ops "
-          "| port s |" + (" gloo total, s |" if gloo else "") + " ref s |")
-    print("|" + " --- |" * (len(KINDS) + 6 + bool(gloo)))
-    for arch, mp in CELLS:
+          "| port s |" + (" gloo total, s |" if gloo else "")
+          + " ref s | cache GB |")
+    print("|" + " --- |" * (len(KINDS) + 7 + bool(gloo)))
+    for arch, shape, mp in cells(args.shapes):
         mesh = MESHES[mp]
-        got = _record(port_dir, arch, mesh)
-        ref_path = ref_dir / f"{arch}_{mesh}.json"
+        name = f"{arch} {mesh}" if shape == "train_4k" \
+            else f"{arch} {shape} {mesh}"
+        got = _record(port_dir, arch, shape, mesh)
+        ref_path = ref_dir / _ref_name(arch, shape, mesh)
         want = json.loads(ref_path.read_text()) if ref_path.exists() else {}
         a, b = got.get("collectives"), want.get("collectives")
         if not a or not b:
             why = [f"{side}: {rec.get('error') or 'not run'}"[:60]
                    for side, rec, c in (("port", got, a),
                                         ("reference", want, b)) if not c]
-            print(f"| {arch} {mesh} | " + "; ".join(why)
-                  + " |" * (len(KINDS) + 5))
+            print(f"| {name} | " + "; ".join(why)
+                  + " |" * (len(KINDS) + 6))
             continue
         ta, tb = (sum(c[k] for k in KINDS) for c in (a, b))
         note = "" if abs(b["total"] - tb) <= 0.01 * tb \
-            else f" (reported {_gb(b['total'])})"
-        row = (f"| {arch} {mesh} | "
+            else f" (reported {b['total'] / 1e9:.3g})"
+        row = (f"| {name} | "
                + " | ".join(f"{_gb(a[k])} / {_gb(b[k])}" for k in KINDS)
-               + f" | {_gb(ta)} / {_gb(tb)}{note} | {ta / tb:.2f}"
-               f" | {int(a['n_ops'])} / {int(b['n_ops'])}"
+               + f" | {_gb(ta)} / {_gb(tb)}{note} | "
+               + (f"{ta / tb:.2f}" if tb else "-")
+               + f" | {int(a['n_ops'])} / {int(b['n_ops'])}"
                f" | {got['lower_s']:.1f} + {got['compile_s']:.1f} |")
         if gloo:
-            g = _record(gloo, arch, mesh)
+            g = _record(gloo, arch, shape, mesh)
             row += (f" {_gb(g['collectives']['total'])}, {g['lower_s']:.1f}"
                     f" + {g['compile_s']:.1f} |" if g.get("collectives")
                     else f" {(g.get('error') or 'not run')[:40]} |")
-        print(row + f" {want['wall_s']:.0f} |")
+        cache = ""
+        if SHAPES[shape].mode == "decode":
+            cache = _gb(T_cells.cache_bytes(
+                get_config(arch), SHAPES[shape],
+                make_production_mesh(multi_pod=mp)))
+        print(row + f" {want['wall_s']:.0f} | {cache} |")
     return 0
 
 
@@ -257,10 +295,12 @@ def main() -> int:
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     p.add_argument("--out", required=True)
     p.add_argument("--jobs", type=int, default=4)
-    sub.add_parser("reference").add_argument("--out", required=True)
+    r = sub.add_parser("reference")
+    r.add_argument("--out", required=True)
     for name in ("shapes", "hlo"):
         b = sub.add_parser(name)
         b.add_argument("--arch", required=True)
+        b.add_argument("--shape", default="train_4k", choices=sorted(SHAPES))
         b.add_argument("--multi-pod", action="store_true")
         b.add_argument("--out", required=True)
         b.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -268,6 +308,9 @@ def main() -> int:
     t.add_argument("--port", required=True)
     t.add_argument("--ref", required=True)
     t.add_argument("--gloo", default="")
+    for sp in (p, r, t):
+        sp.add_argument("--shapes", default="train_4k",
+                        help="comma-separated shapes")
     args = ap.parse_args()
     return {"port": port, "reference": reference, "shapes": shapes,
             "hlo": hlo, "table": table}[args.cmd](args)
