@@ -2,8 +2,8 @@
 """Training and serving over four cards: the port's sharded training
 step, prefill and decode on a mesh of NCCL processes, one a card.
 
-    python3 chip_dist_train.py [--runs a,b,c,d,e,f,g,h,s]
-        [--archs qwen3_0_6b,gemma_7b]
+    python3 chip_dist_train.py [--runs a,b,c,d,e,f,g,h,t,s]
+        [--archs qwen3_0_6b,gemma_7b] [--parent-src DIR]
 
 Run from the root of a checkout on a machine with four cards.  It
 builds the flash kernels once, then runs each part as processes of its
@@ -52,6 +52,16 @@ gates the results here:
 - (h) one Llama-3.2-Vision period (5 of 100 layers, bf16 parameters,
   Adafactor, 4096 image embeddings a row) over 1x2x2 against one card,
   losses within rtol 1e-3;
+- (t) Qwen3-0.6B whole, bf16 compute, remat, AdamW, over 1x1x4 at 16 x
+  4096 rows (`ROWS`: what one device of the train_4k cell holds, 256 x
+  4096 over 16 data shards): finite losses, each card's peak memory
+  and the step times; the loss runs on the logits' vocabulary shards,
+  a quarter of the 16 x 4095 x 151,936 float32 logits a card.  With
+  `--parent-src DIR` (an unpacked older `src/`) the same run follows
+  on that package, and its peak, or the error its first failed rank
+  printed last (out of memory, where DTensor gathered the logits whole
+  on every card), is printed beside it.  Then Qwen3-0.6B, 4 of its 28
+  layers in float32, 4 x 4096 over 1x1x4 against one card as (a);
 - (s) serving (`SERVE`): Qwen3-0.6B whole in float32 over 1x2x2 and
   1x1x4, and Gemma-7B whole with bf16 compute over 1x1x4 (head dim 256
   on the local shards), each `LM.prefill` of 4 x 4096 tokens (the
@@ -136,7 +146,14 @@ CASES = {
           ((1, 1, 4), (1, 2, 2)), "f32"),
     "h": ("h", "llama_3_2_vision_90b", dict(n_layers=5), ((1, 2, 2),),
           "bf16"),
+    "t": ("t", "qwen3_0_6b", {}, ((1, 1, 4),), "finite"),
+    "t_f32": ("t", "qwen3_0_6b", dict(compute_dtype="float32", n_layers=4),
+              ((1, 1, 4),), "f32"),
 }
+# Run key -> (batch, sequence) where it is not (BATCH, SEQ).
+ROWS = {"t": (16, 4096), "t_f32": (4, 4096)}
+# The older package part (t) runs again on (`--parent-src`), or None.
+PARENT_SRC = None
 # Part (s): run key -> (arch, config overrides, meshes, logits bound
 # as a share of one card's largest magnitude); `--archs` picks them too.
 SERVE = {
@@ -217,10 +234,11 @@ def _tcfg():
 
 
 def _train(torch, cfg, mesh, dev, keep_params: bool = True,
-           perturb: float = 0.0) -> dict:
-    """STEPS steps of the pipeline's batches (seed 0: tokens, HuBERT's
-    frames and labels, the VLM's image embeddings) through
-    `make_train_step`, the model drawn from seed 0; the second step
+           perturb: float = 0.0, rows: tuple = (BATCH, SEQ)) -> dict:
+    """STEPS steps of the pipeline's batches of `rows` (batch, sequence;
+    seed 0: tokens, HuBERT's frames and labels, the VLM's image
+    embeddings) through `make_train_step`, the model drawn from seed 0;
+    the second step
     under the census.  Returns the losses, step seconds, per-step flash
     launches, the census, peak memory, the attention calls of a forward
     pass and, with `keep_params`, the final parameters (whole).  With
@@ -251,11 +269,12 @@ def _train(torch, cfg, mesh, dev, keep_params: bool = True,
     _sync(torch)
     init_s = now() - t0
     out_mem = [_mem_gb(torch)]
-    data = DataConfig(seed=0, vocab_size=cfg.vocab_size, seq_len=SEQ,
-                      global_batch=BATCH, modality=cfg.modality,
+    batch_rows, seq = rows
+    data = DataConfig(seed=0, vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch_rows, modality=cfg.modality,
                       d_model=cfg.d_model,
                       n_image_tokens=cfg.n_image_tokens)
-    rows = (0, BATCH) if mesh is None else rank_rows(mesh, BATCH)
+    rows = (0, batch_rows) if mesh is None else rank_rows(mesh, batch_rows)
     out = {"losses": [], "grad_norms": [], "step_s": [], "launches": [],
            "init_s": init_s, "allocated_gb": out_mem,
            "calls": attention_calls(cfg)}
@@ -469,7 +488,8 @@ def rank_main(run: str, rank: int, world: int, port: int) -> None:
             keep = gate == "f32"
         try:
             res = _train(torch, cfg, mesh, dev, keep_params=keep,
-                         perturb=CONTROL_EPS * (mesh_name == "control"))
+                         perturb=CONTROL_EPS * (mesh_name == "control"),
+                         rows=ROWS.get(key, (BATCH, SEQ)))
         finally:
             if mesh is not None:
                 close_train_mesh()
@@ -535,18 +555,20 @@ def wait_all(procs: list, timeout_s: float) -> list:
         time.sleep(0.5)
 
 
-def spawn(run: str, world: int) -> list[dict]:
-    """Run `run` as `world` processes; every rank's summary."""
+def _spawn(run: str, world: int, src: str) -> tuple[list, str]:
+    """Run `run` as `world` processes on the package under `src`: (the
+    exit codes, the log tail of the first rank that failed by itself,
+    not a killed one, or "")."""
     port = _free_port()
-    t0 = now()
     procs = []
     for r in range(world):
         log = open(OUT / f"{run}.rank{r}.log", "w")
         procs.append((subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), "--rank-of", run,
-             "--rank", str(r), "--world", str(world), "--port", str(port)],
+             "--rank", str(r), "--world", str(world), "--port", str(port),
+             "--src", src],
             stdout=log, stderr=subprocess.STDOUT, cwd=ROOT,
-            env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+            env=dict(os.environ, PYTHONPATH=src,
                      PYTORCH_CUDA_ALLOC_CONF=ALLOC_CONF)), log))
     try:
         rcs = wait_all([p for p, _ in procs], RANK_TIMEOUT_S)
@@ -557,15 +579,47 @@ def spawn(run: str, world: int) -> list[dict]:
                 p.wait()
             log.close()
     failed = sorted((rc < 0, r) for r, rc in enumerate(rcs) if rc)
-    if failed:      # a rank that failed by itself first, not a killed one
-        r = failed[0][1]
-        print((OUT / f"{run}.rank{r}.log").read_text()[-4000:],
-              file=sys.stderr, flush=True)
+    tail = (OUT / f"{run}.rank{failed[0][1]}.log").read_text()[-4000:] \
+        if failed else ""
+    return rcs, tail
+
+
+def spawn(run: str, world: int) -> list[dict]:
+    """Run `run` as `world` processes; every rank's summary."""
+    t0 = now()
+    rcs, tail = _spawn(run, world, str(ROOT / "src"))
+    if tail:
+        print(tail, file=sys.stderr, flush=True)
         check(False, f"{run}: ranks exited {rcs}")
     emit({"phase": "spawned", "run": run, "world": world,
           "seconds": now() - t0})
     return [json.loads((OUT / f"{run}.rank{r}.json").read_text())
             for r in range(world)]
+
+
+def parent_run(run: str, world: int) -> dict:
+    """`run` again on the package under PARENT_SRC (its kernels copied
+    from this build: the same sources give the same library names):
+    each card's peak GB and rank 0's steps, or the last line the first
+    failed rank printed.  Not gated."""
+    import shutil
+
+    built = ROOT / "build" / "repro_torch_kernels"
+    if built.exists():
+        shutil.copytree(built, Path(PARENT_SRC).parent / "build"
+                        / "repro_torch_kernels", dirs_exist_ok=True)
+    t0 = now()
+    rcs, tail = _spawn(run, world, PARENT_SRC)
+    line = {"phase": f"{run}_parent", "src": PARENT_SRC, "exit_codes": rcs,
+            "seconds": now() - t0}
+    if tail:
+        line["error"] = [ln for ln in tail.splitlines() if ln.strip()][-1]
+    else:
+        ranks = [json.loads((OUT / f"{run}.rank{r}.json").read_text())
+                 for r in range(world)]
+        line.update(_summary(run, ranks, ranks[0]["layers"]))
+        line["phase"] = f"{run}_parent"
+    return line
 
 
 def fake_census(run: str) -> dict:
@@ -601,10 +655,12 @@ def _summary(run: str, ranks: list[dict], layers: int) -> dict:
     r0 = ranks[0]
     warm = r0["step_s"][1:] or r0["step_s"]
     step_s = statistics.median(warm)
-    return {"phase": run, "layers": layers, "losses": r0["losses"],
+    batch, seq = ROWS.get(run.rsplit("_", 1)[0], (BATCH, SEQ))
+    return {"phase": run, "layers": layers, "rows": [batch, seq],
+            "losses": r0["losses"],
             "grad_norms": r0.get("grad_norms"), "step_s": r0["step_s"],
             "step_ms_median_warm": step_s * 1e3,
-            "tokens_per_s": BATCH * SEQ / step_s,
+            "tokens_per_s": batch * seq / step_s,
             "peak_gb_per_card": [r["peak_bytes"] / 1e9 for r in ranks],
             "census_rank0": r0.get("census"),
             "census_total_gb_per_card":
@@ -684,6 +740,8 @@ def run_case(key: str) -> None:
                   f"card's {single[0]['losses']}, rtol {LOSS_BF16} over "
                   f"the first {horizon} steps")
         emit(line)
+        if key == "t" and PARENT_SRC:
+            emit(parent_run(run, math.prod(shape)))
     if gate == "f32":
         (OUT / f"{key}_single.pt").unlink()
 
@@ -814,7 +872,7 @@ def smi_line() -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     a_archs = [k[2:] for k in CASES if k.startswith("a_")]
-    ap.add_argument("--runs", default="a,b,c,d,e,f,g,h,s")
+    ap.add_argument("--runs", default="a,b,c,d,e,f,g,h,t,s")
     ap.add_argument("--archs", default=",".join(a_archs),
                     help="part (a)'s and (s)'s models, of "
                     + ", ".join(a_archs))
@@ -823,8 +881,15 @@ def main() -> int:
     ap.add_argument("--world", type=int, default=1, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--fake-census", help=argparse.SUPPRESS)
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--parent-src", default=None,
+                    help="an older package's src/ that part (t) also "
+                    "runs on, not gated")
     args = ap.parse_args()
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, args.src)
+    global PARENT_SRC
+    PARENT_SRC = args.parent_src and str(Path(args.parent_src).resolve())
     if args.rank_of:
         rank_main(args.rank_of, args.rank, args.world, args.port)
         return 0
@@ -860,7 +925,7 @@ def main() -> int:
     parts = {"a": cases([f"a_{a}" for a in archs]), "b": part_b,
              "c": part_c}
     parts.update({p: cases([k for k, c in CASES.items() if c[0] == p])
-                  for p in "defgh"})
+                  for p in "defght"})
     parts["s"] = lambda: [run_serve(k) for k in SERVE
                           if SERVE[k][0] in archs]
     failed = []

@@ -190,7 +190,10 @@ meta device) runs in three phases:
   plans; no card used: the card's allocated and peak bytes are gated
   unchanged), Qwen3's train all-to-all > 0, each decode cell's census
   below its cache's bytes a device (the decode step keeps the weights
-  and the cache in place), the censuses within
+  and the cache in place), Qwen3's train census free of any collective
+  whose last dim is its whole vocabulary (the loss runs on the logits'
+  vocabulary shards) and at least QWEN3_TRAIN_CUT_GB below
+  QWEN3_TRAIN_GATHERED_GB, the censuses within
   DRYRUN_CENSUS_BUDGET_S; `hillclimb.run`'s
   "baseline" and "no_remat" on Qwen3-0.6B train_4k, whose compute
   term must fall and whose collective term must be above 0;
@@ -225,6 +228,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -523,6 +527,12 @@ DRYRUN_MESH = {"data": 16, "model": 16}
 # 25-31 s they took on an H100 host, whose speed has moved 25-60%
 # between runs.
 DRYRUN_CENSUS_BUDGET_S = 60.0
+# Qwen3-0.6B train_4k 16x16's census a device, GB, with NCCL's plans
+# when the loss gathered the float32 logits whole (39.82 GB of it that
+# all-gather); the loss on the vocabulary shards must take at least
+# QWEN3_TRAIN_CUT_GB off it.
+QWEN3_TRAIN_GATHERED_GB = 98.47
+QWEN3_TRAIN_CUT_GB = 30.0
 # `dryrun_vs_card`: the one-device mesh on which the meta count is held
 # against real steps, and the family whose training model it reuses.
 ONE_DEVICE = {"data": 1, "model": 1}
@@ -2265,8 +2275,11 @@ def phase_dryrun_cells(torch, cells, tpu_model):
     reason; every counted cell's census (train, prefill and decode)
     under `parse_collective_bytes`' keys with a total above 0, each
     decode cell's total below its cache's bytes a device
-    (`cells.cache_bytes`), Qwen3-0.6B's train all-to-all above 0; the
-    card's allocated and peak bytes unchanged; the counts (`lower_s`)
+    (`cells.cache_bytes`), Qwen3-0.6B's train all-to-all above 0, its
+    train census free of any collective whose last dim is the whole
+    vocabulary (`CollectiveCensus.by_shape`) and at least
+    QWEN3_TRAIN_CUT_GB below QWEN3_TRAIN_GATHERED_GB; the card's allocated
+    and peak bytes unchanged; the counts (`lower_s`)
     within DRYRUN_BUDGET_S and the censuses (`compile_s`) within
     DRYRUN_CENSUS_BUDGET_S.  Prints per device the FLOPs, bytes,
     memory, the census and the three roofline terms on the H100 with
@@ -2277,8 +2290,12 @@ def phase_dryrun_cells(torch, cells, tpu_model):
     allocated = torch.cuda.memory_allocated()
     keys = set(cells.parse_collective_bytes(""))
     rows = []
+    by_shape = {}
     for arch, shape in DRYRUN_CELLS:
-        res = cells.run_cell(arch, shape, multi_pod=False, device="cuda")
+        census = cells.CollectiveCensus()
+        res = cells.run_cell(arch, shape, multi_pod=False, device="cuda",
+                             census=census)
+        by_shape[arch, shape] = census.by_shape
         skip = DRYRUN_SKIPS.get((arch, shape), "")
         check(res.ok == (not skip) and res.skip_reason == skip,
               f"dryrun {arch} {shape}: ok {res.ok}, skip "
@@ -2321,6 +2338,18 @@ def phase_dryrun_cells(torch, cells, tpu_model):
     check(qwen["collectives"]["all-to-all"] > 0,
           f"Qwen3-0.6B train_4k: no all-to-all in NCCL's plans "
           f"{qwen['collectives']}")
+    vocab = cells.get_config("qwen3_0_6b").vocab_size
+    qwen["vocab_collectives"] = [
+        key for key in by_shape["qwen3_0_6b", "train_4k"]
+        if re.search(rf"[\[ ]{vocab}\]", key)]
+    check(not qwen["vocab_collectives"],
+          f"Qwen3-0.6B train_4k: collectives over the whole vocabulary "
+          f"{qwen['vocab_collectives']}")
+    check(qwen["collectives_gb"]["total"]
+          <= QWEN3_TRAIN_GATHERED_GB - QWEN3_TRAIN_CUT_GB,
+          f"Qwen3-0.6B train_4k: census {qwen['collectives_gb']['total']:.2f}"
+          f" GB a device, not {QWEN3_TRAIN_CUT_GB} below the "
+          f"{QWEN3_TRAIN_GATHERED_GB} of a loss that gathers the logits")
     torch.cuda.synchronize()
     check(torch.cuda.memory_allocated() == allocated
           and torch.cuda.max_memory_allocated() == allocated,

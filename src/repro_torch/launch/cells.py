@@ -126,12 +126,15 @@ class CollectiveCensus(TorchDispatchMode):
     and `total`: bytes per device.  An operation on DTensors is handed
     back (NotImplemented) so that DTensor runs it and the mode sees the
     collectives it turns into.  A gloo group has no all-to-all, so
-    DTensor gathers there instead, and the census says so."""
+    DTensor gathers there instead, and the census says so.  `by_shape`
+    groups the same bytes by "<kind> <dtype><shape>" of each
+    collective's output: [operations, bytes]."""
 
     def __init__(self):
         super().__init__()
         self.bytes = {k: 0.0 for k in COLLECTIVE_FACTOR}
         self.n_ops = 0
+        self.by_shape: dict[str, list] = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, DTensor) for t in types):
@@ -140,10 +143,18 @@ class CollectiveCensus(TorchDispatchMode):
         kind = _COLLECTIVE_KINDS.get(
             (func.namespace, func._schema.name.split("::")[-1]))
         if kind is not None:
-            moved = sum(tensor_bytes(t) for t in _pytree_leaves(out)
-                        if isinstance(t, torch.Tensor))
-            self.bytes[kind] += moved * COLLECTIVE_FACTOR[kind]
+            outs = [t for t in _pytree_leaves(out)
+                    if isinstance(t, torch.Tensor)]
+            moved = sum(tensor_bytes(t) for t in outs) \
+                * COLLECTIVE_FACTOR[kind]
+            self.bytes[kind] += moved
             self.n_ops += 1
+            key = f"{kind} " + " ".join(
+                f"{str(t.dtype).removeprefix('torch.')}{list(t.shape)}"
+                for t in outs)
+            seen = self.by_shape.setdefault(key, [0, 0.0])
+            seen[0] += 1
+            seen[1] += moved
         return out
 
     def result(self) -> dict[str, float]:
@@ -487,36 +498,43 @@ def serve_step_inputs(cfg: ArchConfig, shape: ShapeConfig, mesh,
 
 def census_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh,
                       tcfg: TrainConfig, seed: int = 0,
-                      meta: bool = False) -> dict:
+                      meta: bool = False,
+                      census: CollectiveCensus | None = None) -> dict:
     """`CollectiveCensus` of the training step `train_step_inputs`
-    gives (the same arguments), under `parse_collective_bytes`' keys.
-    Every rank of `mesh` must call it."""
+    gives (the same arguments), under `parse_collective_bytes`' keys;
+    `census` (a fresh one by default) keeps the counts.  Every rank of
+    `mesh` must call it."""
     step, *args = train_step_inputs(cfg, shape, mesh, tcfg, seed, meta)
-    with CollectiveCensus() as census:
+    census = CollectiveCensus() if census is None else census
+    with census:
         step(*args)
     return census.result()
 
 
 def census_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh,
-                      seed: int = 0, meta: bool = False) -> dict:
+                      seed: int = 0, meta: bool = False,
+                      census: CollectiveCensus | None = None) -> dict:
     """`CollectiveCensus` of the prefill or decode step
     `serve_step_inputs` gives (the same arguments), under
-    `parse_collective_bytes`' keys.  Every rank of `mesh` must call
-    it."""
+    `parse_collective_bytes`' keys; `census` as `census_train_step`'s.
+    Every rank of `mesh` must call it."""
     step, *args = serve_step_inputs(cfg, shape, mesh, seed, meta)
-    with CollectiveCensus() as census:
+    census = CollectiveCensus() if census is None else census
+    with census:
         step(*args)
     return census.result()
 
 
 def census_step(cfg: ArchConfig, shape: ShapeConfig, mesh,
                 tcfg: TrainConfig, seed: int = 0,
-                meta: bool = False) -> dict:
+                meta: bool = False,
+                census: CollectiveCensus | None = None) -> dict:
     """The census of the step of `shape.mode`: `census_train_step`
     (with `tcfg`) or `census_serve_step`."""
     if shape.mode == "train":
-        return census_train_step(cfg, shape, mesh, tcfg, seed, meta)
-    return census_serve_step(cfg, shape, mesh, seed, meta)
+        return census_train_step(cfg, shape, mesh, tcfg, seed, meta,
+                                 census)
+    return census_serve_step(cfg, shape, mesh, seed, meta, census)
 
 
 def train_config(train_overrides: dict | None = None) -> TrainConfig:
@@ -525,15 +543,17 @@ def train_config(train_overrides: dict | None = None) -> TrainConfig:
 
 
 def fake_census(cfg: ArchConfig, shape: ShapeConfig, mesh: dict[str, int],
-                tcfg: TrainConfig, device=DEFAULT_DEVICE) -> dict:
+                tcfg: TrainConfig, device=DEFAULT_DEVICE,
+                census: CollectiveCensus | None = None) -> dict:
     """The collective census of one meta step of `shape.mode` (train,
-    prefill or decode; `census_step`) of rank 0 of a fake process group
-    shaped as `mesh` (`fake_production_mesh`): DTensor plans the step
-    with `device`'s collectives (``"cuda"`` NCCL's, ``"cpu"`` gloo's)
-    and nothing is allocated or sent.  A process already in a process
-    group raises a ValueError."""
+    prefill or decode; `census_step`, into `census` if given) of rank 0
+    of a fake process group shaped as `mesh` (`fake_production_mesh`):
+    DTensor plans the step with `device`'s collectives (``"cuda"``
+    NCCL's, ``"cpu"`` gloo's) and nothing is allocated or sent.  A
+    process already in a process group raises a ValueError."""
     with fake_production_mesh(mesh, device) as fake:
-        return census_step(cfg, shape, fake, tcfg, meta=True)
+        return census_step(cfg, shape, fake, tcfg, meta=True,
+                           census=census)
 
 
 def measure(cfg: ArchConfig, shape: ShapeConfig, mesh: dict[str, int],
@@ -566,18 +586,20 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
              cfg_overrides: dict | None = None,
              train_overrides: dict | None = None,
              parallelism: str = "tp",
-             device=DEFAULT_DEVICE) -> CellResult:
+             device=DEFAULT_DEVICE,
+             census: CollectiveCensus | None = None) -> CellResult:
     """Count one cell on the production mesh (the reference's skip
     rules, overrides and parallelism mode).  `lower_s` is the meta
     count's seconds on the telemetry clock.  Every counted cell (train,
     prefill or decode) then takes its collective census on a fake
     production mesh of `device`'s type (`fake_production_mesh`;
     ``"cuda"``, NCCL's plans, needs a torch built with CUDA but no
-    card): `collectives`, and its seconds in `compile_s` (DTensor's
-    planning over the mesh is the port's counterpart of XLA's
-    partitioning).  A census that raises fails the cell with its
-    traceback in `error`.  A process already in a process group raises
-    a ValueError."""
+    card): `collectives`, counted into `census` if one is given (its
+    `by_shape` then groups them by shape), and its seconds in
+    `compile_s` (DTensor's planning over the mesh is the port's
+    counterpart of XLA's partitioning).  A census that raises fails the
+    cell with its traceback in `error`.  A process already in a process
+    group raises a ValueError."""
     set_parallelism(parallelism)
     cfg = get_config(arch)
     if cfg_overrides:
@@ -610,7 +632,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         # on to the next cell.
         try:
             res.collectives = fake_census(
-                cfg, shape, mesh, train_config(train_overrides), device)
+                cfg, shape, mesh, train_config(train_overrides), device,
+                census)
         except CELL_ERRORS as e:
             res.error = f"census: {e!r}\n" + traceback.format_exc()[-3000:]
     res.compile_s = _obs.default_clock() - t1

@@ -331,8 +331,8 @@ def attention_apply(params: dict, cfg: ArchConfig, x: torch.Tensor,
                             use_rope=not cross)
     out = flash_attention(q, k, v, causal=causal and not cross,
                           chunk=min(chunk, k.shape[2]))
-    return weight_product(merge_heads(out), params["wo"],
-                          dtype_of(cfg.compute_dtype))
+    return row_parallel_product(merge_heads(out), params["wo"],
+                                dtype_of(cfg.compute_dtype))
 
 
 def attention_decode(params: dict, cfg: ArchConfig, x: torch.Tensor,
@@ -469,7 +469,22 @@ def mlp_apply(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     g = weight_product(x, params["w_gate"], cdt) if "w_gate" in params \
         else None
     h = _activate(cfg.activation, u, g)
-    return weight_product(h, params["w_down"], cdt)
+    return row_parallel_product(h, params["w_down"], cdt)
+
+
+def row_parallel_product(x: torch.Tensor, w: torch.Tensor,
+                         dtype: torch.dtype) -> torch.Tensor:
+    """`weight_product` of a row-parallel weight (`wo`, `w_down`: rows
+    sharded over "model"), its output constrained to `ACT_TOKENS`: over
+    a mesh the partial sum over "model" is reduced here, at the product
+    and in `dtype` (the compute type), as XLA reduces it.  Left
+    ``Partial``, it would flow through the residual add into the next
+    norm, where DTensor may reduce it in float32 inside `x.float()`, by
+    torch version.  Where the weights stay (a decode step) the product
+    moves rows only and is left as it was; a plain tensor is the
+    product alone."""
+    y = weight_product(x, w, dtype)
+    return y if weights_stay(x, w) else constrain(y, ACT_TOKENS)
 
 
 # ---------------------------------------------------------------------------
@@ -545,6 +560,129 @@ def _embed_on_mesh(table: DTensor, tokens: DTensor,
     return constrain(out, ACT_TOKENS)
 
 
-def unembed(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    # logits in f32 for a stable softmax-xent
-    return weight_product(x, params["unembed"], x.dtype).float()
+def unembed(params: dict, cfg: ArchConfig, x: torch.Tensor, *,
+            vocab_shards: bool = False) -> torch.Tensor:
+    """Logits (..., V) in float32, for a stable softmax-xent: `x @
+    unembed` in x's type.
+
+    Over a mesh the product leaves the logits where the table's shards
+    put them.  A vocabulary the "model" axis divides
+    (`embedding_specs`) shards the table's columns there, so the logits
+    come out sharded over "model" by vocabulary and no collective
+    carries them.  The odd vocabularies (Mamba-2's 50,280, HuBERT's
+    504) shard the table's d_model instead, and the product is a
+    partial sum over "model" of the whole logits.  With `vocab_shards`
+    (the training loss) such a table is gathered whole and each rank
+    computes its own vocabulary block (`_vocab_block_logits`), so the
+    loss meets vocabulary shards either way (`vocab_parallel_nll`).
+    Serving (the last position's logits) takes the partial sum."""
+    w = params["unembed"]
+    if vocab_shards and isinstance(w, DTensor):
+        blocks = _vocab_block_logits(x, w)
+        if blocks is not None:
+            return blocks
+    return weight_product(x, w, x.dtype).float()
+
+
+def _vocab_block_logits(x: DTensor, w: DTensor) -> DTensor | None:
+    """`x @ w` (w: the stored (D, V) table) in float32, sharded over
+    the vocabulary on the mesh dims where `w` shards d_model and `x` is
+    replicated, or None where there is no such dim.  The table is
+    gathered whole (its bytes, not the logits'), and each rank
+    multiplies its rows of `x` by its `local_range` of the columns:
+    `torch.chunk`'s blocks, uneven where the dims do not divide V.  Each
+    rank's gradient of `x` covers its block's columns, and its
+    gradient of the whole table its rows and columns: both ``Partial``
+    there, so DTensor sums them, and the table's comes back to its
+    shards by a reduce-scatter."""
+    mesh = x.device_mesh
+    rows = Shard(w.dim() - 2)
+    x_pl = tuple(x.placements)
+    dims = [i for i, (p, q) in enumerate(zip(w.placements, x_pl))
+            if p == rows and q == Replicate()]
+    if not dims:
+        return None
+    out_pl = tuple(Shard(x.dim() - 1) if i in dims else p
+                   for i, p in enumerate(x_pl))
+    v0, v1 = local_range(mesh, out_pl, x.dim() - 1, w.shape[-1])
+    x_grad = tuple(Partial() if i in dims else p for i, p in enumerate(x_pl))
+    w_grad = tuple(Partial() if i in dims or p != Replicate() else p
+                   for i, p in enumerate(x_pl))
+    whole = w.redistribute(mesh, (Replicate(),) * mesh.ndim)
+    xl = x.to_local(grad_placements=x_grad)
+    wl = whole.to_local(grad_placements=w_grad)[..., v0:v1]
+    out = (xl @ wl.to(x.dtype)).float()
+    shape = (*x.shape[:-1], w.shape[-1])
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(out, mesh, out_pl, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+class _BlockNLL(torch.autograd.Function):
+    """The NLL of each row on this rank's vocabulary block: `logits`
+    (..., Vl) float32 from column `v0`, `targets` (...) global ids;
+    `reduce(t, op)` all-reduces over the mesh dims that split the
+    vocabulary.  The forward makes three all-reduces of (...) float32:
+    the rows' maximum, their sum of exp(logit - max), and the target's
+    logit, which only the rank whose block holds it contributes.  The
+    backward is softmax - onehot on the block, times the incoming
+    gradient, with no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, v0, reduce):
+        n = logits.shape[-1]
+        m = reduce(logits.amax(-1), "max")
+        e = torch.exp(logits - m[..., None])
+        total = reduce(e.sum(-1), "sum")
+        idx = targets - v0
+        held = (idx >= 0) & (idx < n)
+        idx = idx.clamp(0, n - 1)
+        picked = torch.gather(logits, -1, idx[..., None])[..., 0]
+        picked = reduce(torch.where(held, picked, 0.0), "sum")
+        ctx.save_for_backward(e, total, idx, held)
+        return torch.log(total) + m - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        e, total, idx, held = ctx.saved_tensors
+        grad = e / total[..., None]
+        grad.scatter_add_(-1, idx[..., None], -held[..., None].to(grad.dtype))
+        return grad * g[..., None], None, None, None
+
+
+def vocab_parallel_nll(logits: torch.Tensor,
+                       targets: torch.Tensor) -> torch.Tensor:
+    """-log_softmax(logits)[targets]: (B, S) from `logits` (B, S, V)
+    float32 and integer `targets` (B, S).
+
+    A plain tensor, or a DTensor no mesh dim splits by vocabulary,
+    takes `F.log_softmax` and `gather`.  Logits sharded over the
+    vocabulary (`unembed`'s, over "model"), with their rows over
+    ("pod", "data") and the targets over the same rows, stay sharded:
+    each rank works on its block under `local_map` (`_BlockNLL`, its
+    columns from `rules.local_range`), three all-reduces of float32
+    (rows, S) in the forward and none in the backward.  The NLL keeps
+    the logits' rows and is replicated over the vocabulary dims."""
+    if isinstance(logits, DTensor):
+        last = Shard(logits.dim() - 1)
+        vocab = [i for i, p in enumerate(logits.placements) if p == last]
+    if not isinstance(logits, DTensor) or not vocab:
+        logp = F.log_softmax(logits, dim=-1)
+        return -torch.gather(logp, -1, targets[..., None])[..., 0]
+    mesh = logits.device_mesh
+    l_pl = tuple(logits.placements)
+    row_pl = tuple(Replicate() if p == last else p for p in l_pl)
+    v0 = local_range(mesh, l_pl, logits.dim() - 1, logits.shape[-1])[0]
+
+    def reduce(t, op):
+        for i in vocab:
+            t = funcol.all_reduce(t, op, (mesh, i))
+        return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) \
+            else t
+
+    def core(ll, tl):
+        return _BlockNLL.apply(ll, tl, v0, reduce)
+
+    return local_map(core, out_placements=(row_pl,),
+                     in_placements=(l_pl, row_pl), device_mesh=mesh)(
+        logits, targets.redistribute(mesh, row_pl))

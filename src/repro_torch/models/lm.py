@@ -46,7 +46,6 @@ import dataclasses
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import checkpoint
@@ -56,7 +55,7 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..sharding.rules import (ACT_TOKENS, P, PartitionSpec, batch_shardable,
                               constrain, distribute, distribute_tree,
                               even_placements, local_shape, mesh_placements,
-                              on_mesh, stationary_weights, weight_product)
+                              on_mesh, stationary_weights)
 from . import layers as L
 from . import moe as M
 from . import ssm as S
@@ -266,7 +265,8 @@ def _slot_apply(p: dict, cfg: ArchConfig, slot: SlotSpec, x: torch.Tensor,
             k, v = kv_out
         out = L.flash_attention(q, k, v, causal=causal,
                                 chunk=min(1024, k.shape[2]))
-        x = x + weight_product(L.merge_heads(out), p["attn"]["wo"], h.dtype)
+        x = x + L.row_parallel_product(L.merge_heads(out),
+                                       p["attn"]["wo"], h.dtype)
     else:
         x = x + S.ssd_forward(p["ssm"], cfg, h)
     if slot.cross:
@@ -494,21 +494,30 @@ class LM(nn.Module):
         (aux: the MoE load-balance losses summed over layers, 0 without
         a router).  `params` defaults to the model's own (which require
         gradients).  Returns (loss, {"nll", "aux"}), differentiable; with
-        `cfg.remat` each period runs again in the backward pass."""
+        `cfg.remat` each period runs again in the backward pass.
+
+        Over a mesh the float32 logits stay sharded over "model" by
+        vocabulary (`layers.unembed(vocab_shards=True)`: the table's
+        column shards, or, for a vocabulary "model" does not divide,
+        the table gathered whole and each rank's block of columns), and
+        `layers.vocab_parallel_nll` takes the NLL on those shards: three
+        all-reduces of float32 (rows, S) over "model" in the forward,
+        none in the backward; the logits never cross the mesh.  On one
+        device, or a mesh without a "model" axis, it is `log_softmax`
+        and `gather`."""
         cfg = self.cfg
         params = self.params if params is None else params
         x, img = self._embed_inputs(params, batch)
         x, aux = self._stack(params, x, self._positions(x), img, cfg.causal,
                              remat=cfg.remat)
         x = L.rmsnorm(params["final_norm"], x)
-        logits = L.unembed(params["embed"], cfg, x)
+        logits = L.unembed(params["embed"], cfg, x, vocab_shards=True)
         if cfg.causal:
             targets = batch["tokens"][:, 1:].long()
             logits = logits[:, :-1]
         else:
             targets = batch["labels"].long()
-        logp = F.log_softmax(logits, dim=-1)
-        nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+        nll = L.vocab_parallel_nll(logits, targets)
         loss = nll.mean() + 0.01 * aux / max(cfg.n_layers, 1)
         return loss, {"nll": nll.mean(), "aux": aux}
 

@@ -61,12 +61,14 @@ PARAMS_F32 = dict(rtol=1e-4, atol=1e-4)
 BATCH = 4
 
 
-def config(arch: str = "qwen3_0_6b", optimizer: str = "adam"):
+def config(arch: str = "qwen3_0_6b", optimizer: str = "adam",
+           override: dict | None = None):
     """The reduced `arch` as the worker builds it: float32 compute and
-    parameters, `optimizer`."""
+    parameters, `optimizer`, and the fields of `override` (a job's)."""
     return dataclasses.replace(get_config(arch, reduced=True),
                                compute_dtype="float32",
-                               param_dtype="float32", optimizer=optimizer)
+                               param_dtype="float32", optimizer=optimizer,
+                               **(override or {}))
 
 
 def _flat(tree, prefix=""):
@@ -94,15 +96,16 @@ def make_batch(cfg, seq: int) -> dict:
     return batch
 
 
-def reference(arch: str, d: Path, seq: int = 64) -> tuple:
-    """The reference's reduced `arch` in float32: its
-    `LM.init(PRNGKey(0))` parameters, the batch and its single-device
-    loss and aux; the files the worlds read, written under `d`.
-    Returns (params, batch, {"ref_loss", "ref_aux", "params",
-    "batch"})."""
+def reference(arch: str, d: Path, seq: int = 64,
+              override: dict | None = None) -> tuple:
+    """The reference's reduced `arch` in float32 with the fields of
+    `override`: its `LM.init(PRNGKey(0))` parameters, the batch and its
+    single-device loss and aux; the files the worlds read, written
+    under `d`.  Returns (params, batch, {"ref_loss", "ref_aux",
+    "params", "batch"})."""
     rcfg = dataclasses.replace(R_get_config(arch, reduced=True),
                                compute_dtype="float32",
-                               param_dtype="float32")
+                               param_dtype="float32", **(override or {}))
     rmodel = R_build(rcfg)
     params, _ = rmodel.init(jax.random.PRNGKey(0))
     params = jax.tree.map(np.asarray, params)
@@ -119,13 +122,15 @@ def reference(arch: str, d: Path, seq: int = 64) -> tuple:
 
 
 def single_process(params: dict, batch: dict, optimizer: str = "adam",
-                   arch: str = "qwen3_0_6b", **train) -> dict:
+                   arch: str = "qwen3_0_6b", override: dict | None = None,
+                   **train) -> dict:
     """The port on one process: loss, aux and gradients at `params`
     (a leaf the loss never reads gets zeros, as under `jax.grad`),
-    then three steps on `batch` (what each world is held to); `train`:
-    `TrainConfig` fields."""
-    model = convert.lm_params_from_numpy(config(arch, optimizer), params,
-                                         device="cpu")
+    then three steps on `batch` (what each world is held to);
+    `override`: config fields, as `config`'s; `train`: `TrainConfig`
+    fields."""
+    model = convert.lm_params_from_numpy(config(arch, optimizer, override),
+                                         params, device="cpu")
     batch = {k: torch.from_numpy(v) for k, v in batch.items()}
     loss, met = model.train_loss(batch)
     leaves = tree_leaves(model.params)

@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -27,10 +28,13 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.launch import cells
 from repro_torch.launch.mesh import close_train_mesh, init_train_mesh
+from repro_torch.models.layers import (embedding_specs, unembed,
+                                      vocab_parallel_nll)
 from repro_torch.models.lm import LM, param_specs
 from repro_torch.runtime.fault_tolerance import (DriverConfig,
                                                  train_with_recovery)
-from repro_torch.sharding.rules import (batch_shardable, batch_spec,
+from repro_torch.sharding.rules import (ACT_TOKENS, batch_shardable,
+                                        batch_spec, distribute,
                                         mesh_placements, set_parallelism)
 from repro_torch.train.optimizer import OptConfig, tree_leaves
 from repro_torch.train.train_step import (TrainConfig, init_train_state,
@@ -43,12 +47,14 @@ def whole(x):
 
 
 def config(job: dict):
-    """The job's reduced config in float32 compute and parameters."""
+    """The job's reduced config in float32 compute and parameters, with
+    the fields of its `override`."""
     return dataclasses.replace(get_config(job.get("arch", "qwen3_0_6b"),
                                           reduced=True),
                                compute_dtype="float32",
                                param_dtype="float32",
-                               optimizer=job.get("optimizer", "adam"))
+                               optimizer=job.get("optimizer", "adam"),
+                               **job.get("override", {}))
 
 
 def load_params(path: str) -> dict:
@@ -196,7 +202,7 @@ def heads_split(mesh, spec: dict, job: dict) -> dict:
     """A config whose SSD heads the mesh's "model" axis cannot split
     (the job's `override` of the reduced config): the error's text,
     raised by the training loss where the heads are split."""
-    cfg = dataclasses.replace(config(job), **job["override"])
+    cfg = config(job)
     model = LM(cfg, device="cpu", mesh=mesh,
                generator=torch.Generator("cpu").manual_seed(0))
     rows = local_rows(mesh, {"tokens": torch.zeros((4, 64),
@@ -269,8 +275,46 @@ def serve(mesh, spec: dict, job: dict) -> dict:
     return out
 
 
+def nll(mesh, spec: dict, job: dict) -> dict:
+    """The loss over the vocabulary's shards for each of the job's
+    cases, on the inputs of its npz (`<case>/x` (B, S, d), `<case>/w`
+    the (d, V) table, `<case>/t` (B, S) targets): x placed by
+    `ACT_TOKENS`, the table by `embedding_specs` (columns over "model"
+    where 16 divides V, else d_model over ("data", "model")), the
+    targets over the batch's rows; `unembed(vocab_shards=True)`'s
+    logits, then `vocab_parallel_nll` of the next token (a causal
+    case: logits and targets shifted as `LM.train_loss` shifts them)
+    or of the target at every position (the encoder's labels).
+    Returns per case the mean NLL, the NLL, the gradients of x and the
+    table (whole), the logits' placements and the census's shapes."""
+    out = {}
+    with np.load(job["inputs"]) as z:
+        arrays = {k: torch.from_numpy(z[k].copy()) for k in z.files}
+    for case in job["cases"]:
+        x, w, t = (arrays[f"{case['name']}/{k}"] for k in ("x", "w", "t"))
+        table = embedding_specs(types.SimpleNamespace(
+            vocab_size=w.shape[1]))["unembed"]
+        xd = distribute(x, mesh, ACT_TOKENS).requires_grad_()
+        wd = distribute(w, mesh, table).requires_grad_()
+        td = distribute(t, mesh, batch_spec(1))
+        census = cells.CollectiveCensus()
+        with implicit_replication(), census:
+            logits = unembed({"unembed": wd}, None, xd, vocab_shards=True)
+            if case["causal"]:
+                logits, td = logits[:, :-1], td[:, 1:]
+            got = vocab_parallel_nll(logits, td)
+            loss = got.mean()
+            gx, gw = torch.autograd.grad(loss, [xd, wd])
+        out[case["name"]] = {
+            "loss": whole(loss).item(), "nll": whole(got).detach(),
+            "grad_x": whole(gx), "grad_w": whole(gw),
+            "logits_placements": str(logits.placements),
+            "shapes": census.by_shape}
+    return out
+
+
 JOBS = {"parity": parity, "faults": faults, "census_cell": census_cell,
-        "heads_split": heads_split, "serve": serve}
+        "heads_split": heads_split, "serve": serve, "nll": nll}
 
 
 def main(spec_path: str, rank: int) -> None:

@@ -8,8 +8,10 @@ meshes.
     python3 tests/torch_census_table.py port --device cuda --out DIR
     PYTHONPATH=src python tests/torch_census_table.py reference --out DIR
     python3 tests/torch_census_table.py shapes --arch A --out DIR
-    PYTHONPATH=src python tests/torch_census_table.py hlo --arch A --out DIR
+    PYTHONPATH=src python tests/torch_census_table.py hlo --arch A --out DIR \
+        [--partitioned]
     python3 tests/torch_census_table.py table --port DIR --ref DIR
+    python3 tests/torch_census_table.py compare --before DIR --after DIR
 
 `port`, `reference` and `table` take `--shapes S1,S2,...`, `shapes`
 and `hlo` one `--shape S`.
@@ -32,12 +34,15 @@ and `hlo` one `--shape S`.
   and their ratio; `--gloo DIR` adds a `port --device cpu` sweep's
   totals; a decode cell's row ends with its cache's GB a device
   (`launch.cells.cache_bytes`).
+- `compare` prints two `port` sweeps beside each other, kind by kind
+  (an older tree's and a newer one's).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -151,41 +156,12 @@ def shapes(args) -> int:
     """The port's census of `--arch` on a fake mesh of `--device`'s
     type, by "<kind> <dtype><shape>" of each collective's output."""
     from repro_torch.launch import cells
-    from repro_torch.launch.mesh import (fake_production_mesh,
-                                         make_production_mesh)
+    from repro_torch.launch.mesh import make_production_mesh
 
-    class ByShape(cells.CollectiveCensus):
-        def __init__(self):
-            super().__init__()
-            self.by_shape: dict[str, list] = {}
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            before = dict(self.bytes)
-            out = super().__torch_dispatch__(func, types, args, kwargs)
-            for kind, b in self.bytes.items():
-                if b != before[kind]:
-                    key = f"{kind} " + " ".join(
-                        f"{str(t.dtype).removeprefix('torch.')}"
-                        f"{list(t.shape)}" for t in
-                        cells._pytree_leaves(out)
-                        if hasattr(t, "dtype"))
-                    seen = self.by_shape.setdefault(key, [0, 0.0])
-                    seen[0] += 1
-                    seen[1] += b - before[kind]
-            return out
-
-    mesh = make_production_mesh(multi_pod=args.multi_pod)
-    shape = SHAPES[args.shape]
-    with fake_production_mesh(mesh, args.device) as fake:
-        if shape.mode == "train":
-            step, *inputs = cells.train_step_inputs(
-                get_config(args.arch), shape, fake, cells.train_config(),
-                meta=True)
-        else:
-            step, *inputs = cells.serve_step_inputs(
-                get_config(args.arch), shape, fake, meta=True)
-        with ByShape() as census:
-            step(*inputs)
+    census = cells.CollectiveCensus()
+    cells.fake_census(get_config(args.arch), SHAPES[args.shape],
+                      make_production_mesh(multi_pod=args.multi_pod),
+                      cells.train_config(), args.device, census)
     return _groups_out(args, f"port_{args.device}", {
         "arch": args.arch, "census": census.result(),
         "by_shape": census.by_shape})
@@ -195,9 +171,20 @@ def hlo(args) -> int:
     """The reference's partitioned HLO of `--arch` at full depth, its
     collectives by "<kind> <type>[<shape>]" as `parse_collective_bytes`
     counts them; "(vocab)" marks a shape holding the vocabulary or its
-    16th."""
+    16th.  By default the compiled module; with `--partitioned` the
+    module right after SPMD partitioning (an XLA dump under `--out`),
+    before the CPU backend promotes bf16 all-reduces to f32
+    (`all-reduce-promotion`) and every bf16 collective after them
+    (`float-normalization-bf16`): the types the partitioner chose."""
     import repro.launch.dryrun  # noqa: F401  (XLA flags first)
     import jax
+
+    dump = Path(args.out) / f"xla_dump_{args.arch}_{args.shape}"
+    if args.partitioned:
+        shutil.rmtree(dump, ignore_errors=True)
+        os.environ["XLA_FLAGS"] += (f" --xla_dump_to={dump}"
+                                    " --xla_dump_hlo_pass_re=spmd-partitioning")
+        jax.config.update("jax_enable_compilation_cache", False)
 
     from repro.configs import get_config
     from repro.configs.base import SHAPES
@@ -210,6 +197,9 @@ def hlo(args) -> int:
     with getattr(jax.sharding, "set_mesh", lambda m: m)(mesh):
         text = _lower_cell(cfg, shape, mesh, shape.mode,
                            unroll=False).compile().as_text()
+    if args.partitioned:
+        text = max(dump.glob("*after_spmd-partitioning*.txt"),
+                   key=lambda f: f.stat().st_size).read_text()
     vocab = {str(cfg.vocab_size), str(cfg.vocab_size // 16)}
     groups: dict[str, list] = {}
     for m in _HLO_RE.finditer(text):
@@ -218,7 +208,8 @@ def hlo(args) -> int:
         seen = groups.setdefault(key, [0, 0.0])
         seen[0] += 1
         seen[1] += parse_collective_bytes(m.group(0) + ")")["total"]
-    return _groups_out(args, "hlo", {
+    return _groups_out(args, "hlo_partitioned" if args.partitioned
+                       else "hlo", {
         "arch": args.arch, "census": parse_collective_bytes(text),
         "by_shape": groups})
 
@@ -288,6 +279,30 @@ def table(args) -> int:
     return 0
 
 
+def compare(args) -> int:
+    """A row a cell of two `port` sweeps of the same shapes and plans
+    (`--before`, `--after`): each kind and the total as before -> after
+    in GB a device, and the total's ratio."""
+    before, after = Path(args.before), Path(args.after)
+    print("| cell | " + " | ".join(KINDS) + " | total | after / before |")
+    print("|" + " --- |" * (len(KINDS) + 3))
+    for arch, shape, mp in cells(args.shapes):
+        mesh = MESHES[mp]
+        name = f"{arch} {mesh}" if shape == "train_4k" \
+            else f"{arch} {shape} {mesh}"
+        a, b = (_record(d, arch, shape, mesh).get("collectives")
+                for d in (before, after))
+        if not a or not b:
+            print(f"| {name} | " + ("before" if not a else "after")
+                  + " not counted |" + " |" * (len(KINDS) + 1))
+            continue
+        ratio = f"{b['total'] / a['total']:.3f}" if a["total"] else "-"
+        print(f"| {name} | " + " | ".join(
+            f"{_gb(a[k])} -> {_gb(b[k])}" for k in KINDS)
+            + f" | {_gb(a['total'])} -> {_gb(b['total'])} | {ratio} |")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -304,16 +319,21 @@ def main() -> int:
         b.add_argument("--multi-pod", action="store_true")
         b.add_argument("--out", required=True)
         b.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+        b.add_argument("--partitioned", action="store_true",
+                       help="hlo: the module after SPMD partitioning")
     t = sub.add_parser("table")
     t.add_argument("--port", required=True)
     t.add_argument("--ref", required=True)
     t.add_argument("--gloo", default="")
-    for sp in (p, r, t):
+    c = sub.add_parser("compare")
+    c.add_argument("--before", required=True)
+    c.add_argument("--after", required=True)
+    for sp in (p, r, t, c):
         sp.add_argument("--shapes", default="train_4k",
                         help="comma-separated shapes")
     args = ap.parse_args()
     return {"port": port, "reference": reference, "shapes": shapes,
-            "hlo": hlo, "table": table}[args.cmd](args)
+            "hlo": hlo, "table": table, "compare": compare}[args.cmd](args)
 
 
 if __name__ == "__main__":
