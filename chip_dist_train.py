@@ -3,7 +3,7 @@
 step, prefill and decode on a mesh of NCCL processes, one a card.
 
     python3 chip_dist_train.py [--runs a,b,c,d,e,f,g,h,t,s]
-        [--archs qwen3_0_6b,gemma_7b] [--parent-src DIR]
+        [--archs qwen3_0_6b,gemma_7b] [--parent-src DIR] [--skip d8,ebf16]
 
 Run from the root of a checkout on a machine with four cards.  It
 builds the flash kernels once, then runs each part as processes of its
@@ -883,6 +883,8 @@ def main() -> int:
     ap.add_argument("--fake-census", help=argparse.SUPPRESS)
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--skip", default="",
+                    help="run keys of the parts to leave out (`CASES`)")
     ap.add_argument("--parent-src", default=None,
                     help="an older package's src/ that part (t) also "
                     "runs on, not gated")
@@ -924,7 +926,10 @@ def main() -> int:
 
     parts = {"a": cases([f"a_{a}" for a in archs]), "b": part_b,
              "c": part_c}
-    parts.update({p: cases([k for k, c in CASES.items() if c[0] == p])
+    skip = set(args.skip.split(",")) - {""}
+    check(skip <= set(CASES), f"--skip: {sorted(skip)}, of {list(CASES)}")
+    parts.update({p: cases([k for k, c in CASES.items()
+                            if c[0] == p and k not in skip])
                   for p in "defght"})
     parts["s"] = lambda: [run_serve(k) for k in SERVE
                           if SERVE[k][0] in archs]

@@ -228,6 +228,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -533,6 +534,14 @@ DRYRUN_CENSUS_BUDGET_S = 60.0
 # QWEN3_TRAIN_CUT_GB off it.
 QWEN3_TRAIN_GATHERED_GB = 98.47
 QWEN3_TRAIN_CUT_GB = 30.0
+# The same census, and Qwen3-0.6B prefill_32k's, GB a device, when the
+# residual stream lay whole over "model" between products (row-parallel
+# partial sums all-reduced, Ulysses' attention output gathered whole);
+# the stream sharded by sequence must take QWEN3_TRAIN_SEQ_CUT_GB off
+# the train census, and the prefill census must fall below its own.
+QWEN3_TRAIN_WHOLE_STREAM_GB = 58.61
+QWEN3_TRAIN_SEQ_CUT_GB = 10.0
+QWEN3_PREFILL_WHOLE_STREAM_GB = 31.34
 # `dryrun_vs_card`: the one-device mesh on which the meta count is held
 # against real steps, and the family whose training model it reuses.
 ONE_DEVICE = {"data": 1, "model": 1}
@@ -2266,6 +2275,18 @@ def phase_analysis_contracts(torch, an_report, contracts):
           "seconds_card": card_s, "seconds_cpu": cpu_s})
 
 
+def _dryrun_whole(key: str, kind: str, rows: int, seq: int,
+                  width: int) -> bool:
+    """Whether census key `key` ("<kind> <dtype>[dims]") is a `kind`
+    of a whole (rows, seq, width) tensor: its last dim `width` and its
+    size rows x seq x width (a gather stacks its shards on dim 0)."""
+    m = re.fullmatch(rf"{kind} \w+\[([\d, ]+)\]", key)
+    if not m:
+        return False
+    dims = [int(d) for d in m.group(1).split(", ")]
+    return dims[-1] == width and math.prod(dims) == rows * seq * width
+
+
 def phase_dryrun_cells(torch, cells, tpu_model):
     """The dry-run on the host: `run_cell` on the 16x16 mesh for
     DRYRUN_CELLS, each step traced on the meta device (nothing
@@ -2278,8 +2299,13 @@ def phase_dryrun_cells(torch, cells, tpu_model):
     (`cells.cache_bytes`), Qwen3-0.6B's train all-to-all above 0, its
     train census free of any collective whose last dim is the whole
     vocabulary (`CollectiveCensus.by_shape`) and at least
-    QWEN3_TRAIN_CUT_GB below QWEN3_TRAIN_GATHERED_GB; the card's allocated
-    and peak bytes unchanged; the counts (`lower_s`)
+    QWEN3_TRAIN_CUT_GB below QWEN3_TRAIN_GATHERED_GB; with the stream
+    sharded by sequence, that census free of any all-reduce of the
+    stream (16, 4096, 1024) and of any all-gather of the whole attention
+    output (16, 4096, 2048), and at least QWEN3_TRAIN_SEQ_CUT_GB below
+    QWEN3_TRAIN_WHOLE_STREAM_GB, Qwen3's prefill_32k census below
+    QWEN3_PREFILL_WHOLE_STREAM_GB; the card's allocated and peak bytes
+    unchanged; the counts (`lower_s`)
     within DRYRUN_BUDGET_S and the censuses (`compile_s`) within
     DRYRUN_CENSUS_BUDGET_S.  Prints per device the FLOPs, bytes,
     memory, the census and the three roofline terms on the H100 with
@@ -2350,6 +2376,28 @@ def phase_dryrun_cells(torch, cells, tpu_model):
           f"Qwen3-0.6B train_4k: census {qwen['collectives_gb']['total']:.2f}"
           f" GB a device, not {QWEN3_TRAIN_CUT_GB} below the "
           f"{QWEN3_TRAIN_GATHERED_GB} of a loss that gathers the logits")
+    qwen_cfg = cells.get_config("qwen3_0_6b")
+    n_rows = cells.SHAPES["train_4k"].global_batch // DRYRUN_MESH["data"]
+    seq = cells.SHAPES["train_4k"].seq_len
+    qwen["whole_stream_collectives"] = [
+        key for key in by_shape["qwen3_0_6b", "train_4k"]
+        if _dryrun_whole(key, "all-reduce", n_rows, seq, qwen_cfg.d_model)
+        or _dryrun_whole(key, "all-gather", n_rows, seq, qwen_cfg.q_dim)]
+    check(not qwen["whole_stream_collectives"],
+          f"Qwen3-0.6B train_4k: the stream all-reduced or the attention "
+          f"output gathered whole {qwen['whole_stream_collectives']}")
+    check(qwen["collectives_gb"]["total"]
+          <= QWEN3_TRAIN_WHOLE_STREAM_GB - QWEN3_TRAIN_SEQ_CUT_GB,
+          f"Qwen3-0.6B train_4k: census {qwen['collectives_gb']['total']:.2f}"
+          f" GB a device, not {QWEN3_TRAIN_SEQ_CUT_GB} below the "
+          f"{QWEN3_TRAIN_WHOLE_STREAM_GB} of a stream whole over 'model'")
+    prefill = next(r for r in rows if (r["arch"], r["shape"])
+                   == ("qwen3_0_6b", "prefill_32k"))
+    check(prefill["collectives_gb"]["total"] < QWEN3_PREFILL_WHOLE_STREAM_GB,
+          f"Qwen3-0.6B prefill_32k: census "
+          f"{prefill['collectives_gb']['total']:.2f} GB a device, not below "
+          f"the {QWEN3_PREFILL_WHOLE_STREAM_GB} of a stream whole over "
+          f"'model'")
     torch.cuda.synchronize()
     check(torch.cuda.memory_allocated() == allocated
           and torch.cuda.max_memory_allocated() == allocated,

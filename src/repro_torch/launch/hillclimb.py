@@ -36,10 +36,11 @@ VARIANTS: dict[str, dict] = {
     # bf16 optimizer moments (memory-bound cells)
     "bf16_moments": {"train_opt_moment": "bfloat16"},
     # pure data parallelism: for small-d models, 16-way TP makes the
-    # per-layer activation collectives (TP all-reduce + KV gather)
-    # dominate; replicating the model over "model" and folding it into
-    # the batch axes removes them entirely at the cost of replicated
-    # weights (fine below ~2B params) and per-step gradient all-reduce
+    # per-layer activation collectives (the stream's TP gathers and
+    # reduce-scatters + KV gather) dominate; replicating the model over
+    # "model" and folding it into the batch axes removes them entirely
+    # at the cost of replicated weights (fine below ~2B params) and
+    # per-step gradient all-reduce
     "dp_only": {"parallelism": "dp"},
     # combined beyond-paper configs
     "dp_mb4": {"parallelism": "dp", "train": {"microbatches": 4}},

@@ -21,7 +21,8 @@ plain version on CPU tensors; where q, k or v needs a gradient it goes
 through the kernels' `torch.autograd.Function`
 (`kernels.flash_attention.attention`) on either device.  On DTensors
 (a training mesh) it runs the same on each rank's local shards under
-`local_map`: q sequence-sharded over "model" (Ulysses), K and V whole.
+`local_map`: q sequence-sharded over "model" (Ulysses), K and V whole,
+the output moved to column shards for `wo` by one all-to-all.
 """
 from __future__ import annotations
 
@@ -40,8 +41,9 @@ from ..configs.base import ArchConfig
 from ..kernels.flash_attention.flash_attention import (attend, attention,
                                                       flash_fwd)
 from ..sharding.rules import (ACT_KV_GATHERED, ACT_Q_ULYSSES, ACT_TOKENS,
-                              MODEL_AXIS_SIZE, P, constrain, local_range,
-                              spec, weight_product, weights_stay)
+                              ACT_TOKENS_SEQ, MODEL_AXIS_SIZE, P, constrain,
+                              local_range, spec, weight_product,
+                              weights_stay)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -277,13 +279,46 @@ def _split_heads(x: torch.Tensor, n_heads: int,
 
 
 def merge_heads(out: torch.Tensor) -> torch.Tensor:
-    """(B, H, S, hd) attention output -> (B, S, H * hd), constrained to
-    `ACT_TOKENS`: over a training mesh the rows Ulysses split over
-    "model" are gathered again, so the output projection, its
-    gradients and the residual stream see tokens sharded over the
-    batch alone, where DTensor plans its products quickly."""
+    """(B, H, S, hd) attention output -> (B, S, H * hd).  Over a
+    training mesh the rows Ulysses split over "model" go to column
+    shards (`ACT_TOKENS_TP`) by one all-to-all (`_rows_to_columns`), so
+    the output projection runs row-parallel on them and
+    `row_parallel_product` reduce-scatters its partial sum back to the
+    stream's sequence shards.  A sequence "model" does not split (a
+    decode step's one row) is constrained to `ACT_TOKENS`."""
     b, h, s, hd = out.shape
-    return constrain(out.transpose(1, 2).reshape(b, s, h * hd), ACT_TOKENS)
+    x = out.transpose(1, 2).reshape(b, s, h * hd)
+    if isinstance(x, DTensor) and Shard(1) in x.placements:
+        return _rows_to_columns(x)
+    return constrain(x, ACT_TOKENS)
+
+
+def _rows_to_columns(x: DTensor) -> DTensor:
+    """`x` (B, S, C), its S sharded over one mesh dim, as (B, S, C) with
+    C sharded there instead: one all-to-all of each rank's block on
+    its local tensor (`local_map`), whose backward is the all-to-all
+    back.  It moves each rank's block once, on gloo as on NCCL (where
+    DTensor's own redistribution would gather the whole tensor on
+    gloo)."""
+    mesh = x.device_mesh
+    x_pl = tuple(x.placements)
+    (i,) = [i for i, p in enumerate(x_pl) if p == Shard(1)]
+    n = mesh.size(i)
+    if x.shape[2] % n:
+        raise ValueError(f"{x.shape[2]} columns do not split over {n} "
+                         f"ranks of mesh dim {mesh.mesh_dim_names[i]!r}")
+    out_pl = tuple(Shard(2) if j == i else p for j, p in enumerate(x_pl))
+
+    def core(xl):
+        b, s, c = xl.shape
+        parts = xl.reshape(b, s, n, c // n).permute(2, 0, 1, 3).contiguous()
+        got = funcol.all_to_all_single_autograd(parts, None, None,
+                                                (mesh, i))
+        return got.reshape(n, b, s, c // n).transpose(0, 1).reshape(
+            b, n * s, c // n)
+
+    return local_map(core, out_placements=(out_pl,), in_placements=(x_pl,),
+                     device_mesh=mesh)(x)
 
 
 def attention_qkv(params: dict, cfg: ArchConfig, x: torch.Tensor,
@@ -475,16 +510,17 @@ def mlp_apply(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 def row_parallel_product(x: torch.Tensor, w: torch.Tensor,
                          dtype: torch.dtype) -> torch.Tensor:
     """`weight_product` of a row-parallel weight (`wo`, `w_down`: rows
-    sharded over "model"), its output constrained to `ACT_TOKENS`: over
-    a mesh the partial sum over "model" is reduced here, at the product
-    and in `dtype` (the compute type), as XLA reduces it.  Left
-    ``Partial``, it would flow through the residual add into the next
-    norm, where DTensor may reduce it in float32 inside `x.float()`, by
-    torch version.  Where the weights stay (a decode step) the product
-    moves rows only and is left as it was; a plain tensor is the
-    product alone."""
+    sharded over "model"), its output constrained to `ACT_TOKENS_SEQ`:
+    over a mesh the partial sum over "model" is reduce-scattered to the
+    residual stream's sequence shards here, at the product and in
+    `dtype` (the compute type), as XLA reduces it.  Left ``Partial``,
+    it would flow through the residual add into the next norm, where
+    DTensor may reduce it in float32 inside `x.float()`, by torch
+    version.  Where the weights stay (a decode step) the product moves
+    rows only and is left as it was; a plain tensor is the product
+    alone."""
     y = weight_product(x, w, dtype)
-    return y if weights_stay(x, w) else constrain(y, ACT_TOKENS)
+    return y if weights_stay(x, w) else constrain(y, ACT_TOKENS_SEQ)
 
 
 # ---------------------------------------------------------------------------

@@ -24,11 +24,14 @@ Under a training mesh (`launch.mesh.init_train_mesh`; every family)
 each parameter is a DTensor placed by `param_specs` (`LM(..., mesh=)`
 draws them leaf by leaf, `init_params_placed`), and `constrain`
 reshards the token activations where the reference constrains them.
-The attention runs Ulysses on local shards (`layers`), the MoE's
-experts are sharded over "model" (`moe`), and so are the SSD's heads
-(`ssm`); a mesh whose "model" axis cannot split a config's SSD heads
-raises where the split is made.  A model placed on a mesh also
-prefills and decodes there, on inputs placed by
+Between products the residual stream lies sharded by sequence over
+"model" (`ACT_TOKENS_SEQ`, where XLA's propagation puts the
+reference's), each product taking it gathered at its entry
+(`_slot_apply`).  The attention runs Ulysses on local shards
+(`layers`), the MoE's experts are sharded over "model" (`moe`), and so
+are the SSD's heads (`ssm`); a mesh whose "model" axis cannot split a
+config's SSD heads raises where the split is made.  A model placed on
+a mesh also prefills and decodes there, on inputs placed by
 `train.train_step.place_batch`: prefill's K/V stacks come back in the
 decode cache's layout (`cache_specs`), `init_cache` places the cache
 the same way, and a decode step keeps the weights and the cache where
@@ -52,10 +55,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import DEFAULT_DEVICE, resolve_device
-from ..sharding.rules import (ACT_TOKENS, P, PartitionSpec, batch_shardable,
-                              constrain, distribute, distribute_tree,
-                              even_placements, local_shape, mesh_placements,
-                              on_mesh, stationary_weights)
+from ..sharding.rules import (ACT_TOKENS, ACT_TOKENS_SEQ, P, PartitionSpec,
+                              batch_shardable, constrain, distribute,
+                              distribute_tree, even_placements, local_shape,
+                              mesh_placements, on_mesh, stationary_weights)
 from . import layers as L
 from . import moe as M
 from . import ssm as S
@@ -211,15 +214,24 @@ def abstract_params(cfg: ArchConfig) -> dict:
     return init_params(cfg, torch.Generator("cpu"), device="meta")
 
 
+def _gathered(h: torch.Tensor, gather: bool) -> torch.Tensor:
+    """A norm's output as a product takes it: with `gather` (training
+    and prefill) whole over "model" (`ACT_TOKENS`), else (a decode
+    step) as it lies."""
+    return constrain(h, ACT_TOKENS) if gather else h
+
+
 def _cross_attention(p: dict, cfg: ArchConfig, x: torch.Tensor,
-                     image_embeds) -> torch.Tensor:
+                     image_embeds, gather: bool = True) -> torch.Tensor:
     """A cross slot's residual branch: the text attends to the image
-    embeddings, which sit at position 0 (no RoPE, not causal)."""
+    embeddings, which sit at position 0 (no RoPE, not causal).  The
+    normed stream goes to the products through `_gathered`; the image
+    K/V path is `attention_apply`'s."""
     if image_embeds is None:
         raise ValueError(f"{cfg.name}: a cross-attention layer needs image "
                          "embeddings (batch['image_embeds'], or "
                          "decode_step's image_embeds), and none were given")
-    hx = L.rmsnorm(p["lnx"], x)
+    hx = _gathered(L.rmsnorm(p["lnx"], x), gather)
 
     def zeros(n):
         return torch.zeros((x.shape[0], n), dtype=torch.int32,
@@ -230,15 +242,18 @@ def _cross_attention(p: dict, cfg: ArchConfig, x: torch.Tensor,
                              kv_positions=zeros(image_embeds.shape[1]))
 
 
-def _ffn(p: dict, cfg: ArchConfig, x: torch.Tensor):
+def _ffn(p: dict, cfg: ArchConfig, x: torch.Tensor, gather: bool = True):
     """The slot's FFN residual branch: (x, aux) with the MoE's
-    load-balance loss, or 0.0 for a dense FFN or none."""
+    load-balance loss, or 0.0 for a dense FFN or none.  The norm runs
+    on the stream as it lies, and its output goes to the products
+    through `_gathered`."""
+    if "moe" not in p and "mlp" not in p:
+        return x, 0.0
+    h = _gathered(L.rmsnorm(p["ln2"], x), gather)
     if "moe" in p:
-        out, aux = M.moe_apply(p["moe"], cfg, L.rmsnorm(p["ln2"], x))
+        out, aux = M.moe_apply(p["moe"], cfg, h)
         return x + out, aux
-    if "mlp" in p:
-        return x + L.mlp_apply(p["mlp"], cfg, L.rmsnorm(p["ln2"], x)), 0.0
-    return x, 0.0
+    return x + L.mlp_apply(p["mlp"], cfg, h), 0.0
 
 
 def _slot_apply(p: dict, cfg: ArchConfig, slot: SlotSpec, x: torch.Tensor,
@@ -251,9 +266,18 @@ def _slot_apply(p: dict, cfg: ArchConfig, slot: SlotSpec, x: torch.Tensor,
     decode cache's layout: K and V are resharded to it (their sequence
     split over the mesh dims that shard it, a local slice) and written
     on each rank's shard, and the kernel reads them as they left the
-    projection."""
+    projection.
+
+    Over a mesh `x` comes and goes sharded by sequence over "model"
+    (`ACT_TOKENS_SEQ`): the norms and residual adds run on those
+    shards, each product takes its input gathered whole at its entry
+    (`ACT_TOKENS`: one gather for `wq`/`wk`/`wv`, one for the FFN's up
+    products; the SSD and the MoE gather at theirs), and each
+    row-parallel partial sum is reduce-scattered back to the shards
+    (`layers.row_parallel_product`)."""
     h = L.rmsnorm(p["ln1"], x)
     if slot.kind == "attn":
+        h = constrain(h, ACT_TOKENS)
         q, k, v = L.attention_qkv(p["attn"], cfg, h, h, positions, positions)
         if isinstance(k, DTensor) and kv_out is not None:
             for buf, t in zip(kv_out, (k, v)):
@@ -272,7 +296,7 @@ def _slot_apply(p: dict, cfg: ArchConfig, slot: SlotSpec, x: torch.Tensor,
     if slot.cross:
         x = x + _cross_attention(p, cfg, x, image_embeds)
     x, aux = _ffn(p, cfg, x)
-    return constrain(x, ACT_TOKENS), aux
+    return constrain(x, ACT_TOKENS_SEQ), aux
 
 
 def _period_dtensor(t: DTensor, local: torch.Tensor) -> DTensor:
@@ -428,14 +452,17 @@ class LM(nn.Module):
     def _embed_inputs(self, params: dict, batch: dict):
         """(x (B, S, D), image embeddings or None), in the compute type:
         the audio encoder takes `frames` as they are (its front-end is a
-        stub), the others embed `tokens`."""
+        stub), the others embed `tokens`.  Over a mesh x is placed on
+        the residual stream's sequence shards (`ACT_TOKENS_SEQ`: each
+        rank keeps its block, nothing is sent)."""
         cdt = L.dtype_of(self.cfg.compute_dtype)
         if self.cfg.modality == "audio":
             x = batch["frames"].to(cdt)
         else:
             x = L.embed(params["embed"], self.cfg, batch["tokens"])
         img = batch.get("image_embeds")
-        return constrain(x, ACT_TOKENS), None if img is None else img.to(cdt)
+        return (constrain(x, ACT_TOKENS_SEQ),
+                None if img is None else img.to(cdt))
 
     # ---- forward over the stack -------------------------------------------
     def _period(self, period: dict, j: int, x: torch.Tensor,
@@ -510,7 +537,7 @@ class LM(nn.Module):
         x, img = self._embed_inputs(params, batch)
         x, aux = self._stack(params, x, self._positions(x), img, cfg.causal,
                              remat=cfg.remat)
-        x = L.rmsnorm(params["final_norm"], x)
+        x = constrain(L.rmsnorm(params["final_norm"], x), ACT_TOKENS)
         logits = L.unembed(params["embed"], cfg, x, vocab_shards=True)
         if cfg.causal:
             targets = batch["tokens"][:, 1:].long()
@@ -554,7 +581,7 @@ class LM(nn.Module):
                 for si, slot in enumerate(self.slots)]
             x, _ = self._stack(params, x, self._positions(x), img,
                                cfg.causal, kv_stacks)
-            x = L.rmsnorm(params["final_norm"], x)
+            x = constrain(L.rmsnorm(params["final_norm"], x), ACT_TOKENS)
             logits = L.unembed(params["embed"], cfg, x[:, -1:])
         return logits, {"kv": tuple(kv for kv in kv_stacks
                                     if kv is not None), "ssm": None}
@@ -651,8 +678,9 @@ class LM(nn.Module):
                             hc.copy_(nh)
                     x = x + out
                     if slot.cross:
-                        x = x + _cross_attention(p, cfg, x, img)
-                    x, _ = _ffn(p, cfg, x)
+                        x = x + _cross_attention(p, cfg, x, img,
+                                                 gather=False)
+                    x, _ = _ffn(p, cfg, x, gather=False)
                     x = constrain(x, ACT_TOKENS)
             x = L.rmsnorm(params["final_norm"], x)
             return L.unembed(params["embed"], cfg, x), cache

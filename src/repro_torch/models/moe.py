@@ -28,7 +28,8 @@ Over a training mesh the reference's expert parallelism: the groups
 row, the experts over "model", and each model rank gathers, computes
 and scatters only its own experts' slots, on local tensors
 (`local_map`).  Its output is a partial sum over "model", which the
-constraint back to `ACT_TOKENS` all-reduces.  The load-balance loss is
+constraint to the residual stream's sequence shards (`ACT_TOKENS_SEQ`)
+reduce-scatters.  The load-balance loss is
 a product of two means over all groups, so both are reduced over the
 mesh before the product.
 """
@@ -42,7 +43,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ArchConfig
-from ..sharding.rules import (ACT_GROUPS, ACT_TOKENS, P, constrain,
+from ..sharding.rules import (ACT_GROUPS, ACT_TOKENS_SEQ, P, constrain,
                               fsdp_gather, local_range, spec, weight_product,
                               weights_stay)
 from .layers import _activate, dense_init, dtype_of
@@ -214,9 +215,11 @@ def _moe_on_mesh(params: dict, cfg: ArchConfig, x: DTensor):
     `weight_product`'s, and its up products are partial sums over
     "data", reduce-scattered by slot rows, activated, and the
     activations gathered again (`_moe_groups`' `cols`): a few rows of
-    slots cross the mesh, not the weights.  Returns (out over
-    `ACT_TOKENS`: the partial sums all-reduced, the two statistics
-    reduced over the whole mesh)."""
+    slots cross the mesh, not the weights.  `x` comes gathered whole
+    over "model" (`ACT_GROUPS`, the callers' `ACT_TOKENS`).  Returns
+    (out on the residual stream's sequence shards, `ACT_TOKENS_SEQ`:
+    the partial sums reduce-scattered, a decode step's one row
+    all-reduced; the two statistics reduced over the whole mesh)."""
     x = constrain(x, ACT_GROUPS)
     mesh = x.device_mesh
     names = [n for n in ("w_up", "w_gate", "w_down") if n in params]
@@ -278,7 +281,7 @@ def _moe_on_mesh(params: dict, cfg: ArchConfig, x: DTensor):
         + tuple(tuple(w.placements) for w in ws),
         in_grad_placements=(part, stats) + w_grad,
         device_mesh=mesh)(x, router, *ws)
-    return (constrain(out, ACT_TOKENS), constrain(me, P(None)),
+    return (constrain(out, ACT_TOKENS_SEQ), constrain(me, P(None)),
             constrain(ce, P(None)))
 
 

@@ -31,8 +31,8 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ArchConfig
-from ..sharding.rules import (ACT_TOKENS, P, constrain, local_range, spec,
-                              weight_product)
+from ..sharding.rules import (ACT_TOKENS, ACT_TOKENS_SEQ, P, constrain,
+                              local_range, spec, weight_product)
 from .layers import dense_init, dtype_of, rmsnorm, rmsnorm_specs
 
 
@@ -203,10 +203,12 @@ def _ssd_on_mesh(params: dict, cfg: ArchConfig, x: DTensor) -> DTensor:
     The gated output is sharded over "model" along d_inner, in line
     with `w_out`'s rows, so the norm (over all of d_inner: DTensor sums
     the mean square over "model") and the output product (a partial
-    sum over "model", all-reduced by the constraint to `ACT_TOKENS`)
+    sum over "model", reduce-scattered to the residual stream's
+    sequence shards by the constraint to `ACT_TOKENS_SEQ`)
     are DTensor's.  Each rank's x gradient covers its heads, so it is
     ``Partial`` over "model"; the leaves' gradients are ``Partial``
-    over the batch axes."""
+    over the batch axes.  The stream is gathered whole over "model" at
+    entry (`ACT_TOKENS`)."""
     x = constrain(x, ACT_TOKENS)
     mesh = x.device_mesh
     head_names = ("a_log", "dt_bias", "d_skip")     # one spec
@@ -244,7 +246,7 @@ def ssd_forward(params: dict, cfg: ArchConfig,
     gated = _ssd_on_mesh(params, cfg, x) if isinstance(x, DTensor) \
         else _ssd_gated(params, cfg, x)
     y = rmsnorm(params["norm"], gated)
-    return constrain(weight_product(y, params["w_out"], cdt), ACT_TOKENS)
+    return constrain(weight_product(y, params["w_out"], cdt), ACT_TOKENS_SEQ)
 
 
 def _step(cfg: ArchConfig, z, xs, b, c, dt, a_log, d_skip, h):

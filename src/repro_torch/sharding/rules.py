@@ -333,15 +333,21 @@ def shard_map(fn: Callable, *, mesh, in_specs: tuple, out_specs):
     return call
 
 
-# Activation specs.  Attention uses Ulysses-style sequence parallelism
-# over "model" (all-to-all between D-sharded projections and S-sharded
-# attention core).
+# Activation specs, the reference's six.  Attention uses Ulysses-style
+# sequence parallelism over "model" (all-to-all between D-sharded
+# projections and S-sharded attention core).
 ACT_TOKENS = P(("pod", "data"), None, None)          # (B, S, D)
 ACT_TOKENS_TP = P(("pod", "data"), None, "model")    # (B, S, D_tp)
 ACT_Q_ULYSSES = P(("pod", "data"), None, "model", None)  # (B,H,S_tp,hd)
 ACT_KV_GATHERED = P(("pod", "data"), None, None, None)   # (B,Hkv,S,hd)
 ACT_KV_DECODE = P(("pod", "data"), None, "model", None)  # cache: S_tp
 ACT_GROUPS = P(("pod", "data"), None, None)          # MoE (G, T, D)
+# The port's residual stream between products over a training mesh:
+# the sequence sharded over "model" (Megatron-style sequence
+# parallelism), where XLA's propagation puts the reference's stream.
+# A product takes the stream gathered to `ACT_TOKENS` at its entry, and
+# a row-parallel partial sum is reduce-scattered back to this spec.
+ACT_TOKENS_SEQ = P(("pod", "data"), "model", None)   # (B, S_tp, D)
 
 
 # Parallelism mode: "tp" (default: TP/EP over "model") or "dp" (pure

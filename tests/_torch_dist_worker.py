@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import sys
+import time
 import types
 from pathlib import Path
 
@@ -313,8 +314,61 @@ def nll(mesh, spec: dict, job: dict) -> dict:
     return out
 
 
+def stream(mesh, spec: dict, job: dict) -> dict:
+    """The residual stream between layers: the placements and local
+    shape of every `_slot_apply` output (a hook on
+    `repro_torch.models.lm._slot_apply`) in one training step of the
+    job's reduced `arch` (float32, drawn from seed 0 on the mesh, remat
+    as the config has it) on 4 x `seq` tokens of seed 0, and in a
+    prefill of the same tokens by the model as drawn (the steps update
+    their model's parameters).  Returns them with the step's loss, the
+    prefill's last logits (whole) and the seconds of the first step
+    (DTensor plans every operation), of a second and of the prefill."""
+    from repro_torch.models import lm as lm_module
+    cfg = config(job)
+
+    def drawn():
+        return LM(cfg, device="cpu", mesh=mesh,
+                  generator=torch.Generator("cpu").manual_seed(0))
+
+    model = drawn()
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, job["seq"])).astype(np.int32))
+    seen: list = []
+    inner = lm_module._slot_apply
+
+    def hooked(*args, **kwargs):
+        x, aux = inner(*args, **kwargs)
+        seen.append((str(tuple(x.placements)), tuple(x.to_local().shape)))
+        return x, aux
+
+    lm_module._slot_apply = hooked
+    try:
+        tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2))
+        step, _ = make_train_step(model, tcfg, mesh)
+        params, opt_state = init_train_state(model, tcfg, mesh)
+        rows = local_rows(mesh, {"tokens": tokens})
+        t0 = time.perf_counter()
+        p1, o1, met = step(params, opt_state, rows)
+        t1 = time.perf_counter()
+        out = {"train": list(seen), "loss": met["loss"].item(),
+               "first_step_s": t1 - t0}
+        step(p1, o1, rows)
+        out["second_step_s"] = time.perf_counter() - t1
+        seen.clear()
+        model = drawn()
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(place_batch(rows, mesh, True))
+        out.update(prefill=list(seen), logits=whole(logits),
+                   prefill_s=time.perf_counter() - t0)
+    finally:
+        lm_module._slot_apply = inner
+    return out
+
+
 JOBS = {"parity": parity, "faults": faults, "census_cell": census_cell,
-        "heads_split": heads_split, "serve": serve, "nll": nll}
+        "heads_split": heads_split, "serve": serve, "nll": nll,
+        "stream": stream}
 
 
 def main(spec_path: str, rank: int) -> None:

@@ -7,7 +7,9 @@ the CPU with `device="cpu"` (gloo's plans).
   census of the same step over real gloo ranks of the same (1, 2, 2)
   world (`tests/_torch_dist_harness.py`, the worker's `census_cell`
   job), for the reduced Qwen3, Phi-3.5-MoE and Mamba-2.  Both sides are "cpu" meshes, so both do every
-  all-to-all as an all-gather.
+  all-to-all DTensor plans as an all-gather; the attention output's
+  all-to-all to column shards is the port's own
+  (`layers._rows_to_columns`) and one on both.
 - `run_cell` fills a train cell's census under `parse_collective_bytes`'
   keys and leaves no process group behind, whether its census returned
   or raised; it raises a ValueError in a process already in a group.
@@ -88,15 +90,22 @@ def test_fake_mesh_census_equals_the_gloo_census(gloo, arch):
 
 
 def test_run_cell_fills_a_train_cells_census(reduced):
+    census = T_cells.CollectiveCensus()
     res = T_cells.run_cell("qwen3_0_6b", "train_4k", multi_pod=False,
-                           device="cpu")
+                           device="cpu", census=census)
     assert res.ok and res.error == "" and res.mesh == "16x16"
     assert set(res.collectives) == KEYS
     assert res.collectives["total"] > 0 and res.collectives["n_ops"] > 0
     assert res.collectives["total"] == sum(
         res.collectives[k] for k in T_cells.COLLECTIVE_FACTOR)
-    # gloo's plans: no all-to-all
-    assert res.collectives["all-to-all"] == 0
+    # gloo's plans: DTensor's all-to-alls (Ulysses' q) are gathers
+    # there; the only all-to-all is the port's own, of the attention
+    # output (16 rows a rank, 4096 positions, q_dim 128) from sequence
+    # to column shards over the 16 "model" ranks
+    a2a = {k for k in census.by_shape if k.startswith("all-to-all")}
+    assert a2a == {"all-to-all bfloat16[16, 16, 256, 8]"}
+    assert res.collectives["all-to-all"] == sum(
+        census.by_shape[k][1] for k in a2a)
     assert res.compile_s > 0 and res.lower_s > 0
     assert not dist.is_initialized()
 

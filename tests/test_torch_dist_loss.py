@@ -23,7 +23,8 @@ the row-parallel partial sums reduced at their product
   collective has the vocabulary or its block as the last dim of a
   tensor of rank 3 or more, and no float32 all-reduce carries a
   (rows, S, d_model) activation (the partial sums of `wo` and `w_down`
-  are reduced at the product, in bfloat16).
+  are reduced at the product, in bfloat16, and reduce-scattered to the
+  residual stream's sequence shards: (rows, S / 2, d_model)).
 - On plain tensors the loss is `F.log_softmax` and `gather` bit for
   bit, and `_BlockNLL` on one block is their gradient.
 
@@ -210,8 +211,9 @@ def test_bf16_step_census_moves_no_logits_and_no_f32_partial_sums(arch):
     act = [k for k in shapes if k.startswith("all-reduce float32[")
            and k.endswith(f", {seq}, {cfg.d_model}]")]
     assert not act, act
-    assert any(k.startswith("all-reduce bfloat16[") and
-               k.endswith(f", {seq}, {cfg.d_model}]") for k in shapes), shapes
+    assert any(k.startswith("reduce-scatter bfloat16[") and
+               k.endswith(f", {seq // 2}, {cfg.d_model}]") for k in shapes), \
+        shapes
 
 
 def test_plain_loss_is_log_softmax_and_gather_bit_for_bit():

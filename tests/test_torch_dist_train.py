@@ -147,7 +147,8 @@ def world_122(carried, tmp_path_factory):
 @pytest.fixture(scope="module")
 def world_111(carried, tmp_path_factory):
     jobs = [{"name": "adam", "kind": "parity"},
-            {"name": "cell", "kind": "census_cell"}]
+            {"name": "cell", "kind": "census_cell"},
+            {"name": "stream", "kind": "stream", "seq": 32}]
     out = tmp_path_factory.mktemp("world_1x1x1")
     return run_world((1, 1, 1), jobs, carried, out)
 
@@ -250,6 +251,15 @@ def test_one_device_mesh_runs_no_collective(world_111, carried):
     assert res["census"]["total"] == 0
     np.testing.assert_allclose(res["loss"], carried["ref_loss"], **LOSS_F32)
     assert_steps_match(res, carried["adam"])
+
+
+@pytest.mark.parametrize("path", ["train", "prefill"])
+def test_one_device_mesh_keeps_the_stream_as_act_tokens(world_111, path):
+    """No "model" axis: between layers the residual stream lies as
+    `ACT_TOKENS` (the rows over the one "data" dim, the sequence whole),
+    as the sequence-sharded spec sanitizes to."""
+    seen = world_111["stream"][path]
+    assert seen and set(seen) == {("(Shard(dim=0),)", (4, 32, 128))}
 
 
 # ---------------------------------------------------------------------------

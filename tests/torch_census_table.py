@@ -12,6 +12,7 @@ meshes.
         [--partitioned]
     python3 tests/torch_census_table.py table --port DIR --ref DIR
     python3 tests/torch_census_table.py compare --before DIR --after DIR
+    python3 tests/torch_census_table.py predict [--shapes S1,S2,...]
 
 `port`, `reference` and `table` take `--shapes S1,S2,...`, `shapes`
 and `hlo` one `--shape S`.
@@ -36,6 +37,9 @@ and `hlo` one `--shape S`.
   (`launch.cells.cache_bytes`).
 - `compare` prints two `port` sweeps beside each other, kind by kind
   (an older tree's and a newer one's).
+- `predict` prints each cell's census change, GB a device, when the
+  residual stream goes from whole over "model" to sharded by sequence
+  there (`rules.ACT_TOKENS_SEQ`), by `_seq_stream_delta`'s count.
 """
 from __future__ import annotations
 
@@ -282,7 +286,8 @@ def table(args) -> int:
 def compare(args) -> int:
     """A row a cell of two `port` sweeps of the same shapes and plans
     (`--before`, `--after`): each kind and the total as before -> after
-    in GB a device, and the total's ratio."""
+    in GB a device, and the total's ratio, "(equal)" where the two
+    censuses are the same to the byte and in operations."""
     before, after = Path(args.before), Path(args.after)
     print("| cell | " + " | ".join(KINDS) + " | total | after / before |")
     print("|" + " --- |" * (len(KINDS) + 3))
@@ -297,9 +302,85 @@ def compare(args) -> int:
                   + " not counted |" + " |" * (len(KINDS) + 1))
             continue
         ratio = f"{b['total'] / a['total']:.3f}" if a["total"] else "-"
+        ratio += " (equal)" if a == b else ""
         print(f"| {name} | " + " | ".join(
             f"{_gb(a[k])} -> {_gb(b[k])}" for k in KINDS)
             + f" | {_gb(a['total'])} -> {_gb(b['total'])} | {ratio} |")
+    return 0
+
+
+def _seq_stream_delta(cfg, shape, multi_pod: bool) -> float:
+    """Bytes a device a step the census gains (negative: loses) when
+    the stream between products lies sharded by sequence over "model"
+    (m ranks) instead of whole, T the stream's (rows, S, d_model) and
+    Tq the attention output's (rows, S, q_dim) in the compute type.
+    Each sublayer with a row-parallel sum (attention's and the
+    cross-attention's `wo`, the FFN's `w_down`, the MoE's output, the
+    SSD's `w_out`): before, an all-reduce (2T) in the forward and in
+    remat's recompute of every sublayer but a period's last; after, a
+    gather at its entry (T) in the forward, the recompute and the
+    backward (the reduce-scatter's), reduce-scatters (T / m) in the
+    forward, the recompute but the last sublayer's, and the backward
+    (the gather's).  Each attention's output: before gathered whole
+    (Tq) in the forward and the recompute; after an all-to-all (Tq /
+    m) in the forward, the recompute and the backward.  Once a step:
+    the final norm's gather (T) and its reduce-scatter, and the
+    embedding's gradient gathered (T, not for frames).  A prefill
+    (no backward, no recompute): an all-reduce (2T) becomes a gather
+    (T) and a reduce-scatter (T / m), the attention output's gather
+    (Tq) an all-to-all (Tq / m), and the final norm's gather (T) is
+    added.  Decode steps and a sequence "model" does not divide: 0.
+    The parent's own backward plans around a gradient left partial
+    over "model" are not counted."""
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.lm import period_layout
+
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    m = mesh["model"]
+    ways = mesh.get("pod", 1) * mesh["data"]
+    if shape.mode == "decode" or shape.seq_len % m:
+        return 0.0
+    rows = shape.global_batch // ways if shape.global_batch % ways == 0 \
+        else shape.global_batch
+    elem = rows * shape.seq_len * dtype_of(cfg.compute_dtype).itemsize
+    t, tq = elem * cfg.d_model, elem * cfg.q_dim
+    subs = []           # (attention output?) a sublayer, in order
+    for slot in period_layout(cfg):
+        subs.append(slot.kind == "attn")
+        if slot.cross:
+            subs.append(True)
+        if (slot.kind == "attn" or cfg.family == "hybrid") \
+                and (slot.moe or cfg.d_ff > 0):
+            subs.append(False)
+    n_periods = cfg.n_layers // len(period_layout(cfg))
+    if shape.mode != "train":
+        per = sum(t + t / m - 2 * t + (tq / m - tq if attn else 0.0)
+                  for attn in subs)
+        return n_periods * per + t
+    per = 0.0
+    for i, attn in enumerate(subs):
+        if cfg.remat:       # the recompute stops before a period's last sum
+            r = int(i < len(subs) - 1)
+            before = 2 * t * (1 + r) + (2 * tq if attn else 0.0)
+            after = 3 * t + t / m * (2 + r) + (3 * tq / m if attn else 0.0)
+        else:
+            before = 2 * t + (tq if attn else 0.0)
+            after = 2 * t + 2 * t / m + (2 * tq / m if attn else 0.0)
+        per += after - before
+    return n_periods * per + t + t / m + (t if cfg.modality != "audio"
+                                          else 0.0)
+
+
+def predict(args) -> int:
+    """A row a cell: `_seq_stream_delta` in GB a device."""
+    print("| cell | predicted change GB |")
+    print("| --- | --- |")
+    for arch, shape, mp in cells(args.shapes):
+        name = f"{arch} {MESHES[mp]}" if shape == "train_4k" \
+            else f"{arch} {shape} {MESHES[mp]}"
+        delta = _seq_stream_delta(get_config(arch), SHAPES[shape], mp)
+        print(f"| {name} | {delta / 1e9:+.2f} |")
     return 0
 
 
@@ -328,12 +409,14 @@ def main() -> int:
     c = sub.add_parser("compare")
     c.add_argument("--before", required=True)
     c.add_argument("--after", required=True)
-    for sp in (p, r, t, c):
+    pr = sub.add_parser("predict")
+    for sp in (p, r, t, c, pr):
         sp.add_argument("--shapes", default="train_4k",
                         help="comma-separated shapes")
     args = ap.parse_args()
     return {"port": port, "reference": reference, "shapes": shapes,
-            "hlo": hlo, "table": table, "compare": compare}[args.cmd](args)
+            "hlo": hlo, "table": table, "compare": compare,
+            "predict": predict}[args.cmd](args)
 
 
 if __name__ == "__main__":
